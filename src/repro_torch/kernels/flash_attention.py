@@ -1,0 +1,132 @@
+"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+
+Replaces the TPU kernel ``repro/kernels/flash_attention.py:
+flash_attention_fwd`` (Pallas body ``_fwd_kernel``) with the hand-written
+Hopper kernel ``csrc/flash_attention_fwd.cu``; the source says what
+bounds it on an H100 and what its design does about that.
+
+Both versions compute the same function: q [B,Sq,H,hd], k/v [B,Sk,K,hd]
+(q head h reads kv head h // (H/K)), masked by absolute int32 positions
+(causal, sliding window) and the key-validity bits, with
+
+  s = (q * scale) . k in f32;  p = exp(s - max) where the mask holds, else 0
+  o = (p in v's dtype) . v / max(l, 1e-30)   in q's dtype
+  lse = m + log(l) where l > 0, else 0        [B,H,Sq] f32
+
+so a row with no valid key gives o = 0 and lse = 0 (the oracle in
+``ref.py`` softmaxes such a row into a uniform average instead).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import NEG_INF
+
+MAX_HEAD_DIM = 128
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def pair_mask(q_pos, k_pos, k_valid, causal, window):
+    """[B, Sq, Sk] bool: which (query, key) pairs attend."""
+    ok = k_valid[:, None, :].expand(-1, q_pos.shape[1], -1)
+    if causal:
+        ok = ok & (k_pos[:, None, :] <= q_pos[:, :, None])
+    if window > 0:
+        ok = ok & ((q_pos[:, :, None] - k_pos[:, None, :]) < window)
+    return ok
+
+
+def flash_attention_plain(q, k, v, q_pos, k_pos, *, causal=True, window=0,
+                          k_valid):
+    """The kernel's function in plain PyTorch (materialized scores).
+
+    Returns (o [B,Sq,H,hd] in q's dtype, lse [B,H,Sq] f32)."""
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qg = (q.float() * hd ** -0.5).reshape(b, sq, kh, g, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    ok = pair_mask(q_pos, k_pos, k_valid, causal, int(window))[:, None, None]
+    m = torch.where(ok, s, NEG_INF).amax(dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1)                                       # [b,kh,g,sq]
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype).float(), v.float())
+    o = acc / l.clamp_min(1e-30)[..., None]
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+    lse = torch.where(l > 0, m[..., 0] + torch.log(l.clamp_min(1e-30)), 0.0)
+    return o, lse.reshape(b, h, sq)
+
+
+def _check(q, k, v, q_pos, k_pos, k_valid):
+    if q.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {q.device}")
+    for name, t in (("k", k), ("v", v), ("q_pos", q_pos), ("k_pos", k_pos),
+                    ("k_valid", k_valid)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share one of float32/bfloat16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q_pos.dtype != torch.int32 or k_pos.dtype != torch.int32:
+        raise TypeError("positions must be int32")
+    if k_valid.dtype != torch.bool:
+        raise TypeError("k_valid must be bool")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    b, sq, h, hd = q.shape
+    _, sk, kh, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != hd or h % kh:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} outside 1..{MAX_HEAD_DIM}")
+    if min(b, sq, sk) == 0 or b > 65535 or h > 65535:
+        raise ValueError(f"unsupported sizes B={b} Sq={sq} Sk={sk} H={h}")
+    if (q_pos.shape != (b, sq) or k_pos.shape != (b, sk)
+            or k_valid.shape != (b, sk)):
+        raise ValueError("positions / k_valid do not match q / k")
+    for name, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos),
+                    ("k_pos", k_pos), ("k_valid", k_valid)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+@functools.cache
+def _entry():
+    fn = build.load("flash_attention_fwd").flash_attention_fwd
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_fwd(q, k, v, q_pos, k_pos, *, causal=True, window=0,
+                        k_valid, return_lse=False):
+    """Launch the CUDA kernel on the current stream (no synchronisation).
+
+    Every tensor lies on one CUDA device and is contiguous; the kernel
+    builds at first use. Raises on anything the kernel does not take."""
+    _check(q, k, v, q_pos, k_pos, k_valid)
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fn = _entry()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+                 k_valid.data_ptr(), o.data_ptr(), lse.data_ptr(), b, sq, sk,
+                 h, kh, hd, hd ** -0.5, int(bool(causal)), int(window),
+                 stream)
+    build.check(build.load("flash_attention_fwd"), err, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return (o, lse) if return_lse else o
+
+
+flash_attention_fwd.launches = 0

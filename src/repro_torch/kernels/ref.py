@@ -1,0 +1,35 @@
+"""Plain-torch oracles for the kernels (the allclose ground truth).
+
+Counterparts of the JAX package's ``kernels/ref.py``; each lands with
+the slice that ports its kernel."""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -0.7 * torch.finfo(torch.float32).max
+
+
+def flash_attention_ref(q, k, v, q_pos, k_pos, *, causal=True, window=0,
+                        k_valid=None):
+    """q [B,Sq,H,hd], k/v [B,Sk,K,hd] (GQA), absolute-position masking.
+
+    Plain materialized-scores attention in f32. A row with no valid key
+    softmaxes its NEG_INF scores into a uniform average (the kernel gives
+    0 there instead)."""
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qg = q.reshape(b, sq, kh, g, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) \
+        * (hd ** -0.5)
+    ok = torch.ones((b, sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= k_pos[:, None, :] <= q_pos[:, :, None]
+    if window:
+        ok &= (q_pos[:, :, None] - k_pos[:, None, :]) < window
+    if k_valid is not None:
+        ok &= k_valid[:, None, :]
+    s = torch.where(ok[:, None, None, :, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(b, sq, h, hd).to(q.dtype)

@@ -1,0 +1,152 @@
+"""Serving entry point: batched prefill + greedy decode of an (assembled) model.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \
+      --full --batch 4 --prompt-len 512 --decode-steps 16
+
+Serves the post-training construction [F_C_agg ; F_S] (paper Sec. 3.3):
+greedy decode over a batch of requests with a KV cache, attention in
+every layer through the hand-written flash-attention kernel. Runs on
+``cuda`` unless ``--device cpu`` is given (then the kernels' plain
+versions run); without a card it raises rather than carry on on the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import time
+
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.models import layers, model as M
+
+log = logging.getLogger("repro_torch.serve")
+
+
+def resolve_device(name) -> torch.device:
+    """The device to run on; a CUDA device must exist (no CPU fallback)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu (device='cpu') "
+                           "to run the plain versions on the CPU")
+    return device
+
+
+def build_serving_fns(cfg, compute_dtype=torch.float32, device="cuda",
+                      attn_impl="kernel"):
+    """(prefill, decode) for `cfg`. The KV cache holds prompt + 512 slots
+    in the compute dtype; prefill returns the last position's logits.
+    decode updates the cache in place and returns it."""
+    device = resolve_device(device)
+    impls = {"attn": attn_impl}
+
+    @torch.inference_mode()
+    def prefill(params, tokens):
+        b, s = tokens.shape
+        cache = M.init_body_cache(cfg, b, s + 512, compute_dtype, device)
+        h = M.embed_tokens(params, tokens, cfg, dtype=compute_dtype)
+        positions = layers.positions_from_shape(b, s, device=device)
+        h, cache = M.forward_body(params, h, cfg, positions=positions,
+                                  cache=cache, impls=impls)
+        logits = M.lm_logits(params, h[:, -1:], cfg)
+        return logits, cache
+
+    @torch.inference_mode()
+    def decode(params, cache, tokens, positions):
+        h = M.embed_tokens(params, tokens, cfg, positions=positions,
+                           dtype=compute_dtype)
+        h, cache = M.forward_body(params, h, cfg, positions=positions,
+                                  cache=cache, impls=impls)
+        logits = M.lm_logits(params, h, cfg)
+        return logits, cache
+
+    return prefill, decode
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(prefill, decode, params, tokens, steps: int,
+             forced_tokens=None) -> dict:
+    """Prefill `tokens` [B, S], then `steps` greedy decode steps.
+
+    Returns {"tokens" [B, steps+1]: the greedy token after the prompt and
+    after each decode step; "logits" [B, steps+1, V]: the logits they came
+    from; "prefill_s", "decode_s": host seconds, each ending in a device
+    sync}. With `forced_tokens` [B, steps], decode step i is fed
+    forced_tokens[:, i] instead of the greedy token (teacher forcing)."""
+    device = tokens.device
+    b, s = tokens.shape
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, tokens)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+
+    all_logits = [logits[:, -1]]
+    greedy = [logits[:, -1].argmax(dim=-1)]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tok = greedy[-1] if forced_tokens is None else forced_tokens[:, i]
+        pos = torch.full((b, 1), s + i, dtype=torch.int32, device=device)
+        logits, cache = decode(params, cache, tok[:, None].to(torch.int64),
+                               pos)
+        all_logits.append(logits[:, -1])
+        greedy.append(logits[:, -1].argmax(dim=-1))
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+    return {"tokens": torch.stack(greedy, dim=1),
+            "logits": torch.stack(all_logits, dim=1),
+            "prefill_s": t_prefill, "decode_s": t_decode}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", default="minitron-4b")
+    p.add_argument("--reduced", action="store_true", default=True)
+    p.add_argument("--full", dest="reduced", action="store_false",
+                   help="serve the published widths and depth")
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--prompt-len", type=int, default=32)
+    p.add_argument("--decode-steps", type=int, default=16)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--obs-log", default=None,
+                   help="append the run's summary as one JSON line here")
+    args = p.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = M.init_lm(cfg, gen, device)
+    prefill, decode = build_serving_fns(cfg, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=gen, device=device)
+    out = generate(prefill, decode, params, tokens, args.decode_steps)
+
+    t_prefill, t_decode = out["prefill_s"], out["decode_s"]
+    summary = {"arch": cfg.name, "device": str(device), "batch": args.batch,
+               "prompt_len": args.prompt_len,
+               "decode_steps": args.decode_steps,
+               "prefill_ms": t_prefill * 1e3, "decode_ms": t_decode * 1e3,
+               "ms_per_tok": t_decode / max(1, args.decode_steps) * 1e3}
+    log.info(f"batch={args.batch} prefill({args.prompt_len} tok)="
+             f"{t_prefill*1e3:.1f}ms decode={args.decode_steps} steps in "
+             f"{t_decode*1e3:.1f}ms ({summary['ms_per_tok']:.1f} ms/tok) "
+             f"on {device}")
+    log.info(f"sample generations (token ids): "
+             f"{out['tokens'][:2, 1:].tolist()}")
+    if args.obs_log:
+        with open(args.obs_log, "a") as f:
+            f.write(json.dumps(summary) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,192 @@
+"""Self-attention: GQA with RoPE, optional qkv bias and qk-norm, causal /
+full / sliding-window masks by absolute positions, and a KV cache.
+
+Two interchangeable implementations of the core softmax(QK^T)V:
+  * naive  — materializes scores; the oracle and the plain path.
+  * kernel — ``kernels.ops.flash_attention``: the hand-written CUDA kernel
+             on a CUDA tensor, its plain version on a CPU tensor. Like the
+             JAX package's ``pallas``, it serves prefill AND decode.
+
+Cross-attention, precomputed K/V, M-RoPE, the blockwise path and
+sequence sharding come with later slices of the port.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers
+
+NEG_INF = -0.7 * torch.finfo(torch.float32).max
+
+
+# ---------------------------------------------------------------------------
+# Params
+
+
+def init_attention(generator, cfg, device=None):
+    d, h, k, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    p = {
+        "wq": layers.dense_init(generator, (d, h, hd), in_axis_size=d,
+                                device=device),
+        "wk": layers.dense_init(generator, (d, k, hd), in_axis_size=d,
+                                device=device),
+        "wv": layers.dense_init(generator, (d, k, hd), in_axis_size=d,
+                                device=device),
+        "wo": layers.dense_init(generator, (h, hd, d), in_axis_size=h * hd,
+                                device=device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h, hd), device=device)
+        p["bk"] = torch.zeros((k, hd), device=device)
+        p["bv"] = torch.zeros((k, hd), device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": torch.zeros((hd,), device=device)}
+        p["k_norm"] = {"scale": torch.zeros((hd,), device=device)}
+    return p
+
+
+def _proj(x, w):
+    """x [B,S,D] . w [D,N,hd] -> [B,S,N,hd], contiguous."""
+    y = x @ w.reshape(w.shape[0], -1).to(x.dtype)
+    return y.view(*x.shape[:-1], *w.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# Masks
+
+
+def _mask_bias(q_pos, k_pos, causal: bool, window: int, k_valid=None):
+    """Additive bias [B, Sq, Sk] from absolute positions.
+
+    q_pos [B, Sq], k_pos [B, Sk]; window > 0 keeps keys with
+    q_pos - k_pos < window. k_valid optionally marks populated KV slots."""
+    ok = torch.ones((q_pos.shape[0], q_pos.shape[1], k_pos.shape[1]),
+                    dtype=torch.bool, device=q_pos.device)
+    if causal:
+        ok &= k_pos[:, None, :] <= q_pos[:, :, None]
+    if window and window > 0:
+        ok &= (q_pos[:, :, None] - k_pos[:, None, :]) < window
+    if k_valid is not None:
+        ok &= k_valid[:, None, :]
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+# ---------------------------------------------------------------------------
+# Core implementations
+
+
+def _naive_attention(q, k, v, bias):
+    """q [B,Sq,H,hd], k/v [B,Sk,K,hd], bias [B,Sq,Sk] -> [B,Sq,H,hd]."""
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qg = q.reshape(b, sq, kh, g, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    s = s * (hd ** -0.5) + bias[:, None, None, :, :]
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v)
+    return o.reshape(b, sq, h, hd)
+
+
+# ---------------------------------------------------------------------------
+# Cache
+
+
+def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
+               device=None):
+    """KV cache of one layer; `index` counts the entries written so far."""
+    k, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((batch, cache_len, k, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, cache_len, k, hd), dtype=dtype, device=device),
+        "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                          device=device),
+        "index": 0,
+    }
+
+
+def _cache_insert(cache, k_new, v_new, positions):
+    """Insert Sq new KV entries, updating the cache IN PLACE (the JAX
+    package builds a new cache instead; the buffers are the same).
+
+    Ring-buffered for window caches: the write offset is index % cache_len.
+    Decode writes Sq == 1 (never straddles); prefill (Sq > 1) starts at
+    index 0 — when the new sequence exceeds a window cache, only the last
+    cache_len entries are kept."""
+    cache_len = cache["k"].shape[1]
+    sq = k_new.shape[1]
+    if sq >= cache_len and sq > 1:            # prefill into a window cache
+        k_new = k_new[:, -cache_len:]
+        v_new = v_new[:, -cache_len:]
+        positions = positions[:, -cache_len:]
+        idx = 0
+    else:
+        idx = cache["index"] % cache_len
+    n = k_new.shape[1]
+    idx = min(idx, cache_len - n)     # a dynamic_update_slice clamps likewise
+    cache["k"][:, idx:idx + n] = k_new
+    cache["v"][:, idx:idx + n] = v_new
+    cache["pos"][:, idx:idx + n] = positions
+    cache["index"] += sq
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Public entry
+
+
+def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
+                    cache=None, impl="naive"):
+    """x [B, S, D] -> (out [B, S, D], cache).
+
+    positions: [B, S] int32 absolute positions.
+    cache: None for train/prefill-without-cache, else a KV cache dict,
+      which is updated in place and returned."""
+    if cfg.pos_embed == "mrope" or positions.dim() != 2:
+        raise NotImplementedError(
+            "M-RoPE comes with the enc-dec / VLM slice of the port")
+    hd = cfg.resolved_head_dim
+    q = _proj(x, params["wq"])
+    k = _proj(x, params["wk"])
+    v = _proj(x, params["wv"])
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, params["q_norm"]["scale"])
+        k = layers.rms_norm(k, params["k_norm"]["scale"])
+
+    if cfg.pos_embed == "rope":
+        cos, sin = layers.rope_cos_sin(positions, hd, cfg.rope_theta)
+        q = layers.apply_rope(q, cos, sin)
+        k = layers.apply_rope(k, cos, sin)
+
+    if cache is not None and q.shape[1] > 1:
+        # PREFILL: attend over the full fresh sequence (an empty/stale ring
+        # cache cannot serve early queries' windows), then write the cache.
+        cache = _cache_insert(cache, k, v, positions)
+        k_all, v_all, k_pos, k_valid = k, v, positions, None
+    elif cache is not None:
+        # DECODE: attend over the whole cache, empty slots masked out.
+        cache = _cache_insert(cache, k, v, positions)
+        k_all, v_all = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+        k_pos, k_valid = cache["pos"], cache["pos"] >= 0
+    else:
+        k_all, v_all, k_pos, k_valid = k, v, positions, None
+
+    if impl == "naive":
+        bias = _mask_bias(positions, k_pos, causal, window, k_valid)
+        out = _naive_attention(q, k_all, v_all, bias)
+    elif impl == "kernel":
+        out = kops.flash_attention(q, k_all, v_all, positions, k_pos,
+                                   causal=causal, window=window,
+                                   k_valid=k_valid)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r} (naive | kernel)")
+
+    b, s, h, _ = out.shape
+    wo = params["wo"]
+    y = out.reshape(b, s, h * hd) @ wo.reshape(h * hd, -1).to(x.dtype)
+    return y, cache

@@ -1,0 +1,130 @@
+"""Shared low-level layers: norms, activations, RoPE, init helpers."""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Init helpers
+
+
+def dense_init(generator, shape, in_axis_size=None, device=None):
+    """Truncated-normal fan-in init: N(0, 1/fan_in) cut at +-2 sigma, f32.
+
+    Draws from `generator` (on `device`); it cannot reproduce
+    ``jax.random``, so parity tests share params through the bridge."""
+    if in_axis_size is None:
+        in_axis_size = shape[0]
+    std = 1.0 / math.sqrt(max(1, in_axis_size))
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    return torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                       generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# Norms (computed in f32, cast back to input dtype)
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    """scale is stored as the deviation from 1 (zeros init => identity)."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dtype)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    y = y * scale.float() + bias.float()
+    return y.to(dtype)
+
+
+def apply_norm(x, params, kind: str, eps: float = 1e-6):
+    # eps=1e-6 reaches layer_norm too (not its own 1e-5 default), as in
+    # the JAX package.
+    if kind == "rmsnorm":
+        return rms_norm(x, params["scale"], eps)
+    if kind == "layernorm":
+        return layer_norm(x, params["scale"], params["bias"], eps)
+    raise ValueError(f"unknown norm {kind!r}")
+
+
+def init_norm(kind: str, d: int, device=None):
+    if kind == "rmsnorm":
+        # stored as (scale - 1) so a zeros-init is identity-ish; see rms_norm
+        return {"scale": torch.zeros((d,), device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones((d,), device=device),
+                "bias": torch.zeros((d,), device=device)}
+    raise ValueError(f"unknown norm {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Activations
+
+
+def sq_relu(x):
+    r = torch.relu(x)
+    return r * r
+
+
+def gelu(x):
+    """jax.nn.gelu's default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu": gelu,
+    "sq_relu": sq_relu,
+    "relu": torch.relu,
+}
+
+
+def act_fn(name: str):
+    return ACTIVATIONS[name]
+
+
+def gated_activation(name: str) -> bool:
+    """silu family uses a gated (SwiGLU) MLP; gelu / sq_relu are plain."""
+    return name == "silu"
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+
+
+def rope_cos_sin(positions, head_dim: int, theta: float):
+    """positions [..., S] (int) -> cos, sin [..., S, head_dim/2] (f32)."""
+    half = head_dim // 2
+    exponent = torch.arange(0, half, dtype=torch.float32,
+                            device=positions.device) / half
+    freqs = 1.0 / (theta ** exponent)
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x, cos, sin):
+    """x [..., S, H, hd]; cos/sin [..., S, hd/2] broadcast over heads.
+
+    Rotates the two halves of the head dim (not interleaved pairs); cos
+    and sin are cast to x's dtype before the rotation."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :].to(x.dtype)
+    s = sin[..., None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def positions_from_shape(batch, seq, offset=0, device=None):
+    """[batch, seq] int32 absolute positions offset, offset+1, ..."""
+    pos = torch.arange(seq, dtype=torch.int32, device=device) + offset
+    return pos[None, :].expand(batch, seq).contiguous()
