@@ -4,12 +4,13 @@
   python3 chip_smoke.py
 
 1. card:    the card's name, power limit and count.
-2. build:   every CUDA kernel of the serving path, built with nvcc from
-            the sources in this checkout (``build/repro_torch/``).
+2. build:   every CUDA kernel of the port, built with nvcc from the
+            sources in this checkout (``build/repro_torch/``), one nvcc
+            each, all started together.
 3. kernels: each kernel against its plain PyTorch version on the card,
-            at the serving path's shapes and at edge cases, in f32 and
-            bf16; timed beside its plain version, its roofline bound and
-            one PyTorch library call computing the same function.
+            at the serve and train paths' shapes and at edge cases, in f32
+            and bf16; timed beside its plain version, its roofline bound
+            and one PyTorch library call computing the same function.
 4. serve:   the port's serving entry points at full-width minitron-4b
             (32 layers, d_model 3072, vocab 256000, random weights from a
             seed), f32, batch 4, prompt 512, 16 greedy decode steps. The
@@ -19,6 +20,18 @@
             attention on the same params.
 5. profile: device time by kernel over one prefill and a few decode
             steps (torch.profiler), and the device's busy share.
+6. train:   the MPSL LM train step at full-width, full-depth minitron-4b
+            (random weights from a seed, frozen tree bf16, compute f32),
+            4 clients x 2 x 512 tokens, the last 4 blocks trainable, block
+            remat, int8 compression of both links: 3 steps with the
+            kernels (flash attention forward and backward in every block,
+            the fused LM-head cross-entropy, quant8 with its in-kernel
+            Philox), each step's launch counts required exactly; then loss
+            and every trainable gradient of the kernel path against the
+            plain path (naive attention, chunked plain CE) on the same
+            params, batch and link uniforms.
+7. train profile: device time by kernel over one train step, and the
+            device's idle share.
 
 One JSON line per phase; then the {"kernels": [...]} line and the card's
 ``nvidia-smi`` line; the last line is {"ok": true, "device": {...}}. Any
@@ -31,7 +44,10 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import os
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -44,11 +60,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # Imported before anything is printed: without the repo beside it, the
 # script fails here and prints no result.
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch import tree  # noqa: E402
+from repro_torch.configs import (MPSLConfig, RunConfig, SHAPES,  # noqa: E402
+                                 get_config)
+from repro_torch.core import mpsl, split  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.kernels import quant8 as q8  # noqa: E402
+from repro_torch.kernels import softmax_xent as sx  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.optim import schedules  # noqa: E402
 
 # Kernel vs plain version on the card. f32: both sum f32 products, in
 # other orders. bf16: p is rounded to bf16 against different running
@@ -57,6 +79,18 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Served logits, kernel path vs naive path, f32: 32 layers of f32 sums in
 # other orders.
 SERVE_TOL = 1e-3
+# Backward kernels vs plain versions, relative to the largest element of
+# each output: f32 sums over up to 512 keys / 4088 tokens / 4096 vocab
+# columns in other orders (1e-4); bf16 outputs round to bf16, one ulp is
+# 2^-8 (2e-2).
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Train step, kernel path vs plain path on the same params, batch and link
+# uniforms, f32: the loss sums over 32 layers in other orders (1e-4
+# relative); each trainable gradient leaf in relative L2 (1e-3): the same
+# sums, and the int8 downlink quantizes a cut-layer cotangent that differs
+# by float noise, so a few elements round to the neighbouring level.
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and
 # FLOP/s by input type (f32 outside the tensor cores, bf16 inside them).
@@ -65,6 +99,28 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 SERVE = dict(arch="minitron-4b", batch=4, prompt_len=512, decode_steps=16,
              seed=0)
+# The paper's protocol fine-tunes the last k blocks; with all 32 trainable
+# the AdamW state alone would be ~54 GB (PERF.md).
+TRAIN = dict(arch="minitron-4b", n_clients=4, batch_per_client=2, seq=512,
+             trainable_blocks=4, steps=3, lr=3e-4, seed=0)
+
+
+# The launch counter of every kernel wrapper: each adds one where it
+# launches its kernel, and nowhere else.
+COUNTERS = {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "softmax_xent_fwd": sx.softmax_xent_fwd,
+            "softmax_xent_bwd": sx.softmax_xent_bwd,
+            "quant_dequant": q8.quant_dequant}
+
+
+def reset_counts() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
 def emit(obj) -> None:
@@ -100,15 +156,62 @@ def phase_card():
     return smi
 
 
+def _kernel_name(mangled: str) -> str:
+    """A short readable form of a mangled kernel name, e.g.
+    ``dkv::kernel<f32,128>``: its namespaces and its template arguments
+    (float, __nv_bfloat16, and integer and bool values)."""
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    parts = []
+    while s and s[0].isdigit():
+        n = re.match(r"\d+", s).group()
+        parts.append(s[len(n):len(n) + int(n)])
+        s = s[len(n) + int(n):]
+    name = "::".join(p for p in parts if not p.startswith("_GLOBAL"))
+    if not s.startswith("I"):
+        return name
+    args, s = [], s[1:]
+    while s and s[0] != "E":
+        if s[0] == "f":
+            args.append("f32")
+            s = s[1:]
+        elif s[0].isdigit() or s[0] == "S":       # a named type, or a
+            m = re.match(r"(\d+)|S\d*_", s)       # repeat of one: bf16
+            k = m.end() + (int(m.group(1)) if m.group(1) else 0)
+            args.append("bf16")
+            s = s[k:]
+        elif s[0] == "L":
+            m = re.match(r"L[a-z](\d+)E", s)
+            args.append(m.group(1))
+            s = s[m.end():]
+        else:
+            break
+    return f"{name}<{','.join(args)}>"
+
+
+def _ptxas_report(log: str) -> list:
+    """One line per kernel of nvcc's ``-Xptxas -v`` log: registers, stack
+    frame and spills."""
+    out, name, frame = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name, frame = _kernel_name(m.group(1)), ""
+        elif "spill" in ln:
+            frame = ln.strip()
+        else:
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and name:
+                out.append(f"{name}: {m.group(1)} registers, {frame}")
+                name = None
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     logs = build.build()
     seconds = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, log in logs.items()}
     emit({"phase": "build", "seconds": seconds, "built": sorted(logs),
-          "ptxas": ptxas})
+          "ptxas": {name: _ptxas_report(log) for name, log in logs.items()}})
 
 
 # ---------------------------------------------------------------------------
@@ -126,16 +229,20 @@ def _attn_inputs(g, b, sq, sk, h, kh, hd, dtype, *, q_pos, k_pos, k_valid):
 
 
 def _attn_cases():
-    """(name, shape dict, masks) of every case; `main_path` marks the
-    shapes the serve phase gives the kernel."""
+    """(name, shape dict, masks, main_path) of every case; `main_path`
+    marks the shapes the serve and train phases give the kernels."""
     b, s, h, kh, hd = 4, 512, 24, 8, 128
     ar = torch.arange(s, dtype=torch.int32)[None].expand(b, s)
     cache_len, filled = 1024, 513
     k_pos = torch.full((b, cache_len), -1, dtype=torch.int32)
     k_pos[:, :filled] = torch.arange(filled, dtype=torch.int32)
+    tr = torch.arange(s, dtype=torch.int32)[None].expand(8, s)
     cases = [
         ("prefill", dict(b=b, sq=s, sk=s, h=h, kh=kh, hd=hd), dict(
             q_pos=ar, k_pos=ar, k_valid=torch.ones(b, s, dtype=torch.bool),
+            causal=True, window=0), True),
+        ("train", dict(b=8, sq=s, sk=s, h=h, kh=kh, hd=hd), dict(
+            q_pos=tr, k_pos=tr, k_valid=torch.ones(8, s, dtype=torch.bool),
             causal=True, window=0), True),
         ("decode", dict(b=b, sq=1, sk=cache_len, h=h, kh=kh, hd=hd), dict(
             q_pos=torch.full((b, 1), filled - 1, dtype=torch.int32),
@@ -178,10 +285,10 @@ def _bound(q, k, q_pos, k_pos, k_valid, causal, window, dtype):
 def _library_call(q, k, v, k_valid, name):
     """One PyTorch call computing the same function (a yardstick only;
     the port never calls it), or None where none takes these masks."""
-    if name not in ("prefill", "decode"):
+    if name not in ("prefill", "train", "decode"):
         return None
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    if name == "prefill":
+    if name in ("prefill", "train"):
         return lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
     mask = k_valid[:, None, None, :]
@@ -189,9 +296,9 @@ def _library_call(q, k, v, k_valid, name):
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
-def phase_kernels():
-    """Compare and time the flash-attention kernel; returns the kernel's
-    report, filled in with the serve phase's launch count later."""
+def kernels_flash_fwd():
+    """Compare and time the flash-attention forward kernel; returns its
+    report, filled in with the main paths' launch counts later."""
 
     g = torch.Generator(device="cuda").manual_seed(0)
     results = []
@@ -219,7 +326,8 @@ def phase_kernels():
                    "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
                    "tol": tol}
             if bad:
-                emit({"phase": "kernels", **rec, "failed": bad})
+                emit({"phase": "kernels", "kernel": "flash_attention_fwd",
+                      **rec, "failed": bad})
                 raise AssertionError(f"flash_attention_fwd {name} {dtype}: "
                                      f"{bad} disagree with the plain version")
             pick = itertools.cycle(sets).__next__
@@ -238,7 +346,7 @@ def phase_kernels():
             rec["library_ms"] = time_ms(lib) if lib else None
             rec["bound_ms"], rec["bound_by"] = _bound(
                 q, k, qp, kp, kv, m["causal"], m["window"], dtype)
-            emit({"phase": "kernels", **rec})
+            emit({"phase": "kernels", "kernel": "flash_attention_fwd", **rec})
             results.append(rec)
     torch.cuda.empty_cache()
     # the line's headline numbers: the serve path's prefill shape, in f32
@@ -256,6 +364,265 @@ def phase_kernels():
         "library_ms": head["library_ms"],
         "cases": results,
     }
+
+
+def _max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _check_close(kernel, case, dtype, pairs, tol, rec):
+    """Each (name, kernel out, plain out): within tol of the plain output's
+    largest element. Raises, after emitting the record, if not."""
+    bad = []
+    for name, got, want in pairs:
+        err = _max_err(got, want)
+        rec[f"max_abs_err_{name}"] = err
+        scale = want.float().abs().max().item()
+        rec[f"scale_{name}"] = scale
+        if not math.isfinite(err) or err > tol * max(scale, 1e-30):
+            bad.append(name)
+    if bad:
+        emit({"phase": "kernels", "kernel": kernel, **rec, "failed": bad})
+        raise AssertionError(f"{kernel} {case} {dtype}: {bad} disagree with "
+                             f"the plain version")
+
+
+def _errs(rec):
+    return max(v for k, v in rec.items() if k.startswith("max_abs_err"))
+
+
+def _bwd_bound(q, k, q_pos, k_pos, k_valid, causal, window, dtype):
+    """(ms, bound_by) of the flash backward: 10*hd FLOPs per (query head,
+    admitted pair) (s, dp, dq, dk, dv); bytes: q, o, dO, dq once, lse, the
+    positions and validity, and k, v, dk, dv of the keys some query sees."""
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    ok = fa.pair_mask(q_pos, k_pos, k_valid, causal, window)
+    flops = 10.0 * hd * h * ok.sum().item()
+    keys_needed = ok.any(dim=1).sum().item()
+    es = q.element_size()
+    nbytes = (4 * q.numel() * es + b * h * sq * 4
+              + 4 * keys_needed * kh * hd * es
+              + q_pos.numel() * 4 + k_pos.numel() * 4 + k_valid.numel())
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernels_flash_bwd():
+    """Compare and time the flash-attention backward kernels (dq, dk/dv)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    results = []
+    for name, shp, m, main_path in _attn_cases():
+        if name in ("prefill", "decode"):     # serve shapes: no backward
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, qp, kp, kv = _attn_inputs(
+                g, dtype=dtype, q_pos=m["q_pos"], k_pos=m["k_pos"],
+                k_valid=m["k_valid"], **shp)
+            kw = dict(causal=m["causal"], window=m["window"])
+            do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+            o, lse = fa.flash_attention_fwd(q, k, v, qp, kp, k_valid=kv,
+                                            return_lse=True, **kw)
+            args = (q, k, v, qp, kp, kv, o, lse, do)
+            got = fa.flash_attention_bwd(*args, **kw)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bwd_plain(*args, **kw)
+            rec = {"case": name, "dtype": str(dtype).split(".")[-1],
+                   "shape": shp, "main_path": main_path,
+                   "tol": GRAD_TOL[dtype]}
+            _check_close("flash_attention_bwd", name, dtype,
+                         zip(("dq", "dk", "dv"), got, want),
+                         GRAD_TOL[dtype], rec)
+            del want
+            rec["ms"] = time_ms(lambda: fa.flash_attention_bwd(*args, **kw),
+                                iters=10)
+            rec["plain_ms"] = time_ms(
+                lambda: fa.flash_attention_bwd_plain(*args, **kw), iters=5)
+            rec["library_ms"] = None
+            if name == "train":
+                # the backward of SDPA (a yardstick only)
+                qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                              for t in (q, k, v))
+                out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True,
+                                                     enable_gqa=True)
+                dot = do.transpose(1, 2).contiguous()
+                rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+                del out, qt, kt, vt
+            rec["bound_ms"], rec["bound_by"] = _bwd_bound(
+                q, k, qp, kp, kv, m["causal"], m["window"], dtype)
+            emit({"phase": "kernels", "kernel": "flash_attention_bwd", **rec})
+            results.append(rec)
+    torch.cuda.empty_cache()
+    head = next(r for r in results
+                if r["case"] == "train" and r["dtype"] == "float32")
+    return _entry_of("flash_attention_bwd", "flash_attention_bwd.cu",
+                     "src/repro/kernels/flash_attention.py:273", results,
+                     head)
+
+
+def _entry_of(name, source, replaces, results, head):
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": max(_errs(r) for r in results),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "cases": results}
+
+
+def _ce_bound(t, d, v, dtype, products, nbytes):
+    t_ops = products * 2.0 * t * d * v / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernels_softmax_xent():
+    """Compare and time the fused LM-head cross-entropy, forward and
+    backward: the train path's shape (T = 8 x 511 tokens, D 3072, V 256000)
+    in f32, and a ragged small shape in f32 and bf16."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cases = [("train", 4088, 3072, 256000, torch.float32, True),
+             ("ragged", 1000, 200, 10007, torch.float32, False),
+             ("ragged", 1000, 200, 10007, torch.bfloat16, False)]
+    fwd_res, bwd_res = [], []
+    for name, t, d, v, dtype, main_path in cases:
+        h = (torch.randn((t, d), generator=g, device="cuda")).to(dtype)
+        w = (torch.randn((d, v), generator=g, device="cuda")
+             * d ** -0.5).to(dtype)
+        lab = torch.randint(0, v, (t,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        gg = torch.randn((t,), generator=g, device="cuda") / t
+        base = {"case": name, "dtype": str(dtype).split(".")[-1],
+                "shape": dict(t=t, d=d, v=v), "main_path": main_path}
+        iters = 3 if main_path else 10
+        es = h.element_size()
+
+        loss, lse = sx.softmax_xent_fwd(h, w, lab)
+        torch.cuda.synchronize()
+        want = sx.softmax_xent_fwd_plain(h, w, lab)
+        rec = dict(base, tol=TOL[torch.float32])
+        _check_close("softmax_xent_fwd", name, dtype,
+                     zip(("loss", "lse"), (loss, lse), want),
+                     TOL[torch.float32], rec)
+        del want
+        rec["ms"] = time_ms(lambda: sx.softmax_xent_fwd(h, w, lab),
+                            iters=iters, warmup=1)
+        rec["plain_ms"] = time_ms(lambda: sx.softmax_xent_fwd_plain(h, w, lab),
+                                  iters=iters, warmup=1)
+        rec["library_ms"] = time_ms(lambda: F.cross_entropy(
+            h @ w, lab.long(), reduction="none"), iters=iters, warmup=1)
+        rec["bound_ms"], rec["bound_by"] = _ce_bound(
+            t, d, v, dtype, 1, (t * d + d * v) * es + t * 4 * 3)
+        emit({"phase": "kernels", "kernel": "softmax_xent_fwd", **rec})
+        fwd_res.append(rec)
+
+        got = sx.softmax_xent_bwd(h, w, lab, lse, gg)
+        torch.cuda.synchronize()
+        want = sx.softmax_xent_bwd_plain(h, w, lab, lse, gg)
+        rec = dict(base, tol=GRAD_TOL[dtype])
+        _check_close("softmax_xent_bwd", name, dtype,
+                     zip(("dh", "dw"), got, want), GRAD_TOL[dtype], rec)
+        del got, want
+        rec["ms"] = time_ms(lambda: sx.softmax_xent_bwd(h, w, lab, lse, gg),
+                            iters=iters, warmup=1)
+        rec["plain_ms"] = time_ms(
+            lambda: sx.softmax_xent_bwd_plain(h, w, lab, lse, gg),
+            iters=iters, warmup=1)
+        hg, wg = h.clone().requires_grad_(), w.clone().requires_grad_()
+        lib = F.cross_entropy(hg @ wg, lab.long(), reduction="none")
+        rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            lib, (hg, wg), gg, retain_graph=True), iters=iters, warmup=1)
+        del lib, hg, wg
+        rec["bound_ms"], rec["bound_by"] = _ce_bound(
+            t, d, v, dtype, 3, 2 * (t * d + d * v) * es + t * 4 * 3)
+        emit({"phase": "kernels", "kernel": "softmax_xent_bwd", **rec})
+        bwd_res.append(rec)
+        del h, w
+        torch.cuda.empty_cache()
+    return [_entry_of(kname, "softmax_xent.cu",
+                      f"src/repro/kernels/softmax_xent.py:{line}", res,
+                      res[0])
+            for kname, line, res in (("softmax_xent_fwd", 131, fwd_res),
+                                     ("softmax_xent_bwd", 170, bwd_res))]
+
+
+def kernels_quant8():
+    """Compare and time quant8 at the links' shape (4096 token rows x
+    3072): streamed uniforms and round-to-nearest bitwise against the plain
+    version; the in-kernel Philox for range and unbiasedness (the mean of
+    64 draws approaches x)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn((4096, 3072), generator=g, device="cuda")
+             * torch.linspace(0.1, 3.0, 3072, device="cuda")).to(dtype)
+        u = torch.rand(x.shape, generator=g, device="cuda")
+        rec = {"case": "links", "dtype": str(dtype).split(".")[-1],
+               "shape": list(x.shape), "main_path": dtype == torch.float32}
+        ya, ra = q8.quant_dequant(x, u), q8.quant_dequant_plain(x, u)
+        yd, rd = q8.quant_dequant(x), q8.quant_dequant_plain(x)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        scale = x.float().abs().amax(-1, keepdim=True) / 127
+        # one draw lands on one of the two levels around x, less than a
+        # level away; in bf16 that value is rounded to bf16 after, by up
+        # to 2^-8 of its size (|x| + a level)
+        slack = scale if dtype == torch.float32 else \
+            scale + (x.float().abs() + scale) * 2 ** -8
+        slack = slack * (1 + 1e-5)
+        mean = torch.zeros(x.shape, device="cuda")
+        in_range = True
+        for _ in range(64):
+            y = q8.quant_dequant(x, gen).float()
+            in_range &= bool(((y - x.float()).abs() <= slack).all())
+            mean += y / 64
+        torch.cuda.synchronize()
+        rec["max_abs_err_streamed"] = _max_err(ya, ra)
+        rec["max_abs_err_nearest"] = _max_err(yd, rd)
+        rec["philox_in_range"] = in_range
+        ok = torch.equal(ya, ra) and torch.equal(yd, rd) and in_range
+        if dtype == torch.float32:
+            # a draw errs by less than a level and on average by nothing:
+            # the mean of 64 draws spreads by at most 1/16 of a level
+            err = (mean - x.float()) / scale
+            rec["philox_mean_abs_err_levels"] = err.abs().mean().item()
+            rec["philox_mean_err_levels"] = err.mean().item()
+            ok = (ok and rec["philox_mean_abs_err_levels"] < 0.1
+                  and abs(rec["philox_mean_err_levels"]) < 0.01)
+        if not ok:
+            emit({"phase": "kernels", "kernel": "quant_dequant", **rec,
+                  "failed": True})
+            raise AssertionError(f"quant_dequant {dtype}: disagrees with the "
+                                 f"plain version, leaves its range or is "
+                                 f"biased")
+        rec["ms"] = time_ms(lambda: q8.quant_dequant(x, u))
+        rec["ms_philox"] = time_ms(lambda: q8.quant_dequant(x, gen))
+        rec["plain_ms"] = time_ms(lambda: q8.quant_dequant_plain(x, u))
+        rec["library_ms"] = None
+        # bytes of the streamed-uniform call: x and u in, y out
+        t_bytes = (2 * x.numel() * x.element_size() + u.numel() * 4) \
+            / PEAK_BYTES
+        rec["bound_ms"], rec["bound_by"] = t_bytes * 1e3, "bytes"
+        rec["bound_ms_philox"] = 2 * x.numel() * x.element_size() \
+            / PEAK_BYTES * 1e3
+        emit({"phase": "kernels", "kernel": "quant_dequant", **rec})
+        results.append(rec)
+    torch.cuda.empty_cache()
+    entry = _entry_of("quant_dequant", "quant8.cu",
+                      "src/repro/kernels/quant8.py:63", results, results[0])
+    entry["max_abs_err"] = max(max(r["max_abs_err_streamed"],
+                                   r["max_abs_err_nearest"]) for r in results)
+    return entry
+
+
+def phase_kernels():
+    """Every kernel against its plain version; {name: report entry}."""
+    entries = [kernels_flash_fwd(), kernels_flash_bwd(),
+               *kernels_softmax_xent(), kernels_quant8()]
+    return {e["name"]: e for e in entries}
 
 
 # ---------------------------------------------------------------------------
@@ -283,15 +650,17 @@ def phase_serve():
     serve.generate(prefill, decode, params, tokens, 1)
 
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_fwd.launches = 0
+    reset_counts()
     out = serve.generate(prefill, decode, params, tokens, steps)
-    launches = fa.flash_attention_fwd.launches
+    counts = read_counts()
+    launches = counts["flash_attention_fwd"]
     peak = torch.cuda.max_memory_allocated()
 
-    want = cfg.num_layers * (1 + steps)
-    if launches != want:
-        raise AssertionError(f"flash kernel launched {launches} times in the "
-                             f"serve run, expected {want}")
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash_attention_fwd"] = cfg.num_layers * (1 + steps)
+    if counts != want:
+        raise AssertionError(f"kernel launches in the serve run: {counts}, "
+                             f"expected {want}")
     logits = out["logits"]
     if logits.shape != (SERVE["batch"], steps + 1, cfg.vocab_size):
         raise AssertionError(f"logits shape {tuple(logits.shape)}")
@@ -309,7 +678,8 @@ def phase_serve():
            "params": cfg.param_count(), "dtype": "float32",
            "batch": SERVE["batch"], "prompt_len": SERVE["prompt_len"],
            "decode_steps": steps, "init_s": init_s,
-           "kernel_launches": launches, "expected_launches": want,
+           "kernel_launches": launches,
+           "expected_launches": want["flash_attention_fwd"],
            "prefill_ms": out["prefill_s"] * 1e3,
            "decode_ms_per_token": out["decode_s"] / steps * 1e3,
            "naive_prefill_ms": ref["prefill_s"] * 1e3,
@@ -322,7 +692,7 @@ def phase_serve():
                           rtol=SERVE_TOL):
         raise AssertionError(f"served logits differ from the naive path by "
                              f"{diff}")
-    return launches, (cfg, prefill, decode, params, tokens, rec)
+    return counts, (cfg, prefill, decode, params, tokens, rec)
 
 
 def _device_time_by_kernel(prof):
@@ -369,6 +739,161 @@ def phase_profile(cfg, prefill, decode, params, tokens, serve_rec,
               "top_kernels_ms": [[k[:90], v] for k, v in ranked]})
 
 
+def train_launches_per_step(cfg) -> dict:
+    """Each kernel's launches in one train step, from the code: attention
+    runs once per block forward and again in the block's remat recompute,
+    and its backward once; the LM-head CE once each way over all clients'
+    tokens; quant8 once on the uplink value, once on the downlink
+    cotangent."""
+    return {"flash_attention_fwd": 2 * cfg.num_layers,
+            "flash_attention_bwd": cfg.num_layers,
+            "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+            "quant_dequant": 2}
+
+
+def _rel_l2(a, b) -> float:
+    den = b.float().norm().item()
+    num = (a.float() - b.float()).norm().item()
+    return num / den if den else num
+
+
+def phase_train():
+    """Drive the MPSL train step at full width. Returns the kernels'
+    launches and what the profile phase needs to drive it again."""
+    cfg = get_config(TRAIN["arch"])
+    device = serve.resolve_device("cuda")
+    mp = MPSLConfig(n_clients=TRAIN["n_clients"],
+                    trainable_blocks=TRAIN["trainable_blocks"],
+                    compress_uplink=True, compress_downlink=True)
+    run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mpsl=mp,
+                    compute_dtype="float32",
+                    learning_rate=TRAIN["lr"], seed=TRAIN["seed"])
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(TRAIN["seed"])
+    params, frozen, plan = split.init_mpsl_lm(gen, cfg, run, device)
+    state = mpsl.init_state(params, frozen, TRAIN["seed"])
+    loader = train.make_lm_loader(cfg, TRAIN["n_clients"],
+                                  TRAIN["batch_per_client"], TRAIN["seq"],
+                                  TRAIN["seed"])
+    steps = TRAIN["steps"]
+    batches = [train.to_device(loader(i), device) for i in range(steps)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    loss_fn = mpsl.make_lm_loss(cfg, run)               # the kernels
+    step_fn = mpsl.make_train_step(
+        loss_fn, run, schedules.warmup_cosine(TRAIN["lr"], 10, steps))
+
+    per_step = train_launches_per_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, norms, times, step_counts = [], [], [], []
+    for i in range(steps):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = step_fn(state, batches[i])
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        after = read_counts()
+        step_counts.append({k: after[k] - before[k] for k in after})
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": cfg.param_count(),
+           "trainable_params": sum(p.numel()
+                                   for p in tree.leaves(state["params"])),
+           "frozen_dtype": run.frozen_dtype, "compute_dtype": "float32",
+           "remat": run.remat, "compress": True, **TRAIN,
+           "ce_tokens": TRAIN["n_clients"] * TRAIN["batch_per_client"]
+           * (TRAIN["seq"] - 1),
+           "init_s": init_s, "losses": losses, "grad_norms": norms,
+           "step_ms": [x * 1e3 for x in times],
+           "median_step_ms": statistics.median(times[1:]) * 1e3,
+           "peak_mem_bytes": peak, "launches_per_step": step_counts,
+           "expected_per_step": per_step}
+    emit(rec)
+    if any(c != per_step for c in step_counts):
+        raise AssertionError(f"train-step launches {step_counts}, expected "
+                             f"{per_step} each step")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} "
+                             f"{norms}")
+
+    # the kernel path against the plain path: same params, batch and link
+    # uniforms (quant8 streams them in, bitwise equal in both)
+    b0 = batches[0]
+    shape = (TRAIN["n_clients"], TRAIN["batch_per_client"], TRAIN["seq"],
+             cfg.d_model)
+    ug = torch.Generator(device=device).manual_seed(TRAIN["seed"] + 1)
+    draws = {k: torch.rand(shape, generator=ug, device=device)
+             for k in ("uplink", "downlink")}
+    params = state["params"]
+    t = time.perf_counter()
+    l_k, _, g_k = mpsl.value_and_grad(loss_fn, params, frozen, b0, draws)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t
+    plain_fn = mpsl.make_lm_loss(cfg, run,
+                                 impls={"attn": "naive", "ce": "plain"})
+    t = time.perf_counter()
+    l_p, _, g_p = mpsl.value_and_grad(plain_fn, params, frozen, b0, draws)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    names = [".".join(str(x) for x in path) for path in _leaf_paths(params)]
+    errs = {n: _rel_l2(a, b) for n, a, b in zip(names, g_k, g_p)}
+    loss_err = abs(float(l_k) - float(l_p)) / abs(float(l_p))
+    worst = max(errs, key=errs.get)
+    cmp = {"phase": "train_vs_plain", "loss_kernel": float(l_k),
+           "loss_plain": float(l_p), "loss_rel_err": loss_err,
+           "loss_tol": TRAIN_LOSS_TOL, "grad_leaves": len(errs),
+           "grad_rel_l2_max": errs[worst], "grad_rel_l2_worst_leaf": worst,
+           "grad_rel_l2_adapter": {n: e for n, e in errs.items()
+                                   if "adapter" in n},
+           "grad_tol": TRAIN_GRAD_TOL,
+           "kernel_loss_and_grad_s": kernel_s,
+           "plain_loss_and_grad_s": plain_s}
+    emit(cmp)
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    if loss_err > TRAIN_LOSS_TOL or errs[worst] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"kernel path differs from the plain path: loss "
+                             f"{loss_err}, gradient {worst} {errs[worst]}")
+    return counts, (step_fn, state, batches[-1], rec)
+
+
+def _leaf_paths(t, prefix=()):
+    """Paths of a tree's leaves, in ``tree.leaves`` order."""
+    if isinstance(t, dict):
+        return [p for k in sorted(t) for p in _leaf_paths(t[k], prefix + (k,))]
+    if isinstance(t, (list, tuple)):
+        return [p for i, v in enumerate(t)
+                for p in _leaf_paths(v, prefix + (i,))]
+    return [prefix]
+
+
+def phase_train_profile(step_fn, state, batch, train_rec, top=10):
+    """Where a train step's time goes: device time by kernel over one step
+    (torch.profiler), and the device's idle share of the unprofiled median
+    step time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, met = step_fn(state, batch)
+        float(met["loss"])
+        torch.cuda.synchronize()
+    times = _device_time_by_kernel(prof)
+    busy = sum(times.values())
+    wall = train_rec["median_step_ms"]
+    ranked = sorted(times.items(), key=lambda kv: -kv[1])[:top]
+    emit({"phase": "train_profile", "per": "step", "device_busy_ms": busy,
+          "host_ms_unprofiled": wall,
+          "device_idle_share": max(0.0, 1 - busy / wall),
+          "top_kernels_ms": [[k[:90], v] for k, v in ranked]})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -377,12 +902,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_card()
     phase_build()
-    kernel = phase_kernels()
-    kernel["launches"], served = phase_serve()
+    kernels = phase_kernels()
+    serve_counts, served = phase_serve()
     phase_profile(*served)
-    if not kernel["launches"]:
-        raise AssertionError("a kernel of the serving path never launched")
-    emit({"kernels": [kernel]})
+    del served
+    torch.cuda.empty_cache()
+    train_counts, trained = phase_train()
+    phase_train_profile(*trained)
+    del trained
+    for name, entry in kernels.items():
+        by_path = {"serve": serve_counts[name], "train": train_counts[name]}
+        entry["launches_by_path"] = by_path
+        entry["launches"] = sum(by_path.values())
+        if not entry["launches"]:
+            raise AssertionError(f"{name} never launched on a main path")
+    emit({"kernels": list(kernels.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

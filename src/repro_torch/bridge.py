@@ -8,29 +8,20 @@ numpy. Both keep every dtype and every bit: a bfloat16 leaf arrives as an
 through float32 (exact) and then to ``torch.bfloat16``.
 
 The JAX package stacks the layers of each body segment on a leading axis
-(``params["segments"][i]`` leaves are ``[L, ...]``); the port keeps a list
-of L per-layer dicts instead.
+(the leaves of every ``tree["segments"][i]`` are ``[L, ...]``); the port
+keeps a list of L per-layer dicts instead. The conversion goes down nested
+dicts, so the MPSL trees of ``core.split.init_mpsl_lm`` (``client.adapter``
+stays stacked [N, ...], ``server.segments`` and the frozen segments are
+split per layer) and AdamW's ``{mu, nu, count}``, whose moments mirror
+the params, cross as well.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
+from repro_torch.tree import leaves as _leaves
+from repro_torch.tree import map_ as _map
 
 
 def _to_tensor(a, device):
@@ -50,29 +41,34 @@ def _to_numpy(t):
 
 
 def from_repro(tree, device="cpu"):
-    """JAX-package param tree -> the port's params on `device`."""
+    """JAX-package tree -> the port's on `device`: tensors for arrays, each
+    stacked ``segments`` list split into per-layer lists."""
+    if not isinstance(tree, dict):
+        return _map(lambda a: _to_tensor(a, device), tree)
     if "encoder" in tree:
         raise NotImplementedError(
             "encoders come with the enc-dec / VLM slice of the port")
-    out = {k: _map(lambda a: _to_tensor(a, device), v)
-           for k, v in tree.items() if k != "segments"}
-    out["segments"] = []
-    for seg in tree["segments"]:
-        count = np.shape(_leaves(seg)[0])[0]
-        out["segments"].append(
-            [_map(lambda a, i=i: _to_tensor(np.asarray(a)[i], device), seg)
-             for i in range(count)])
+    out = {k: from_repro(v, device) for k, v in tree.items()
+           if k != "segments"}
+    if "segments" in tree:
+        out["segments"] = []
+        for seg in tree["segments"]:
+            count = np.shape(_leaves(seg)[0])[0]
+            out["segments"].append(
+                [_map(lambda a, i=i: _to_tensor(np.asarray(a)[i], device),
+                      seg) for i in range(count)])
     return out
 
 
 def to_repro(params):
-    """The port's params -> a JAX-package param tree of numpy arrays."""
-    out = {k: _map(_to_numpy, v) for k, v in params.items()
-           if k != "segments"}
-    out["segments"] = []
-    for layer_list in params["segments"]:
-        per_layer = [_map(_to_numpy, lp) for lp in layer_list]
-        out["segments"].append(_stack(per_layer))
+    """The port's tree -> a JAX-package tree of numpy arrays, each
+    per-layer ``segments`` list stacked back."""
+    if not isinstance(params, dict):
+        return _map(_to_numpy, params)
+    out = {k: to_repro(v) for k, v in params.items() if k != "segments"}
+    if "segments" in params:
+        out["segments"] = [_stack([_map(_to_numpy, lp) for lp in layer_list])
+                           for layer_list in params["segments"]]
     return out
 
 

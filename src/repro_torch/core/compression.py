@@ -1,0 +1,53 @@
+"""Smashed-data / cut-layer-gradient compression of the MPSL links.
+
+Counterpart of the JAX package's ``core/compression.py``: per-token
+symmetric int8 on both links, through the quant8 kernel (its plain
+version on the CPU), with stochastic rounding:
+
+  * compress_activations — quant-dequant on the FORWARD value with a
+    straight-through gradient (the server sees int8-precision smashed
+    data);
+  * compress_gradients   — identity on forward, quant-dequant applied to
+    the COTANGENT (an int8 gradient downlink).
+
+``rng`` is a ``torch.Generator`` (the kernel draws its uniforms with an
+in-kernel Philox seeded from it) or a tensor of uniforms of x's shape
+(used as given, so a test can feed ``jax.random.uniform``'s draws).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ops as kops
+
+# scale payload: one f32 per token row (per-row symmetric quantization)
+SCALE_BYTES = 4
+
+
+def compress_activations(x, rng):
+    return kops.quant_dequant(x, rng)          # straight-through
+
+
+def compress_gradients(x, rng):
+    return _CompressGradients.apply(x, rng)
+
+
+class _CompressGradients(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rng):
+        ctx.rng = rng
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return kops.quant_dequant_value(g.contiguous(), ctx.rng), None
+
+
+def compressed_bytes(shape, bits: int = 8) -> int:
+    """Wire size of a compressed tensor: ceil(bits/8 * n) payload plus one
+    f32 scale per token row."""
+    n = math.prod(shape)
+    tokens = n // shape[-1]
+    return math.ceil(n * bits / 8) + tokens * SCALE_BYTES

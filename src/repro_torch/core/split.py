@@ -1,0 +1,165 @@
+"""The MPSL three-way split  W = [W_h ; W_b ; W_t]  (paper Sec. 3.1).
+
+Counterpart of the JAX package's ``core/split.py`` for the LM family.
+Parameters are partitioned into three trees:
+
+  client  — W_h: per-client low-rank tokenizer adapters on a frozen
+            embedding, STACKED along a leading client axis [N, ...].
+  server  — W_b (the fine-tuned suffix of the body) + W_t (the LM head):
+            shared, one copy, one backward pass.
+  frozen  — the embedding table and the non-fine-tuned prefix of the
+            body: on the activation/gradient path but never updated,
+            stored in bf16 with no optimizer state.
+
+The body boundary follows the paper's "fine-tune the last k blocks"
+protocol. Where the JAX package slices stacked scan segments at the
+boundary, the port slices its per-layer lists.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch import tree
+from repro_torch.models import layers, model as M
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    cfg: Any
+    mpsl: Any
+    trainable_blocks: int
+    segments_frozen: Tuple[M.Segment, ...]
+    segments_train: Tuple[M.Segment, ...]
+
+    @property
+    def boundary(self) -> int:
+        return self.cfg.num_layers - self.trainable_blocks
+
+
+def resolve_trainable_blocks(cfg, mpsl) -> int:
+    k = mpsl.trainable_blocks
+    return cfg.num_layers if k < 0 else min(k, cfg.num_layers)
+
+
+def split_segments(segs: List[M.Segment], boundary: int):
+    """Split a Segment list at a layer boundary (counted from layer 0)."""
+    frozen, train, seen = [], [], 0
+    for seg in segs:
+        if seen + seg.count <= boundary:
+            frozen.append(seg)
+        elif seen >= boundary:
+            train.append(seg)
+        else:
+            cut = boundary - seen
+            frozen.append(M.Segment(seg.kind, cut))
+            train.append(M.Segment(seg.kind, seg.count - cut))
+        seen += seg.count
+    return frozen, train
+
+
+def make_split_plan(cfg, mpsl) -> SplitPlan:
+    k = resolve_trainable_blocks(cfg, mpsl)
+    fsegs, tsegs = split_segments(M.body_segments(cfg), cfg.num_layers - k)
+    return SplitPlan(cfg, mpsl, k, tuple(fsegs), tuple(tsegs))
+
+
+def _slice_stacked(seg_params_list, segs: List[M.Segment], boundary: int):
+    """Slice per-layer segment params at the layer boundary."""
+    frozen, train, seen = [], [], 0
+    for sp, seg in zip(seg_params_list, segs):
+        if seen + seg.count <= boundary:
+            frozen.append(sp)
+        elif seen >= boundary:
+            train.append(sp)
+        else:
+            cut = boundary - seen
+            frozen.append(sp[:cut])
+            train.append(sp[cut:])
+        seen += seg.count
+    return frozen, train
+
+
+def _cast(t, dtype):
+    return t.to(dtype) if t.is_floating_point() else t
+
+
+# ---------------------------------------------------------------------------
+# Client heads
+
+
+def init_client_adapters(generator, cfg, mpsl, device=None):
+    """Low-rank per-client tokenizer adapter: h + (h @ a_n) @ b_n.
+
+    a ~ N(0, 1/D), b = 0 (LoRA-style: identity at init). Stacked [N, ...]."""
+    n, r, d = mpsl.n_clients, mpsl.head_adapter_rank, cfg.d_model
+    return {
+        "a": layers.dense_init(generator, (n, d, r), in_axis_size=d,
+                               device=device),
+        "b": torch.zeros((n, r, d), dtype=torch.float32, device=device),
+    }
+
+
+def apply_client_adapter(adapter, h):
+    """h [N, ..., D] with each client's own low-rank delta."""
+    a = adapter["a"].to(h.dtype)
+    b = adapter["b"].to(h.dtype)
+    delta = torch.einsum("n...d,ndr->n...r", h, a)
+    return h + torch.einsum("n...r,nrd->n...d", delta, b)
+
+
+# ---------------------------------------------------------------------------
+# MPSL parameter trees
+
+
+def init_mpsl_lm(generator, cfg, run, device=None):
+    """MPSL split parameters for an LM-family arch: (params, frozen, plan).
+
+    Weights are drawn from `generator` (on `device`); trainable params are
+    f32, the frozen tree is cast to ``run.frozen_dtype``."""
+    plan = make_split_plan(cfg, run.mpsl)
+    base = M.init_lm(cfg, generator, device)
+    fseg_p, tseg_p = _slice_stacked(base.pop("segments"),
+                                    M.body_segments(cfg), plan.boundary)
+    server: Dict[str, Any] = {"segments": tseg_p,
+                              "final_norm": base["final_norm"]}
+    if not cfg.tie_embeddings:
+        server["lm_head"] = base["lm_head"]
+    else:
+        # the tail stays trainable and shared with tied embeddings: a
+        # trainable copy (the frozen table is the client-side tokenizer)
+        server["lm_head"] = base["embed"]["table"].T.contiguous()
+    fdt = getattr(torch, run.frozen_dtype)
+    frozen = tree.map_(lambda t: _cast(t, fdt),
+                       {"embed": base.pop("embed"), "segments": fseg_p})
+    del fseg_p                           # the f32 originals go here
+    client = {"adapter": init_client_adapters(generator, cfg, run.mpsl,
+                                              device)}
+    return {"client": client, "server": server}, frozen, plan
+
+
+# ---------------------------------------------------------------------------
+# Post-training model construction (paper Sec. 3.3)
+
+
+def assemble_full_params(params, frozen, plan):
+    """[F_C ; F_S] — rebuild ``models.model.init_lm``-style params from the
+    split trees, so the trained model feeds ``launch.serve``. The frozen
+    tree comes back in f32; the client adapters are not part of it."""
+    f32 = lambda t: _cast(t, torch.float32)
+    segs = M.body_segments(plan.cfg)
+    fseg = [tree.map_(f32, sp) for sp in frozen["segments"]]
+    tseg = list(params["server"]["segments"])
+    merged = []
+    for seg in segs:
+        layers_ = []
+        while len(layers_) < seg.count:
+            layers_ += fseg.pop(0) if fseg else tseg.pop(0)
+        merged.append(layers_)
+    out = {"embed": tree.map_(f32, frozen["embed"]), "segments": merged,
+           "final_norm": params["server"]["final_norm"]}
+    if "lm_head" in params["server"]:
+        out["lm_head"] = params["server"]["lm_head"]
+    return out

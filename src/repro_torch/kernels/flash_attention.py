@@ -1,9 +1,12 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers and
+their plain versions.
 
-Replaces the TPU kernel ``repro/kernels/flash_attention.py:
-flash_attention_fwd`` (Pallas body ``_fwd_kernel``) with the hand-written
-Hopper kernel ``csrc/flash_attention_fwd.cu``; the source says what
-bounds it on an H100 and what its design does about that.
+Replaces the TPU kernels ``repro/kernels/flash_attention.py:
+flash_attention_fwd`` (Pallas body ``_fwd_kernel``) and
+``flash_attention_bwd`` (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) with the
+hand-written Hopper kernels ``csrc/flash_attention_fwd.cu`` and
+``csrc/flash_attention_bwd.cu``; each source says what bounds it on an
+H100 and what its design does about that.
 
 Both versions compute the same function: q [B,Sq,H,hd], k/v [B,Sk,K,hd]
 (q head h reads kv head h // (H/K)), masked by absolute int32 positions
@@ -14,7 +17,13 @@ Both versions compute the same function: q [B,Sq,H,hd], k/v [B,Sk,K,hd]
   lse = m + log(l) where l > 0, else 0        [B,H,Sq] f32
 
 so a row with no valid key gives o = 0 and lse = 0 (the oracle in
-``ref.py`` softmaxes such a row into a uniform average instead).
+``ref.py`` softmaxes such a row into a uniform average instead). The
+backward rebuilds p from lse, with delta = rowsum(dO * O):
+
+  p = exp(s - lse) where the mask holds, else 0;  ds = p * (dO.v - delta)
+  dq = ds . k * scale;  dk = ds^T . (q * scale);  dv = p^T . dO
+
+in f32, returned in q's, k's and v's dtypes.
 """
 from __future__ import annotations
 
@@ -30,6 +39,10 @@ MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12
+                 + [ctypes.c_int] * 6
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
 
 
 def pair_mask(q_pos, k_pos, k_valid, causal, window):
@@ -61,6 +74,36 @@ def flash_attention_plain(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
     lse = torch.where(l > 0, m[..., 0] + torch.log(l.clamp_min(1e-30)), 0.0)
     return o, lse.reshape(b, h, sq)
+
+
+def attention_delta(o, do):
+    """delta = rowsum(dO * O) in f32, [B,H,Sq] (computed outside the TPU
+    kernel too)."""
+    return torch.einsum("bqhd,bqhd->bhq", do.float(), o.float()).contiguous()
+
+
+def flash_attention_bwd_plain(q, k, v, q_pos, k_pos, k_valid, o, lse, do, *,
+                              causal=True, window=0):
+    """The backward kernels' function in plain PyTorch (materialized
+    scores). Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    scale = hd ** -0.5
+    qg = (q.float() * scale).reshape(b, sq, kh, g, hd)
+    dog = do.float().reshape(b, sq, kh, g, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    ok = pair_mask(q_pos, k_pos, k_valid, causal, int(window))[:, None, None]
+    lse_g = lse.reshape(b, kh, g, sq)[..., None]
+    delta = attention_delta(o, do).reshape(b, kh, g, sq)[..., None]
+    p = torch.where(ok, torch.exp(s - lse_g), 0.0)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _check(q, k, v, q_pos, k_pos, k_valid):
@@ -105,6 +148,14 @@ def _entry():
     return fn
 
 
+@functools.cache
+def _bwd_entry():
+    fn = build.load("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes = _BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def flash_attention_fwd(q, k, v, q_pos, k_pos, *, causal=True, window=0,
                         k_valid, return_lse=False):
     """Launch the CUDA kernel on the current stream (no synchronisation).
@@ -130,3 +181,41 @@ def flash_attention_fwd(q, k, v, q_pos, k_pos, *, causal=True, window=0,
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(q, k, v, q_pos, k_pos, k_valid, o, lse, do, *,
+                        causal=True, window=0):
+    """Launch the CUDA backward kernels (dq, then dk/dv) on the current
+    stream. The residuals are the forward's; delta is computed here.
+    Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    _check(q, k, v, q_pos, k_pos, k_valid)
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    for name, t, shape, dtype in (("o", o, q.shape, q.dtype),
+                                  ("do", do, q.shape, q.dtype),
+                                  ("lse", lse, (b, h, sq), torch.float32)):
+        if t.device != q.device or t.shape != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {tuple(shape)} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    delta = attention_delta(o, do)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    fn = _bwd_entry()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+                 k_valid.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, sq, sk, h, kh, hd, hd ** -0.5,
+                 int(bool(causal)), int(window), stream)
+    build.check(build.load("flash_attention_bwd"), err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -1,34 +1,127 @@
-"""Public entry points of the kernels, by device.
+"""Public entry points of the kernels, by device, with their gradients.
 
-Counterpart of the JAX package's ``kernels/ops.py``. A CPU tensor goes to
-the kernel's plain PyTorch version; a CUDA tensor goes to the hand-written
-kernel, or the call raises. Nothing falls back from one to the other.
+Counterpart of the JAX package's ``kernels/ops.py``: one
+``torch.autograd.Function`` in the place of each ``jax.custom_vjp``, with
+the same residual sets. Flash attention and the LM-head cross-entropy run
+kernels in BOTH directions (the backward rebuilds probabilities from the
+forward's lse residual, so nothing [Sq, Sk]- or [T, V]-shaped is kept);
+quant-dequant is straight-through. A CPU tensor goes to each kernel's
+plain PyTorch version; a CUDA tensor goes to the hand-written kernel, or
+the call raises. Nothing falls back from one to the other.
+
+The key-validity mask is resolved once at the entry (None -> all ones)
+and carried in the residuals, so forward and backward see the same mask.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import quant8 as _q8
+from repro_torch.kernels import softmax_xent as _sx
+
+
+def _on_cpu(t) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return False
+
+
+# ---------------------------------------------------------------------------
+# flash attention
 
 
 def flash_attention(q, k, v, q_pos, k_pos, causal=True, window=0,
                     k_valid=None):
-    """q [B,Sq,H,hd], k/v [B,Sk,K,hd] -> [B,Sq,H,hd] (see `_fa`).
-
-    The key-validity mask is resolved once here (None -> all ones). No
-    backward kernel exists yet, so on CUDA an input that requires grad
-    raises rather than silently dropping its gradient."""
+    """q [B,Sq,H,hd], k/v [B,Sk,K,hd] -> [B,Sq,H,hd] (see `_fa`)."""
     kv = k_valid if k_valid is not None else torch.ones(
         k_pos.shape, dtype=torch.bool, device=k_pos.device)
-    if q.device.type == "cpu":
-        return _fa.flash_attention_plain(q, k, v, q_pos, k_pos, causal=causal,
-                                         window=window, k_valid=kv)[0]
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash attention for device {q.device}")
-    if any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention on CUDA has no backward kernel "
-                           "yet; call it under torch.no_grad()")
-    return _fa.flash_attention_fwd(
-        q.contiguous(), k.contiguous(), v.contiguous(), q_pos.contiguous(),
-        k_pos.contiguous(), causal=causal, window=window,
-        k_valid=kv.contiguous())
+    return _FlashAttention.apply(q, k, v, q_pos, k_pos, kv, bool(causal),
+                                 int(window))
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, k_valid, causal, window):
+        if _on_cpu(q):
+            o, lse = _fa.flash_attention_plain(q, k, v, q_pos, k_pos,
+                                               causal=causal, window=window,
+                                               k_valid=k_valid)
+        else:
+            q, k, v, q_pos, k_pos, k_valid = (
+                t.contiguous() for t in (q, k, v, q_pos, k_pos, k_valid))
+            o, lse = _fa.flash_attention_fwd(q, k, v, q_pos, k_pos,
+                                             causal=causal, window=window,
+                                             k_valid=k_valid, return_lse=True)
+        # residuals carry the RESOLVED mask: forward and backward agree
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, k_valid, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, k_pos, k_valid, o, lse = ctx.saved_tensors
+        fn = (_fa.flash_attention_bwd_plain if _on_cpu(q)
+              else _fa.flash_attention_bwd)
+        dq, dk, dv = fn(q, k, v, q_pos, k_pos, k_valid, o, lse,
+                        do.contiguous(), causal=ctx.causal,
+                        window=ctx.window)
+        return dq, dk, dv, None, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# fused per-token softmax cross-entropy (LM head)
+
+
+def softmax_xent_tokens(h, w, labels):
+    """Per-token CE loss [T] (f32) from h [T,D], w [D,V], labels [T];
+    logits are never materialized at [T, V] on the card."""
+    return _SoftmaxXent.apply(h, w, labels.to(torch.int32))
+
+
+class _SoftmaxXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, w, labels):
+        if _on_cpu(h):
+            loss, lse = _sx.softmax_xent_fwd_plain(h, w, labels)
+        else:
+            h, w, labels = h.contiguous(), w.contiguous(), labels.contiguous()
+            loss, lse = _sx.softmax_xent_fwd(h, w, labels)
+        ctx.save_for_backward(h, w, labels, lse)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, labels, lse = ctx.saved_tensors
+        fn = _sx.softmax_xent_bwd_plain if _on_cpu(h) else _sx.softmax_xent_bwd
+        dh, dw = fn(h, w, labels, lse, g.float().contiguous())
+        return dh, dw, None
+
+
+# ---------------------------------------------------------------------------
+# quant-dequant (straight-through)
+
+
+def quant_dequant_value(x, rng=None, bits: int = 8):
+    """The quant-dequant value of x (no gradient): the kernel on CUDA, the
+    plain version on the CPU. ``rng``: None, uniforms or a Generator."""
+    if _on_cpu(x):
+        return _q8.quant_dequant_plain(x, rng, bits)
+    return _q8.quant_dequant(x.contiguous(), rng, bits)
+
+
+def quant_dequant(x, rng=None, bits: int = 8):
+    """Fused quant-dequant; the cotangent is straight-through (identity)."""
+    return _QuantDequant.apply(x, rng, int(bits))
+
+
+class _QuantDequant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rng, bits):
+        return quant_dequant_value(x, rng, bits)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None

@@ -33,3 +33,24 @@ def flash_attention_ref(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def softmax_xent_ref(h, w, labels):
+    """Materialized-logits per-token CE (and LSE), f32.
+
+    h [T, D], w [D, V], labels [T] -> (loss [T], lse [T])."""
+    logits = h.float() @ w.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(1, labels.long()[:, None])[:, 0]
+    return lse - gold, lse
+
+
+def quant_dequant_ref(x, bits: int = 8):
+    """Deterministic symmetric per-row (last-axis) int quant-dequant (the
+    scale through the reciprocal of qmax, as the jitted JAX oracle)."""
+    qmax = 2.0 ** (bits - 1) - 1
+    x32 = x.float()
+    scale = (x32.abs().amax(dim=-1, keepdim=True)
+             * (1.0 / qmax)).clamp_min(1e-12)
+    q = torch.round(x32 / scale).clamp(-qmax, qmax)
+    return (q * scale).to(x.dtype)

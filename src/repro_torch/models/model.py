@@ -16,6 +16,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention, layers, mlp
 
@@ -127,10 +128,22 @@ def init_segment_cache(cfg, seg: Segment, batch: int, cache_len: int,
 
 
 def apply_segment(layer_params, x, cfg, seg: Segment, *, positions,
-                  cache=None, impls=None):
+                  cache=None, impls=None, remat=False):
     """Run a segment's layers in order. Returns (x, cache); the per-layer
-    caches are updated in place."""
+    caches are updated in place.
+
+    remat (train path, no cache): each block keeps only its input for the
+    backward and recomputes the rest there, as ``jax.checkpoint`` with
+    ``nothing_saveable`` does around the JAX package's scan step."""
     for i, lp in enumerate(layer_params):
+        if remat and cache is None:
+            def block(h, lp=lp):
+                return apply_block(lp, h, cfg, seg.kind, positions=positions,
+                                   impls=impls)[0]
+            # blocks draw no random numbers: no RNG state to carry over
+            x = torch.utils.checkpoint.checkpoint(
+                block, x, use_reentrant=False, preserve_rng_state=False)
+            continue
         x, _ = apply_block(lp, x, cfg, seg.kind, positions=positions,
                            cache=None if cache is None else cache[i],
                            impls=impls)
@@ -188,7 +201,8 @@ def embed_tokens(params, tokens, cfg, positions=None, dtype=torch.bfloat16):
     return h
 
 
-def forward_body(params, h, cfg, *, positions, cache=None, impls=None):
+def forward_body(params, h, cfg, *, positions, cache=None, impls=None,
+                 remat=False):
     """Embeddings -> final hidden states. Returns (h, caches); the caches
     are updated in place. (The JAX package also returns an auxiliary
     loss, which only MoE blocks make; it comes with the MoE slice.)"""
@@ -196,7 +210,7 @@ def forward_body(params, h, cfg, *, positions, cache=None, impls=None):
                                               body_segments(cfg))):
         h, _ = apply_segment(seg_params, h, cfg, seg, positions=positions,
                              cache=None if cache is None else cache[i],
-                             impls=impls)
+                             impls=impls, remat=remat)
     h = layers.apply_norm(h, params["final_norm"], cfg.norm)
     return h, cache
 

@@ -1,0 +1,5 @@
+"""Optimizer: AdamW over param trees, global-norm clipping, schedules."""
+from repro_torch.optim.adamw import (adamw_init, adamw_update, apply_updates,
+                                     clip_by_global_norm, global_norm,
+                                     tree_leaves)
+from repro_torch.optim.schedules import constant, warmup_cosine
