@@ -8,30 +8,35 @@
             sources in this checkout (``build/repro_torch/``), one nvcc
             each, all started together.
 3. kernels: each kernel against its plain PyTorch version on the card,
-            at the serve and train paths' shapes and at edge cases, in f32
-            and bf16; timed beside its plain version, its roofline bound
-            and one PyTorch library call computing the same function.
-4. serve:   the port's serving entry points at full-width minitron-4b
-            (32 layers, d_model 3072, vocab 256000, random weights from a
-            seed), f32, batch 4, prompt 512, 16 greedy decode steps. The
-            launch counters must show that every layer's prefill and decode
-            attention ran the kernel; logits must be finite and agree with
-            the same prompts teacher-forced through the plain (naive)
-            attention on the same params.
-5. profile: device time by kernel over one prefill and a few decode
-            steps (torch.profiler), and the device's busy share.
-6. train:   the MPSL LM train step at full-width, full-depth minitron-4b
-            (random weights from a seed, frozen tree bf16, compute f32),
-            4 clients x 2 x 512 tokens, the last 4 blocks trainable, block
-            remat, int8 compression of both links: 3 steps with the
-            kernels (flash attention forward and backward in every block,
-            the fused LM-head cross-entropy, quant8 with its in-kernel
-            Philox), each step's launch counts required exactly; then loss
-            and every trainable gradient of the kernel path against the
-            plain path (naive attention, chunked plain CE) on the same
-            params, batch and link uniforms.
-7. train profile: device time by kernel over one train step, and the
-            device's idle share.
+            at the main paths' shapes and at edge cases, in f32 and bf16;
+            timed beside its plain version, its roofline bound and one
+            PyTorch library call computing the same function, where one
+            does.
+4. the main paths, each driven through the port's entry points with
+   every launch counter set to 0 just before and read just after; each
+   must launch exactly the kernels its code calls, and agree with the
+   same path through the plain versions on the same params:
+   serve         full-width minitron-4b (32 layers, d_model 3072, vocab
+                 256000), f32, batch 4, prompt 512, 16 greedy decode
+                 steps: flash forward in every layer's prefill and decode;
+   train         the MPSL LM train step at full-width minitron-4b (frozen
+                 tree bf16, compute f32), 4 clients x 2 x 512 tokens, the
+                 last 4 blocks trainable, block remat, int8 links: flash
+                 forward and backward, the fused LM-head CE, quant8 (its
+                 in-kernel Philox), 3 steps;
+   ssm_serve     full-width falcon-mamba-7b (64 Mamba blocks, d_model
+                 4096, d_inner 8192, d_state 16, vocab 65024), as serve:
+                 the scan forward in every layer's prefill (decode is the
+                 recurrence step, outside any kernel);
+   ssm_train     falcon-mamba-7b, as train: the scan forward (block and
+                 remat recompute) and backward in every block, 3 steps;
+   hybrid_serve  full-width hymba-1.5b (32 hybrid blocks: parallel
+                 attention, 25 heads / 5 KV heads, hd 64, window 1024 on
+                 local layers, and Mamba heads), prompt 1536 (past the
+                 window: local caches wrap their ring), 16 decode steps;
+   hybrid_train  hymba-1.5b, as train, 2 steps.
+   Each path's serve or train is followed by its profile: device time by
+   kernel (torch.profiler) and the device's busy share.
 
 One JSON line per phase; then the {"kernels": [...]} line and the card's
 ``nvidia-smi`` line; the last line is {"ok": true, "device": {...}}. Any
@@ -67,6 +72,7 @@ from repro_torch.core import mpsl, split  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quant8 as q8  # noqa: E402
+from repro_torch.kernels import selective_scan as ss  # noqa: E402
 from repro_torch.kernels import softmax_xent as sx  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -76,8 +82,8 @@ from repro_torch.optim import schedules  # noqa: E402
 # other orders. bf16: p is rounded to bf16 against different running
 # maxima, and o is rounded to bf16 at the end.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# Served logits, kernel path vs naive path, f32: 32 layers of f32 sums in
-# other orders.
+# Served logits, kernel path vs plain path (naive attention, the plain
+# scan), f32: 32 to 64 layers of f32 sums in other orders.
 SERVE_TOL = 1e-3
 # Backward kernels vs plain versions, relative to the largest element of
 # each output: f32 sums over up to 512 keys / 4088 tokens / 4096 vocab
@@ -85,24 +91,41 @@ SERVE_TOL = 1e-3
 # 2^-8 (2e-2).
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Train step, kernel path vs plain path on the same params, batch and link
-# uniforms, f32: the loss sums over 32 layers in other orders (1e-4
+# uniforms, f32: the loss sums over 32-64 layers in other orders (1e-4
 # relative); each trainable gradient leaf in relative L2 (1e-3): the same
 # sums, and the int8 downlink quantizes a cut-layer cotangent that differs
 # by float noise, so a few elements round to the neighbouring level.
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
+# Scan kernels vs plain versions, relative to the largest element of each
+# output, f32: one f32 recurrence in both, the kernel's a*h + bx fused into
+# one FMA and its sums over d_state in another order; the rounding, a few
+# ulp a step, is carried through up to 1536 steps of a decaying state
+# (1e-4). bf16: y, dx and ddt round to bf16, one ulp is 2^-8 (2e-2).
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and
 # FLOP/s by input type (f32 outside the tensor cores, bf16 inside them).
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
+# The main paths, in the order they run. The paper's protocol fine-tunes
+# the last k blocks; with all 32 of minitron-4b trainable the AdamW state
+# alone would be ~54 GB (PERF.md).
 SERVE = dict(arch="minitron-4b", batch=4, prompt_len=512, decode_steps=16,
              seed=0)
-# The paper's protocol fine-tunes the last k blocks; with all 32 trainable
-# the AdamW state alone would be ~54 GB (PERF.md).
 TRAIN = dict(arch="minitron-4b", n_clients=4, batch_per_client=2, seq=512,
              trainable_blocks=4, steps=3, lr=3e-4, seed=0)
+PATHS = {
+    "serve": SERVE,
+    "train": TRAIN,
+    "ssm_serve": dict(SERVE, arch="falcon-mamba-7b"),
+    "ssm_train": dict(TRAIN, arch="falcon-mamba-7b"),
+    "hybrid_serve": dict(SERVE, arch="hymba-1.5b", prompt_len=1536),
+    "hybrid_train": dict(TRAIN, arch="hymba-1.5b", steps=2),
+}
+# every path's plain version: naive attention, the plain scan, chunked CE
+PLAIN_IMPLS = {"attn": "naive", "ssm": "plain", "ce": "plain"}
 
 
 # The launch counter of every kernel wrapper: each adds one where it
@@ -111,7 +134,9 @@ COUNTERS = {"flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd": fa.flash_attention_bwd,
             "softmax_xent_fwd": sx.softmax_xent_fwd,
             "softmax_xent_bwd": sx.softmax_xent_bwd,
-            "quant_dequant": q8.quant_dequant}
+            "quant_dequant": q8.quant_dequant,
+            "selective_scan_fwd": ss.selective_scan_fwd,
+            "selective_scan_bwd": ss.selective_scan_bwd}
 
 
 def reset_counts() -> None:
@@ -123,7 +148,13 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase line gets the script's elapsed s."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -252,6 +283,23 @@ def _attn_cases():
     cases.append(("window", dict(b=2, sq=300, sk=300, h=8, kh=2, hd=64), dict(
         q_pos=w, k_pos=w, k_valid=torch.ones(2, 300, dtype=torch.bool),
         causal=True, window=100), False))
+    # hymba-1.5b: G = 5, hd 64, window 1024; prefill past the window, the
+    # train shape, and decode over a full local ring (positions 513..1536)
+    hp = torch.arange(1536, dtype=torch.int32)[None].expand(b, 1536)
+    cases.append(("hymba_prefill", dict(b=b, sq=1536, sk=1536, h=25, kh=5,
+                                        hd=64), dict(
+        q_pos=hp, k_pos=hp, k_valid=torch.ones(b, 1536, dtype=torch.bool),
+        causal=True, window=1024), True))
+    cases.append(("hymba_train", dict(b=8, sq=s, sk=s, h=25, kh=5, hd=64),
+                  dict(q_pos=tr, k_pos=tr,
+                       k_valid=torch.ones(8, s, dtype=torch.bool),
+                       causal=True, window=1024), True))
+    ring = (torch.arange(1024, dtype=torch.int32) + 512) % 1024 + 513
+    cases.append(("hymba_decode", dict(b=b, sq=1, sk=1024, h=25, kh=5, hd=64),
+                  dict(q_pos=torch.full((b, 1), 1536, dtype=torch.int32),
+                       k_pos=ring[None].expand(b, 1024),
+                       k_valid=torch.ones(b, 1024, dtype=torch.bool),
+                       causal=True, window=1024), True))
     g = torch.Generator().manual_seed(1)
     kv = torch.rand((2, 203), generator=g) < 0.8
     cases.append(("ragged", dict(b=2, sq=77, sk=203, h=6, kh=3, hd=96), dict(
@@ -414,7 +462,7 @@ def kernels_flash_bwd():
     g = torch.Generator(device="cuda").manual_seed(1)
     results = []
     for name, shp, m, main_path in _attn_cases():
-        if name in ("prefill", "decode"):     # serve shapes: no backward
+        if name.endswith(("prefill", "decode")):  # serve shapes: no backward
             continue
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, qp, kp, kv = _attn_inputs(
@@ -618,33 +666,168 @@ def kernels_quant8():
     return entry
 
 
+def _scan_cases():
+    """(name, b, s, di, ds, chunk, dtype, h0, main_path): the train shapes
+    of falcon-mamba-7b and hymba-1.5b, their serve prefills (falcon's with
+    a nonzero h0), ragged S and d, d_state 4, and bf16 inputs."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [("train", 8, 512, 8192, 16, 256, f32, False, True),
+            ("prefill", 4, 512, 8192, 16, 256, f32, True, True),
+            ("hymba_train", 8, 512, 3200, 16, 256, f32, False, True),
+            ("hymba_prefill", 4, 1536, 3200, 16, 256, f32, True, True),
+            ("ragged", 2, 300, 1000, 16, 256, f32, True, False),
+            ("ds4", 2, 200, 512, 4, 64, f32, True, False),
+            ("train", 8, 512, 8192, 16, 256, bf16, False, False)]
+
+
+def _scan_inputs(g, b, s, di, ds, dtype, with_h0):
+    dev = "cuda"
+    x = (torch.randn((b, s, di), generator=g, device=dev) * 0.5).to(dtype)
+    dt = (F.softplus(torch.randn((b, s, di), generator=g, device=dev))
+          * 0.1).to(dtype)
+    bm = torch.randn((b, s, ds), generator=g, device=dev).to(dtype)
+    cm = torch.randn((b, s, ds), generator=g, device=dev).to(dtype)
+    a_log = torch.log(torch.randn((di, ds), generator=g, device=dev).abs()
+                      + 0.5)
+    h0 = (torch.randn((b, di, ds), generator=g, device=dev) * 0.3
+          if with_h0 else None)
+    return x, dt, bm, cm, a_log, h0
+
+
+def _scan_bound(b, s, di, ds, nc, es, with_h0, backward):
+    """(ms, bound_by) of one scan call. Bytes: each input read once, each
+    output written once. Operations per (b, t, d, s) state step: forward
+    6 (dt*A, exp, a*h + bx, bx, the y term); backward 22 (the forward's 4
+    to recompute the state, then lam, a, the sb and dt-sum terms, dadt, the
+    dA_log term, the db and dc terms and the carry)."""
+    act = b * s * di * es                   # one [B, S, di] tensor
+    bc = b * s * ds * es                    # one [B, S, ds] tensor
+    st = b * di * ds * 4                    # one [B, di, ds] f32 state
+    if backward:
+        # x, dt, gy in; dx, ddt out; B, C in; db, dc out (f32); a_log in,
+        # dA_log out; h_ckpt and gh in, dh0 out
+        nbytes = (5 * act + 2 * bc + 2 * b * s * ds * 4 + 2 * di * ds * 4
+                  + b * nc * di * ds * 4 + 2 * st)
+        flops = 22.0 * b * s * di * ds
+    else:
+        # x, dt in, y out; B, C, a_log (and h0) in; h_final, h_ckpt out
+        nbytes = (3 * act + 2 * bc + di * ds * 4 + (st if with_h0 else 0)
+                  + st + b * nc * di * ds * 4)
+        flops = 6.0 * b * s * di * ds
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernels_scan():
+    """Compare and time the selective-scan forward (y, h_final, h_ckpt)
+    and backward (every output) against their plain versions."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    fwd_res, bwd_res = [], []
+    for name, b, s, di, ds, chunk, dtype, with_h0, main in _scan_cases():
+        x, dt, bm, cm, a_log, h0 = _scan_inputs(g, b, s, di, ds, dtype,
+                                                with_h0)
+        nc = -(-s // chunk)
+        base = {"case": name, "dtype": str(dtype).split(".")[-1],
+                "shape": dict(b=b, s=s, di=di, ds=ds, chunk=chunk,
+                              h0=with_h0), "main_path": main}
+        tol = SCAN_TOL[dtype]
+        iters = 10 if main else 20
+
+        got = ss.selective_scan_fwd(x, dt, bm, cm, a_log, h0, chunk=chunk)
+        torch.cuda.synchronize()
+        want = ss.selective_scan_fwd_plain(x, dt, bm, cm, a_log, h0,
+                                           chunk=chunk)
+        rec = dict(base, tol=tol)
+        _check_close("selective_scan_fwd", name, dtype,
+                     zip(("y", "h_final", "h_ckpt"), got, want), tol, rec)
+        h_ckpt = want[2]
+        del got, want
+        rec["ms"] = time_ms(lambda: ss.selective_scan_fwd(
+            x, dt, bm, cm, a_log, h0, chunk=chunk), iters=iters)
+        rec["plain_ms"] = time_ms(lambda: ss.selective_scan_fwd_plain(
+            x, dt, bm, cm, a_log, h0, chunk=chunk), iters=3, warmup=1)
+        rec["library_ms"] = None        # no PyTorch call computes the scan
+        rec["bound_ms"], rec["bound_by"] = _scan_bound(
+            b, s, di, ds, nc, x.element_size(), with_h0, backward=False)
+        emit({"phase": "kernels", "kernel": "selective_scan_fwd", **rec})
+        fwd_res.append(rec)
+
+        gy = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+        gh = torch.randn((b, di, ds), generator=g, device="cuda")
+        args = (x, dt, bm, cm, a_log, h_ckpt, gy, gh)
+        got = ss.selective_scan_bwd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        want = ss.selective_scan_bwd_plain(*args, chunk=chunk)
+        rec = dict(base, tol=tol)
+        _check_close("selective_scan_bwd", name, dtype,
+                     zip(("dx", "ddt", "db", "dc", "dA_log", "dh0"), got,
+                         want), tol, rec)
+        del got, want
+        rec["ms"] = time_ms(lambda: ss.selective_scan_bwd(*args, chunk=chunk),
+                            iters=iters)
+        rec["plain_ms"] = time_ms(
+            lambda: ss.selective_scan_bwd_plain(*args, chunk=chunk), iters=3,
+            warmup=1)
+        rec["library_ms"] = None
+        rec["bound_ms"], rec["bound_by"] = _scan_bound(
+            b, s, di, ds, nc, x.element_size(), with_h0, backward=True)
+        emit({"phase": "kernels", "kernel": "selective_scan_bwd", **rec})
+        bwd_res.append(rec)
+        del x, dt, bm, cm, gy, args, h_ckpt
+        torch.cuda.empty_cache()
+    return [_entry_of(kname, f"{kname}.cu",
+                      f"src/repro/kernels/selective_scan.py:{line}", res,
+                      res[0])
+            for kname, line, res in (("selective_scan_fwd", 75, fwd_res),
+                                     ("selective_scan_bwd", 190, bwd_res))]
+
+
 def phase_kernels():
     """Every kernel against its plain version; {name: report entry}."""
     entries = [kernels_flash_fwd(), kernels_flash_bwd(),
-               *kernels_softmax_xent(), kernels_quant8()]
+               *kernels_softmax_xent(), kernels_quant8(), *kernels_scan()]
     return {e["name"]: e for e in entries}
 
 
 # ---------------------------------------------------------------------------
-# serve
+# the main paths
 
 
-def phase_serve():
-    """Drive the serving path at full width. Returns the kernel launches,
+def _layers(cfg):
+    """(attention layers, Mamba layers) of cfg's body."""
+    segs = M.body_segments(cfg)
+    return (sum(g.count for g in segs if g.kind.family in ("dense", "hybrid")),
+            sum(g.count for g in segs if g.kind.family in ("ssm", "hybrid")))
+
+
+def serve_launches(cfg, steps) -> dict:
+    """Each kernel's launches in one serve call, from the code: attention
+    runs the flash forward in every attention layer's prefill and each
+    decode step; a Mamba layer runs the scan forward in its prefill only
+    (decode steps the recurrence outside any kernel)."""
+    attn, ssm = _layers(cfg)
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash_attention_fwd"] = attn * (1 + steps)
+    want["selective_scan_fwd"] = ssm
+    return want
+
+
+def phase_serve(path, spec):
+    """Drive a serving path at full width. Returns the kernel launches,
     and what the profile phase needs to drive the same path again."""
-    cfg = get_config(SERVE["arch"])
+    cfg = get_config(spec["arch"])
     device = serve.resolve_device("cuda")
-    gen = torch.Generator(device=device).manual_seed(SERVE["seed"])
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
     t0 = time.perf_counter()
     params = M.init_lm(cfg, gen, device)
     tokens = torch.randint(0, cfg.vocab_size,
-                           (SERVE["batch"], SERVE["prompt_len"]),
+                           (spec["batch"], spec["prompt_len"]),
                            generator=gen, device=device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    steps = SERVE["decode_steps"]
-    prefill, decode = serve.build_serving_fns(cfg, torch.float32, device,
-                                              attn_impl="kernel")
+    steps = spec["decode_steps"]
+    prefill, decode = serve.build_serving_fns(cfg, torch.float32, device)
     # warm-up at the timed shapes: the allocator's and cuBLAS's first-use
     # costs for them would otherwise land in the timed prefill
     serve.generate(prefill, decode, params, tokens, 1)
@@ -653,46 +836,45 @@ def phase_serve():
     reset_counts()
     out = serve.generate(prefill, decode, params, tokens, steps)
     counts = read_counts()
-    launches = counts["flash_attention_fwd"]
     peak = torch.cuda.max_memory_allocated()
 
-    want = dict.fromkeys(COUNTERS, 0)
-    want["flash_attention_fwd"] = cfg.num_layers * (1 + steps)
+    want = serve_launches(cfg, steps)
     if counts != want:
-        raise AssertionError(f"kernel launches in the serve run: {counts}, "
+        raise AssertionError(f"kernel launches in the {path} run: {counts}, "
                              f"expected {want}")
     logits = out["logits"]
-    if logits.shape != (SERVE["batch"], steps + 1, cfg.vocab_size):
-        raise AssertionError(f"logits shape {tuple(logits.shape)}")
+    if logits.shape != (spec["batch"], steps + 1, cfg.vocab_size):
+        raise AssertionError(f"{path}: logits shape {tuple(logits.shape)}")
     if not torch.isfinite(logits).all():
-        raise AssertionError("non-finite logits")
+        raise AssertionError(f"{path}: non-finite logits")
 
-    p_naive, d_naive = serve.build_serving_fns(cfg, torch.float32, device,
-                                               attn_impl="naive")
-    ref = serve.generate(p_naive, d_naive, params, tokens, steps,
+    p_plain, d_plain = serve.build_serving_fns(
+        cfg, torch.float32, device, attn_impl=PLAIN_IMPLS["attn"],
+        ssm_impl=PLAIN_IMPLS["ssm"])
+    ref = serve.generate(p_plain, d_plain, params, tokens, steps,
                          forced_tokens=out["tokens"][:, :steps])
     diff = (logits - ref["logits"]).abs().max().item()
     agree = (out["tokens"] == ref["tokens"]).float().mean().item()
-    rec = {"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+    rec = {"phase": path, "arch": cfg.name, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "params": cfg.param_count(), "dtype": "float32",
-           "batch": SERVE["batch"], "prompt_len": SERVE["prompt_len"],
+           "batch": spec["batch"], "prompt_len": spec["prompt_len"],
            "decode_steps": steps, "init_s": init_s,
-           "kernel_launches": launches,
-           "expected_launches": want["flash_attention_fwd"],
+           "launches": counts, "expected_launches": want,
            "prefill_ms": out["prefill_s"] * 1e3,
            "decode_ms_per_token": out["decode_s"] / steps * 1e3,
-           "naive_prefill_ms": ref["prefill_s"] * 1e3,
-           "naive_decode_ms_per_token": ref["decode_s"] / steps * 1e3,
-           "peak_mem_bytes": peak,
-           "max_logit_diff_vs_naive": diff, "tol": SERVE_TOL,
-           "greedy_token_agreement": agree}
+           "plain_prefill_ms": ref["prefill_s"] * 1e3,
+           "plain_decode_ms_per_token": ref["decode_s"] / steps * 1e3,
+           "peak_mem_bytes": peak, "max_abs_logit": logits.abs().max().item(),
+           "max_logit_diff_vs_plain": diff, "tol": SERVE_TOL,
+           "greedy_token_agreement": agree,
+           "greedy_tokens": out["tokens"][:2].tolist()}
     emit(rec)
     if not torch.allclose(logits, ref["logits"], atol=SERVE_TOL,
                           rtol=SERVE_TOL):
-        raise AssertionError(f"served logits differ from the naive path by "
-                             f"{diff}")
-    return counts, (cfg, prefill, decode, params, tokens, rec)
+        raise AssertionError(f"{path}: served logits differ from the plain "
+                             f"path by {diff}")
+    return counts, (path, prefill, decode, params, tokens, rec)
 
 
 def _device_time_by_kernel(prof):
@@ -705,9 +887,9 @@ def _device_time_by_kernel(prof):
     return out
 
 
-def phase_profile(cfg, prefill, decode, params, tokens, serve_rec,
+def phase_profile(path, prefill, decode, params, tokens, serve_rec,
                   steps=4, top=8):
-    """Where the serve path's time goes: device time by kernel over one
+    """Where a serve path's time goes: device time by kernel over one
     prefill and over `steps` decode steps (torch.profiler), and the
     device's busy share of the unprofiled host times of the serve phase."""
     from torch.profiler import ProfilerActivity, profile
@@ -732,7 +914,7 @@ def phase_profile(cfg, prefill, decode, params, tokens, serve_rec,
     for part, times in by_kernel.items():
         busy = sum(times.values())
         ranked = sorted(times.items(), key=lambda kv: -kv[1])[:top]
-        emit({"phase": "profile", "part": part,
+        emit({"phase": "profile", "path": path, "part": part,
               "per": "call" if part == "prefill" else "token",
               "device_busy_ms": busy, "host_ms_unprofiled": wall[part],
               "device_idle_share": max(0.0, 1 - busy / wall[part]),
@@ -741,14 +923,20 @@ def phase_profile(cfg, prefill, decode, params, tokens, serve_rec,
 
 def train_launches_per_step(cfg) -> dict:
     """Each kernel's launches in one train step, from the code: attention
-    runs once per block forward and again in the block's remat recompute,
-    and its backward once; the LM-head CE once each way over all clients'
-    tokens; quant8 once on the uplink value, once on the downlink
-    cotangent."""
-    return {"flash_attention_fwd": 2 * cfg.num_layers,
-            "flash_attention_bwd": cfg.num_layers,
-            "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
-            "quant_dequant": 2}
+    and the scan run once per block forward and again in the block's remat
+    recompute, and their backward once (every block: the cut-layer
+    gradient flows through the frozen prefix to the client adapters); the
+    LM-head CE once each way over all clients' tokens; quant8 once on the
+    uplink value, once on the downlink cotangent."""
+    attn, ssm = _layers(cfg)
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update({"flash_attention_fwd": 2 * attn,
+                 "flash_attention_bwd": attn,
+                 "selective_scan_fwd": 2 * ssm,
+                 "selective_scan_bwd": ssm,
+                 "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+                 "quant_dequant": 2})
+    return want
 
 
 def _rel_l2(a, b) -> float:
@@ -757,31 +945,31 @@ def _rel_l2(a, b) -> float:
     return num / den if den else num
 
 
-def phase_train():
+def phase_train(path, spec):
     """Drive the MPSL train step at full width. Returns the kernels'
     launches and what the profile phase needs to drive it again."""
-    cfg = get_config(TRAIN["arch"])
+    cfg = get_config(spec["arch"])
     device = serve.resolve_device("cuda")
-    mp = MPSLConfig(n_clients=TRAIN["n_clients"],
-                    trainable_blocks=TRAIN["trainable_blocks"],
+    mp = MPSLConfig(n_clients=spec["n_clients"],
+                    trainable_blocks=spec["trainable_blocks"],
                     compress_uplink=True, compress_downlink=True)
     run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mpsl=mp,
                     compute_dtype="float32",
-                    learning_rate=TRAIN["lr"], seed=TRAIN["seed"])
+                    learning_rate=spec["lr"], seed=spec["seed"])
     t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(TRAIN["seed"])
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
     params, frozen, plan = split.init_mpsl_lm(gen, cfg, run, device)
-    state = mpsl.init_state(params, frozen, TRAIN["seed"])
-    loader = train.make_lm_loader(cfg, TRAIN["n_clients"],
-                                  TRAIN["batch_per_client"], TRAIN["seq"],
-                                  TRAIN["seed"])
-    steps = TRAIN["steps"]
+    state = mpsl.init_state(params, frozen, spec["seed"])
+    loader = train.make_lm_loader(cfg, spec["n_clients"],
+                                  spec["batch_per_client"], spec["seq"],
+                                  spec["seed"])
+    steps = spec["steps"]
     batches = [train.to_device(loader(i), device) for i in range(steps)]
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     loss_fn = mpsl.make_lm_loss(cfg, run)               # the kernels
     step_fn = mpsl.make_train_step(
-        loss_fn, run, schedules.warmup_cosine(TRAIN["lr"], 10, steps))
+        loss_fn, run, schedules.warmup_cosine(spec["lr"], 10, steps))
 
     per_step = train_launches_per_step(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -800,15 +988,18 @@ def phase_train():
         step_counts.append({k: after[k] - before[k] for k in after})
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    rec = {"phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
+    keys = ("arch", "n_clients", "batch_per_client", "seq",
+            "trainable_blocks", "steps", "lr", "seed")
+    rec = {"phase": path, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "params": cfg.param_count(),
            "trainable_params": sum(p.numel()
                                    for p in tree.leaves(state["params"])),
            "frozen_dtype": run.frozen_dtype, "compute_dtype": "float32",
-           "remat": run.remat, "compress": True, **TRAIN,
-           "ce_tokens": TRAIN["n_clients"] * TRAIN["batch_per_client"]
-           * (TRAIN["seq"] - 1),
+           "remat": run.remat, "compress": True,
+           **{k: spec[k] for k in keys},
+           "ce_tokens": spec["n_clients"] * spec["batch_per_client"]
+           * (spec["seq"] - 1),
            "init_s": init_s, "losses": losses, "grad_norms": norms,
            "step_ms": [x * 1e3 for x in times],
            "median_step_ms": statistics.median(times[1:]) * 1e3,
@@ -816,18 +1007,18 @@ def phase_train():
            "expected_per_step": per_step}
     emit(rec)
     if any(c != per_step for c in step_counts):
-        raise AssertionError(f"train-step launches {step_counts}, expected "
-                             f"{per_step} each step")
+        raise AssertionError(f"{path}: train-step launches {step_counts}, "
+                             f"expected {per_step} each step")
     if not all(math.isfinite(x) for x in losses + norms):
-        raise AssertionError(f"non-finite loss or grad norm: {losses} "
-                             f"{norms}")
+        raise AssertionError(f"{path}: non-finite loss or grad norm: "
+                             f"{losses} {norms}")
 
     # the kernel path against the plain path: same params, batch and link
     # uniforms (quant8 streams them in, bitwise equal in both)
     b0 = batches[0]
-    shape = (TRAIN["n_clients"], TRAIN["batch_per_client"], TRAIN["seq"],
+    shape = (spec["n_clients"], spec["batch_per_client"], spec["seq"],
              cfg.d_model)
-    ug = torch.Generator(device=device).manual_seed(TRAIN["seed"] + 1)
+    ug = torch.Generator(device=device).manual_seed(spec["seed"] + 1)
     draws = {k: torch.rand(shape, generator=ug, device=device)
              for k in ("uplink", "downlink")}
     params = state["params"]
@@ -835,17 +1026,16 @@ def phase_train():
     l_k, _, g_k = mpsl.value_and_grad(loss_fn, params, frozen, b0, draws)
     torch.cuda.synchronize()
     kernel_s = time.perf_counter() - t
-    plain_fn = mpsl.make_lm_loss(cfg, run,
-                                 impls={"attn": "naive", "ce": "plain"})
+    plain_fn = mpsl.make_lm_loss(cfg, run, impls=PLAIN_IMPLS)
     t = time.perf_counter()
     l_p, _, g_p = mpsl.value_and_grad(plain_fn, params, frozen, b0, draws)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t
-    names = [".".join(str(x) for x in path) for path in _leaf_paths(params)]
+    names = [".".join(str(x) for x in p) for p in _leaf_paths(params)]
     errs = {n: _rel_l2(a, b) for n, a, b in zip(names, g_k, g_p)}
     loss_err = abs(float(l_k) - float(l_p)) / abs(float(l_p))
     worst = max(errs, key=errs.get)
-    cmp = {"phase": "train_vs_plain", "loss_kernel": float(l_k),
+    cmp = {"phase": f"{path}_vs_plain", "loss_kernel": float(l_k),
            "loss_plain": float(l_p), "loss_rel_err": loss_err,
            "loss_tol": TRAIN_LOSS_TOL, "grad_leaves": len(errs),
            "grad_rel_l2_max": errs[worst], "grad_rel_l2_worst_leaf": worst,
@@ -858,9 +1048,10 @@ def phase_train():
     del g_k, g_p
     torch.cuda.empty_cache()
     if loss_err > TRAIN_LOSS_TOL or errs[worst] > TRAIN_GRAD_TOL:
-        raise AssertionError(f"kernel path differs from the plain path: loss "
-                             f"{loss_err}, gradient {worst} {errs[worst]}")
-    return counts, (step_fn, state, batches[-1], rec)
+        raise AssertionError(f"{path}: kernel path differs from the plain "
+                             f"path: loss {loss_err}, gradient {worst} "
+                             f"{errs[worst]}")
+    return counts, (path, step_fn, state, batches[-1], rec)
 
 
 def _leaf_paths(t, prefix=()):
@@ -873,7 +1064,7 @@ def _leaf_paths(t, prefix=()):
     return [prefix]
 
 
-def phase_train_profile(step_fn, state, batch, train_rec, top=10):
+def phase_train_profile(path, step_fn, state, batch, train_rec, top=10):
     """Where a train step's time goes: device time by kernel over one step
     (torch.profiler), and the device's idle share of the unprofiled median
     step time."""
@@ -888,7 +1079,8 @@ def phase_train_profile(step_fn, state, batch, train_rec, top=10):
     busy = sum(times.values())
     wall = train_rec["median_step_ms"]
     ranked = sorted(times.items(), key=lambda kv: -kv[1])[:top]
-    emit({"phase": "train_profile", "per": "step", "device_busy_ms": busy,
+    emit({"phase": "train_profile", "path": path, "per": "step",
+          "device_busy_ms": busy,
           "host_ms_unprofiled": wall,
           "device_idle_share": max(0.0, 1 - busy / wall),
           "top_kernels_ms": [[k[:90], v] for k, v in ranked]})
@@ -903,17 +1095,19 @@ def main() -> int:
     smi = phase_card()
     phase_build()
     kernels = phase_kernels()
-    serve_counts, served = phase_serve()
-    phase_profile(*served)
-    del served
-    torch.cuda.empty_cache()
-    train_counts, trained = phase_train()
-    phase_train_profile(*trained)
-    del trained
+    counts = {}
+    for path, spec in PATHS.items():
+        if path.endswith("serve"):
+            counts[path], driven = phase_serve(path, spec)
+            phase_profile(*driven)
+        else:
+            counts[path], driven = phase_train(path, spec)
+            phase_train_profile(*driven)
+        del driven
+        torch.cuda.empty_cache()
     for name, entry in kernels.items():
-        by_path = {"serve": serve_counts[name], "train": train_counts[name]}
-        entry["launches_by_path"] = by_path
-        entry["launches"] = sum(by_path.values())
+        entry["launches_by_path"] = {p: c[name] for p, c in counts.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
         if not entry["launches"]:
             raise AssertionError(f"{name} never launched on a main path")
     emit({"kernels": list(kernels.values())})

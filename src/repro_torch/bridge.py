@@ -13,7 +13,11 @@ keeps a list of L per-layer dicts instead. The conversion goes down nested
 dicts, so the MPSL trees of ``core.split.init_mpsl_lm`` (``client.adapter``
 stays stacked [N, ...], ``server.segments`` and the frozen segments are
 split per layer) and AdamW's ``{mu, nu, count}``, whose moments mirror
-the params, cross as well.
+the params, cross as well. So do the SSM and hybrid trees: a hybrid
+layer's beta scalars, stacked [L] in the JAX package, become 0-d tensors.
+
+``cache_to_repro`` stacks the port's per-layer serving caches (KV, SSM,
+hybrid) into the JAX package's stacked layout, for comparing the two.
 """
 from __future__ import annotations
 
@@ -77,3 +81,12 @@ def _stack(trees):
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
     return np.stack(trees)
+
+
+def cache_to_repro(caches):
+    """The port's body cache (per segment, a list of per-layer cache dicts;
+    a KV cache's ``index`` is an int) -> the JAX package's (per segment, one
+    dict of stacked numpy arrays; ``index`` int32 [L])."""
+    def leaf(x):
+        return np.asarray(x, np.int32) if isinstance(x, int) else _to_numpy(x)
+    return [_stack([_map(leaf, layer) for layer in seg]) for seg in caches]

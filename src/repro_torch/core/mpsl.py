@@ -35,7 +35,7 @@ from repro_torch.models import layers, model as M
 from repro_torch.optim import (adamw_init, adamw_update, apply_updates,
                                clip_by_global_norm)
 
-DEFAULT_IMPLS = {"attn": "kernel", "ce": "kernel"}
+DEFAULT_IMPLS = {"attn": "kernel", "ce": "kernel", "ssm": "kernel"}
 
 
 # ---------------------------------------------------------------------------
@@ -87,15 +87,18 @@ def make_lm_loss(cfg, run, impls=None):
     """Returns loss_fn(trainable, frozen, batch, rng) -> (L_S, metrics).
 
     batch: tokens [N, Bn, S], labels [N, Bn, S] (int), mask [N] (f32).
-    impls: {"attn": "kernel" | "naive", "ce": "kernel" | "plain"}; the
-    kernels by default."""
-    if cfg.family not in ("dense",) or cfg.encoder_layers:
+    impls: {"attn": "kernel" | "naive", "ce": "kernel" | "plain", "ssm":
+    "kernel" | "plain", "ssm_chunk": int, "ssm_bwd": "fused" |
+    "recompute"}; the kernels by default, the chunk and the scan's
+    backward from ``run``."""
+    if cfg.family not in M.PORTED_FAMILIES or cfg.encoder_layers:
         raise NotImplementedError(
             f"the {cfg.family} family comes with a later slice of the port "
             f"(ROADMAP.md)")
     mpsl = run.mpsl
     cdt = getattr(torch, run.compute_dtype)
-    impls = {**DEFAULT_IMPLS, **(impls or {})}
+    impls = {**DEFAULT_IMPLS, "ssm_chunk": run.ssm_chunk,
+             "ssm_bwd": run.ssm_bwd_impl, **(impls or {})}
     remat = run.remat != "none"
 
     def loss_fn(trainable, frozen, batch, rng):

@@ -22,7 +22,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "softmax_xent",
-           "quant8")
+           "quant8", "selective_scan_fwd", "selective_scan_bwd")
 
 
 def nvcc() -> str:

@@ -5,7 +5,10 @@ Counterpart of the JAX package's ``kernels/ops.py``: one
 the same residual sets. Flash attention and the LM-head cross-entropy run
 kernels in BOTH directions (the backward rebuilds probabilities from the
 forward's lse residual, so nothing [Sq, Sk]- or [T, V]-shaped is kept);
-quant-dequant is straight-through. A CPU tensor goes to each kernel's
+the selective scan's backward recomputes each chunk's states from the
+forward's chunk-entry checkpoints (or, with ``bwd="recompute"``, runs
+autograd through the sequential oracle); quant-dequant is
+straight-through. A CPU tensor goes to each kernel's
 plain PyTorch version; a CUDA tensor goes to the hand-written kernel, or
 the call raises. Nothing falls back from one to the other.
 
@@ -18,6 +21,8 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quant8 as _q8
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import selective_scan as _ss
 from repro_torch.kernels import softmax_xent as _sx
 
 
@@ -98,6 +103,64 @@ class _SoftmaxXent(torch.autograd.Function):
         fn = _sx.softmax_xent_bwd_plain if _on_cpu(h) else _sx.softmax_xent_bwd
         dh, dw = fn(h, w, labels, lse, g.float().contiguous())
         return dh, dw, None
+
+
+# ---------------------------------------------------------------------------
+# selective scan
+
+
+def selective_scan(x, dt, b_in, c_in, a_log, h0=None, chunk=256,
+                   bwd="fused"):
+    """The Mamba-1 scan: (y [B,S,di], h_final [B,di,ds] f32) from x, dt
+    [B,S,di], b_in, c_in [B,S,ds], a_log [di,ds] and an optional h0 (see
+    `_ss`). a_log enters in f32 (a frozen bf16 one is upcast here, as the
+    TPU kernel does in VMEM; autograd casts its gradient back).
+
+    ``bwd``: "fused" runs the backward kernel (its plain version on the
+    CPU), recomputing states from the chunk checkpoints; "recompute" is
+    autograd through ``ref.selective_scan_ref`` (the JAX package's
+    ``ssm_bwd="recompute"``). The gradient for h0 is None when h0 is."""
+    if bwd not in ("fused", "recompute"):
+        raise ValueError(f"unknown scan backward {bwd!r} (fused | recompute)")
+    return _SelectiveScan.apply(x, dt, b_in, c_in, a_log.float(), h0,
+                                int(chunk), bwd)
+
+
+class _SelectiveScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, b_in, c_in, a_log, h0, chunk, bwd):
+        if _on_cpu(x):
+            y, h_final, h_ckpt = _ss.selective_scan_fwd_plain(
+                x, dt, b_in, c_in, a_log, h0, chunk=chunk)
+        else:
+            x, dt, b_in, c_in, a_log = (
+                t.contiguous() for t in (x, dt, b_in, c_in, a_log))
+            if h0 is not None:
+                h0 = h0.float().contiguous()
+            y, h_final, h_ckpt = _ss.selective_scan_fwd(
+                x, dt, b_in, c_in, a_log, h0, chunk=chunk)
+        ctx.save_for_backward(x, dt, b_in, c_in, a_log, h0, h_ckpt)
+        ctx.chunk, ctx.bwd = chunk, bwd
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        x, dt, b_in, c_in, a_log, h0, h_ckpt = ctx.saved_tensors
+        if ctx.bwd == "recompute":
+            ins = [t.detach().requires_grad_() for t in
+                   (x, dt, b_in, c_in, a_log)
+                   + (() if h0 is None else (h0,))]
+            with torch.enable_grad():
+                y, h = _ref.selective_scan_ref(*ins)
+                grads = torch.autograd.grad((y, h), ins, (gy, gh))
+            return (*grads, *(() if h0 is not None else (None,)), None, None)
+        gy, gh = gy.to(x.dtype).contiguous(), gh.float().contiguous()
+        fn = (_ss.selective_scan_bwd_plain if _on_cpu(x)
+              else _ss.selective_scan_bwd)
+        dx, ddt, db, dc, da_log, dh0 = fn(x, dt, b_in, c_in, a_log, h_ckpt,
+                                          gy, gh, chunk=ctx.chunk)
+        return (dx, ddt, db.to(b_in.dtype), dc.to(c_in.dtype), da_log,
+                None if h0 is None else dh0.to(h0.dtype), None, None)
 
 
 # ---------------------------------------------------------------------------

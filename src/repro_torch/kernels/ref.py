@@ -35,6 +35,26 @@ def flash_attention_ref(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     return o.reshape(b, sq, h, hd).to(q.dtype)
 
 
+def selective_scan_ref(x, dt, b_in, c_in, a_log, h0=None):
+    """Sequential reference of the Mamba recurrence, f32.
+
+    x, dt [B,S,di]; b_in, c_in [B,S,ds]; a_log [di,ds].
+    Returns (y [B,S,di] in x's dtype, h_final [B,di,ds] f32)."""
+    bsz, s, di = x.shape
+    ds = b_in.shape[-1]
+    a_neg = -torch.exp(a_log.float())
+    h = torch.zeros((bsz, di, ds), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    ys = []
+    for t in range(s):
+        dtt = dt[:, t].float()
+        a = torch.exp(dtt[..., None] * a_neg)
+        h = a * h + (dtt * x[:, t].float())[..., None] \
+            * b_in[:, t].float()[:, None, :]
+        ys.append(torch.einsum("bns,bs->bn", h, c_in[:, t].float()))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
 def softmax_xent_ref(h, w, labels):
     """Materialized-logits per-token CE (and LSE), f32.
 

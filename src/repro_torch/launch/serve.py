@@ -4,8 +4,13 @@
       --full --batch 4 --prompt-len 512 --decode-steps 16
 
 Serves the post-training construction [F_C_agg ; F_S] (paper Sec. 3.3):
-greedy decode over a batch of requests with a KV cache, attention in
-every layer through the hand-written flash-attention kernel. Runs on
+greedy decode over a batch of requests with a per-layer cache (KV for
+attention, the state and conv history for Mamba), updated in place.
+Attention runs the hand-written flash-attention kernel, prefill and
+decode; a Mamba layer's prefill runs the selective-scan kernel seeded
+with the cached state, its decode the O(1) recurrence step. The dense,
+SSM (``--arch falcon-mamba-7b``) and hybrid (``--arch hymba-1.5b``)
+families serve. Runs on
 ``cuda`` unless ``--device cpu`` is given (then the kernels' plain
 versions run); without a card it raises rather than carry on on the CPU.
 """
@@ -34,12 +39,14 @@ def resolve_device(name) -> torch.device:
 
 
 def build_serving_fns(cfg, compute_dtype=torch.float32, device="cuda",
-                      attn_impl="kernel"):
+                      attn_impl="kernel", ssm_impl="kernel"):
     """(prefill, decode) for `cfg`. The KV cache holds prompt + 512 slots
-    in the compute dtype; prefill returns the last position's logits.
-    decode updates the cache in place and returns it."""
+    (a sliding-window layer's, the window) in the compute dtype; prefill
+    returns the last position's logits. decode updates the cache in place
+    and returns it. attn_impl: "kernel" | "naive"; ssm_impl: "kernel" |
+    "plain"."""
     device = resolve_device(device)
-    impls = {"attn": attn_impl}
+    impls = {"attn": attn_impl, "ssm": ssm_impl}
 
     @torch.inference_mode()
     def prefill(params, tokens):

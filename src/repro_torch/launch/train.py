@@ -7,8 +7,10 @@ The port of the JAX package's ``launch/train.py``: the same flags and
 defaults, and ``--device`` (``cuda`` unless ``--device cpu`` is given,
 which runs the kernels' plain versions; without a card it raises rather
 than carry on on the CPU). The MPSL LM train step runs with the
-kernels: flash attention in every block, the fused LM-head
-cross-entropy, and quant8 on both links under ``--compress``. A plain
+kernels: flash attention in every attention block, the selective scan
+forward and backward in every Mamba block (``--arch falcon-mamba-7b``,
+``--arch hymba-1.5b``), the fused LM-head cross-entropy, and quant8 on
+both links under ``--compress``. A plain
 loop steps it over the ported loader; the trainer, prefetching,
 checkpoints, telemetry and fault plans come with a later slice.
 """

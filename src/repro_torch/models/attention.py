@@ -113,13 +113,18 @@ def _cache_insert(cache, k_new, v_new, positions):
     Ring-buffered for window caches: the write offset is index % cache_len.
     Decode writes Sq == 1 (never straddles); prefill (Sq > 1) starts at
     index 0 — when the new sequence exceeds a window cache, only the last
-    cache_len entries are kept."""
+    cache_len entries are kept, rotated so that the oldest lies at slot
+    Sq % cache_len, where the next decode step writes. (The JAX package
+    writes them unrotated: after a prefill of 1536 into a 1024-slot
+    window, its first decode step overwrites the entry of position 1024,
+    inside the window, and keeps 512, outside it. ROADMAP.md Queue 3.)"""
     cache_len = cache["k"].shape[1]
     sq = k_new.shape[1]
     if sq >= cache_len and sq > 1:            # prefill into a window cache
-        k_new = k_new[:, -cache_len:]
-        v_new = v_new[:, -cache_len:]
-        positions = positions[:, -cache_len:]
+        shift = sq % cache_len
+        k_new, v_new, positions = (
+            torch.roll(t[:, -cache_len:], shift, dims=1)
+            for t in (k_new, v_new, positions))
         idx = 0
     else:
         idx = cache["index"] % cache_len

@@ -1,14 +1,21 @@
-"""Model assembly: init + forward of the dense decoder family.
+"""Model assembly: init + forward of the dense, SSM and hybrid decoders.
 
 The transformer body is a list of SEGMENTS — runs of consecutive layers
 with identical static structure — as in the JAX package. There each
 segment is a stacked pytree scanned with jax.lax.scan; here it is a list
-of per-layer param dicts run by a Python loop, and its KV cache a list of
+of per-layer param dicts run by a Python loop, and its cache a list of
 per-layer cache dicts updated in place.
 
-Only the dense family runs in this slice of the port; every other family
-raises NotImplementedError naming the slice of ROADMAP.md that brings it.
-The segment plan and the analytic parameter counts cover every family.
+Block kinds: dense (norm1 -> attention -> residual, norm2 -> MLP ->
+residual), ssm (norm1 -> Mamba -> residual; no MLP) and hybrid (norm1 ->
+parallel attention + Mamba -> residual, norm2 -> MLP -> residual). MoE,
+cross-attention, ViT and encoder blocks raise NotImplementedError naming
+the slice of ROADMAP.md that brings them. The segment plan and the
+analytic parameter counts cover every family.
+
+``impls``: {"attn": "kernel" | "naive", "ssm": "kernel" | "plain",
+"ssm_chunk": the scan's chunk (256), "ssm_bwd": "fused" | "recompute"};
+the kernels by default.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.models import attention, layers, mlp
+from repro_torch.models import attention, hybrid, layers, mamba, mlp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,9 +69,8 @@ def body_segments(cfg) -> List[Segment]:
     raise ValueError(f"unknown family {fam!r}")
 
 
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 _LATER_SLICES = {
-    "ssm": "the SSM slice",
-    "hybrid": "the SSM slice",
     "moe": "the MoE slice",
     "dec": "the enc-dec / VLM slice",
     "enc": "the enc-dec / VLM slice",
@@ -72,8 +78,8 @@ _LATER_SLICES = {
 }
 
 
-def _require_dense(kind: BlockKind) -> None:
-    if kind.family != "dense" or kind.cross:
+def _require_ported(kind: BlockKind) -> None:
+    if kind.family not in PORTED_FAMILIES or kind.cross:
         raise NotImplementedError(
             f"{kind.family} blocks come with "
             f"{_LATER_SLICES.get(kind.family, 'a later slice')} of the "
@@ -85,26 +91,45 @@ def _require_dense(kind: BlockKind) -> None:
 
 
 def init_block(generator, cfg, kind: BlockKind, device=None):
-    _require_dense(kind)
-    return {
-        "norm1": layers.init_norm(cfg.norm, cfg.d_model, device),
-        "attn": attention.init_attention(generator, cfg, device),
-        "norm2": layers.init_norm(cfg.norm, cfg.d_model, device),
-        "mlp": mlp.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.activation,
-                            device),
-    }
+    _require_ported(kind)
+    p = {"norm1": layers.init_norm(cfg.norm, cfg.d_model, device)}
+    if kind.family == "ssm":
+        p["ssm"] = mamba.init_mamba(generator, cfg, device)
+        return p
+    if kind.family == "hybrid":
+        p["mix"] = hybrid.init_hybrid(generator, cfg, device)
+    else:
+        p["attn"] = attention.init_attention(generator, cfg, device)
+    p["norm2"] = layers.init_norm(cfg.norm, cfg.d_model, device)
+    p["mlp"] = mlp.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.activation,
+                            device)
+    return p
 
 
 def apply_block(params, x, cfg, kind: BlockKind, *, positions, cache=None,
                 impls=None):
     """One transformer block. Returns (x, cache)."""
-    _require_dense(kind)
+    _require_ported(kind)
     impls = impls or {}
     h = layers.apply_norm(x, params["norm1"], cfg.norm)
-    window = 0 if kind.is_global else cfg.sliding_window
-    out, cache = attention.apply_attention(
-        params["attn"], h, cfg, positions=positions, causal=kind.causal,
-        window=window, cache=cache, impl=impls.get("attn", "kernel"))
+    ssm_kw = dict(ssm_impl=impls.get("ssm", "kernel"),
+                  ssm_chunk=impls.get("ssm_chunk", 256),
+                  ssm_bwd=impls.get("ssm_bwd", "fused"))
+    if kind.family == "ssm":
+        out, cache = mamba.apply_mamba(
+            params["ssm"], h, cfg, cache=cache, impl=ssm_kw["ssm_impl"],
+            chunk=ssm_kw["ssm_chunk"], bwd_impl=ssm_kw["ssm_bwd"])
+        return x + out, cache
+    if kind.family == "hybrid":
+        out, cache = hybrid.apply_hybrid(
+            params["mix"], h, cfg, positions=positions,
+            is_global=kind.is_global, cache=cache,
+            impl=impls.get("attn", "kernel"), **ssm_kw)
+    else:
+        window = 0 if kind.is_global else cfg.sliding_window
+        out, cache = attention.apply_attention(
+            params["attn"], h, cfg, positions=positions, causal=kind.causal,
+            window=window, cache=cache, impl=impls.get("attn", "kernel"))
     x = x + out
     h = layers.apply_norm(x, params["norm2"], cfg.norm)
     x = x + mlp.apply_mlp(params["mlp"], h, cfg.activation)
@@ -122,7 +147,15 @@ def init_segment(generator, cfg, seg: Segment, device=None):
 
 def init_segment_cache(cfg, seg: Segment, batch: int, cache_len: int,
                        dtype=torch.bfloat16, device=None):
-    _require_dense(seg.kind)
+    kind = seg.kind
+    _require_ported(kind)
+    if kind.family == "ssm":
+        return [mamba.init_mamba_cache(cfg, batch, dtype, device)
+                for _ in range(seg.count)]
+    if kind.family == "hybrid":
+        return [hybrid.init_hybrid_cache(cfg, batch, cache_len,
+                                         kind.is_global, dtype, device)
+                for _ in range(seg.count)]
     return [attention.init_cache(cfg, batch, cache_len, dtype, device)
             for _ in range(seg.count)]
 
@@ -163,7 +196,7 @@ def init_lm(cfg, generator, device=None):
             "encoders come with the enc-dec / VLM slice of the port")
     segs = body_segments(cfg)
     for seg in segs:
-        _require_dense(seg.kind)
+        _require_ported(seg.kind)
     params: Dict[str, Any] = {}
     embed: Dict[str, Any] = {
         "table": layers.dense_init(generator, (cfg.vocab_size, cfg.d_model),

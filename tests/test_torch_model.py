@@ -173,6 +173,9 @@ def test_attention_prefill_then_decode_with_cache(impl):
 
 
 def test_cache_insert_keeps_the_tail_of_a_long_prefill():
+    """Both keep the last 4 of 9 entries; the port rotates them so that
+    position p lies at slot p % 4 and the next write (index 9 % 4 = 1)
+    replaces the oldest, position 5 (ROADMAP.md Queue 3)."""
     cfg = reduced(get_config("minitron-4b"))
     rng = np.random.default_rng(6)
     k = rng.standard_normal((1, 9, 1, 16)).astype(np.float32)
@@ -181,8 +184,10 @@ def test_cache_insert_keeps_the_tail_of_a_long_prefill():
                           jnp.asarray(k), jnp.asarray(k), jnp.asarray(pos))
     tc = TA._cache_insert(TA.init_cache(cfg, 1, 4, torch.float32), _t(k),
                           _t(k), _t(pos))
-    _close(tc["k"], jc["k"])
-    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+    _close(tc["k"], np.roll(np.asarray(jc["k"]), 1, axis=1))
+    np.testing.assert_array_equal(tc["pos"].numpy(),
+                                  np.roll(np.asarray(jc["pos"]), 1, axis=1))
+    np.testing.assert_array_equal(tc["pos"].numpy()[0] % 4, np.arange(4))
     assert tc["index"] == int(jc["index"]) == 9
 
 
@@ -229,7 +234,7 @@ def test_param_count_matches_jax(arch):
         reduced(get_config(arch)).param_count(2)
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "qwen2-moe-a2.7b",
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "qwen2-moe-a2.7b",
                                   "whisper-tiny", "vit-tiny"])
 def test_other_families_name_their_slice(arch):
     cfg = t_reduced(t_get_config(arch))
