@@ -4,8 +4,9 @@
                     (``csrc/flash_attention_bwd.cu``: dq, then dk/dv), CUDA
                     C++. Online-softmax GQA attention masked by absolute
                     positions, emitting o and the row LSE; the backward
-                    rebuilds p from the LSE. Serves prefill, decode and the
-                    train step.
+                    rebuilds p from the LSE. bf16 runs on the tensor cores,
+                    f32 on the CUDA cores, decode by split-KV. Serves
+                    prefill, decode and the train step.
   softmax_xent    — the LM-head cross-entropy, forward (vocab split across
                     blocks, partials merged) and backward (dh, dw through a
                     [T, 4096] ds slab), CUDA C++ (``csrc/softmax_xent.cu``).
