@@ -7,7 +7,7 @@
 2. build:   every CUDA kernel of the port, built with nvcc from the
             sources in this checkout (``build/repro_torch/``), one nvcc
             each, all started together; a ptxas spill in either flash
-            source fails the run.
+            source or in the CE source fails the run.
 3. kernels: each kernel against its plain PyTorch version on the card,
             at the main paths' shapes and at edge cases, in f32 and bf16;
             timed by device time (torch.profiler) beside its plain
@@ -41,7 +41,9 @@
                  compute: the tensor-core flash forward in prefill, its
                  split-KV route in decode;
    train_bf16    minitron-4b as train, RunConfig(compute_dtype="bfloat16"):
-                 the tensor-core flash backward in every block.
+                 the tensor-core flash backward in every block, and the CE
+                 kernels on the mixed pair (bf16 h, the f32 trainable head)
+                 as it comes.
    Each path's serve or train is followed by its profile: device time by
    kernel (torch.profiler) and the device's busy share.
 
@@ -291,22 +293,23 @@ def _ptxas_report(log: str) -> list:
 
 
 # sources whose kernels must not spill (the build phase fails if ptxas
-# reports a spill in one)
-FLASH_SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+# reports a spill in one): the flash kernels and the CE GEMM, whose
+# consumers hold a 64 x 256 f32 accumulator in 128 registers a thread
+NO_SPILL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
+                    "softmax_xent")
 
 
 def phase_build():
     t0 = time.perf_counter()
     logs = build.build()
     seconds = time.perf_counter() - t0
-    spills = {name: _spills(logs[name]) for name in FLASH_SOURCES
+    spills = {name: _spills(logs[name]) for name in NO_SPILL_SOURCES
               if name in logs and _spills(logs[name])}
     emit({"phase": "build", "seconds": seconds, "built": sorted(logs),
           "ptxas": {name: _ptxas_report(log) for name, log in logs.items()},
-          "flash_spills": spills})
+          "spills": spills})
     if spills:
-        raise AssertionError(f"ptxas reports spills in the flash kernels: "
-                             f"{spills}")
+        raise AssertionError(f"ptxas reports spills: {spills}")
 
 
 # ---------------------------------------------------------------------------
@@ -634,33 +637,70 @@ def _entry_of(name, source, replaces, results, head):
             "library_ms": head["library_ms"], "cases": results}
 
 
-def _ce_bound(t, d, v, dtype, products, nbytes):
-    t_ops = products * 2.0 * t * d * v / PEAK_FLOPS[dtype]
+def _ce_bound(t, d, v, h_dtype, w_dtype, backward):
+    """(ms, bound_by, f32 CUDA-core ms) of one CE call. Operations: the
+    route's bf16 products (``sx.products``), 2TDV FLOPs each, at the
+    tensor cores' bf16 peak. Bytes: the bf16 pieces of h and w read once,
+    labels (and lse, g) read once, loss and lse (or dh, dw) written once.
+    The third number is the bound of the same work as f32 products on the
+    CUDA cores (1 forward, 3 backward), the first design's ceiling."""
+    products = sx.products(h_dtype, w_dtype)[backward]
+    flop = 2.0 * t * d * v
+    pieces = 2 * (sx.n_pieces(h_dtype) * t * d
+                  + sx.n_pieces(w_dtype) * d * v)
+    if backward:
+        nbytes = (pieces + 3 * t * 4 + t * d * h_dtype.itemsize
+                  + d * v * w_dtype.itemsize)
+    else:
+        nbytes = pieces + 3 * t * 4
+    t_ops = products * flop / PEAK_FLOPS[torch.bfloat16]
     t_bytes = nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    by = (f"operations, {products} bf16 products" if t_ops >= t_bytes
+          else "bytes")
+    cuda_core = (3 if backward else 1) * flop / PEAK_FLOPS[torch.float32]
+    return max(t_ops, t_bytes) * 1e3, by, cuda_core * 1e3
+
+
+def _rel_gaps(rec, pairs):
+    """Each (name, kernel out, pieces-model out): the largest difference
+    relative to the model's largest element, recorded (summation order
+    only: the model forms the same bf16 products)."""
+    for name, got, model in pairs:
+        rec[f"rel_gap_vs_pieces_{name}"] = _max_err(got, model) / max(
+            model.float().abs().max().item(), 1e-30)
 
 
 def kernels_softmax_xent():
     """Compare and time the fused LM-head cross-entropy, forward and
-    backward: the train path's shape (T = 8 x 511 tokens, D 3072, V 256000)
-    in f32, and a ragged small shape in f32 and bf16."""
+    backward, at every train path's shape and dtype pair (T = 8 x 511
+    tokens): minitron-4b in f32 and at bf16 compute (bf16 h, f32 head),
+    falcon-mamba-7b and hymba-1.5b (V 32001: rows of unaligned stride), and
+    a ragged small shape in f32, bf16 and the mixed pair. Each against the
+    plain version (the oracle) and beside the split-bf16 pieces model."""
     g = torch.Generator(device="cuda").manual_seed(2)
-    cases = [("train", 4088, 3072, 256000, torch.float32, True),
-             ("ragged", 1000, 200, 10007, torch.float32, False),
-             ("ragged", 1000, 200, 10007, torch.bfloat16, False)]
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("train", 4088, 3072, 256000, f32, f32, True),
+             ("train_bf16", 4088, 3072, 256000, bf16, f32, True),
+             ("ssm_train", 4088, 4096, 65024, f32, f32, True),
+             ("hybrid_train", 4088, 1600, 32001, f32, f32, True),
+             ("ragged", 1000, 200, 10007, f32, f32, False),
+             ("ragged", 1000, 200, 10007, bf16, bf16, False),
+             ("ragged", 1000, 200, 10007, bf16, f32, False)]
     fwd_res, bwd_res = [], []
-    for name, t, d, v, dtype, main_path in cases:
-        h = (torch.randn((t, d), generator=g, device="cuda")).to(dtype)
+    for name, t, d, v, h_dtype, w_dtype, main_path in cases:
+        h = (torch.randn((t, d), generator=g, device="cuda")).to(h_dtype)
         w = (torch.randn((d, v), generator=g, device="cuda")
-             * d ** -0.5).to(dtype)
+             * d ** -0.5).to(w_dtype)
         lab = torch.randint(0, v, (t,), generator=g, device="cuda",
                             dtype=torch.int32)
         gg = torch.randn((t,), generator=g, device="cuda") / t
-        base = {"case": name, "dtype": str(dtype).split(".")[-1],
+        dtype = f"{str(h_dtype)[6:]}/{str(w_dtype)[6:]}"
+        base = {"case": name, "dtype": dtype,
                 "shape": dict(t=t, d=d, v=v), "main_path": main_path}
         iters = 3 if main_path else 10
-        es = h.element_size()
+        # the library call on the same function: one dtype for both
+        lt = torch.promote_types(h_dtype, w_dtype)
+        hl, wl = h.to(lt), w.to(lt)
 
         loss, lse = sx.softmax_xent_fwd(h, w, lab)
         torch.cuda.synchronize()
@@ -670,46 +710,66 @@ def kernels_softmax_xent():
                      zip(("loss", "lse"), (loss, lse), want),
                      TOL[torch.float32], rec)
         del want
+        _rel_gaps(rec, zip(("loss", "lse"), (loss, lse),
+                           sx.softmax_xent_fwd_pieces(h, w, lab)))
         rec["ms"] = device_ms(lambda: sx.softmax_xent_fwd(h, w, lab),
                               iters=iters, warmup=1)
         rec["plain_ms"] = device_ms(
             lambda: sx.softmax_xent_fwd_plain(h, w, lab), iters=iters,
             warmup=1)
         rec["library_ms"] = device_ms(lambda: F.cross_entropy(
-            h @ w, lab.long(), reduction="none"), iters=iters, warmup=1)
-        rec["bound_ms"], rec["bound_by"] = _ce_bound(
-            t, d, v, dtype, 1, (t * d + d * v) * es + t * 4 * 3)
+            hl @ wl, lab.long(), reduction="none"), iters=iters, warmup=1)
+        rec["bound_ms"], rec["bound_by"], rec["bound_f32_cuda_core_ms"] = \
+            _ce_bound(t, d, v, h_dtype, w_dtype, backward=False)
+        _hold_to_bound("softmax_xent_fwd", rec)
         emit({"phase": "kernels", "kernel": "softmax_xent_fwd", **rec})
         fwd_res.append(rec)
 
-        got = sx.softmax_xent_bwd(h, w, lab, lse, gg)
+        dh, dw = sx.softmax_xent_bwd(h, w, lab, lse, gg)
         torch.cuda.synchronize()
-        want = sx.softmax_xent_bwd_plain(h, w, lab, lse, gg)
-        rec = dict(base, tol=GRAD_TOL[dtype])
+        want_dh, want_dw = sx.softmax_xent_bwd_plain(h, w, lab, lse, gg)
+        # each output in its own dtype's tolerance
+        rec = dict(base, tol_dh=GRAD_TOL[h_dtype], tol_dw=GRAD_TOL[w_dtype])
         _check_close("softmax_xent_bwd", name, dtype,
-                     zip(("dh", "dw"), got, want), GRAD_TOL[dtype], rec)
-        del got, want
+                     [("dh", dh, want_dh)], GRAD_TOL[h_dtype], rec)
+        _check_close("softmax_xent_bwd", name, dtype,
+                     [("dw", dw, want_dw)], GRAD_TOL[w_dtype], rec)
+        del want_dh, want_dw
+        _rel_gaps(rec, zip(("dh", "dw"), (dh, dw),
+                           sx.softmax_xent_bwd_pieces(h, w, lab, lse, gg)))
+        del dh, dw
         rec["ms"] = device_ms(lambda: sx.softmax_xent_bwd(h, w, lab, lse, gg),
                               iters=iters, warmup=1)
         rec["plain_ms"] = device_ms(
             lambda: sx.softmax_xent_bwd_plain(h, w, lab, lse, gg),
             iters=iters, warmup=1)
-        hg, wg = h.clone().requires_grad_(), w.clone().requires_grad_()
+        hg, wg = hl.clone().requires_grad_(), wl.clone().requires_grad_()
         lib = F.cross_entropy(hg @ wg, lab.long(), reduction="none")
         rec["library_ms"] = device_ms(lambda: torch.autograd.grad(
             lib, (hg, wg), gg, retain_graph=True), iters=iters, warmup=1)
         del lib, hg, wg
-        rec["bound_ms"], rec["bound_by"] = _ce_bound(
-            t, d, v, dtype, 3, 2 * (t * d + d * v) * es + t * 4 * 3)
+        rec["bound_ms"], rec["bound_by"], rec["bound_f32_cuda_core_ms"] = \
+            _ce_bound(t, d, v, h_dtype, w_dtype, backward=True)
+        _hold_to_bound("softmax_xent_bwd", rec)
         emit({"phase": "kernels", "kernel": "softmax_xent_bwd", **rec})
         bwd_res.append(rec)
-        del h, w
+        del h, w, hl, wl
         torch.cuda.empty_cache()
     return [_entry_of(kname, "softmax_xent.cu",
                       f"src/repro/kernels/softmax_xent.py:{line}", res,
                       res[0])
             for kname, line, res in (("softmax_xent_fwd", 131, fwd_res),
                                      ("softmax_xent_bwd", 170, bwd_res))]
+
+
+def _hold_to_bound(kernel, rec):
+    """A kernel never runs faster than the least time the card could take:
+    a time under its bound means a wrong bound or a wrong timing."""
+    if not rec["ms"] >= rec["bound_ms"]:
+        emit({"phase": "kernels", "kernel": kernel, **rec, "failed": "bound"})
+        raise AssertionError(f"{kernel} {rec['case']} {rec['dtype']}: "
+                             f"{rec['ms']} ms is under its bound "
+                             f"{rec['bound_ms']} ms")
 
 
 def kernels_quant8():

@@ -9,7 +9,9 @@
                     prefill, decode and the train step.
   softmax_xent    — the LM-head cross-entropy, forward (vocab split across
                     blocks, partials merged) and backward (dh, dw through a
-                    [T, 4096] ds slab), CUDA C++ (``csrc/softmax_xent.cu``).
+                    [T, 8192] ds slab), CUDA C++ (``csrc/softmax_xent.cu``):
+                    one wgmma GEMM on the tensor cores, every product from
+                    bf16 pieces of the f32 operands.
   quant8          — per-row int8 quant-dequant of the MPSL links: round to
                     nearest, or stochastic with uniforms streamed in or
                     drawn by an in-kernel Philox, CUDA C++

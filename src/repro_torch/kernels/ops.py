@@ -87,10 +87,10 @@ def softmax_xent_tokens(h, w, labels):
 
 
 class _SoftmaxXent(torch.autograd.Function):
-    """h and w of two dtypes (a bf16 hidden state against an f32 trainable
-    head) meet in f32, as in the TPU kernel, which upcasts both tiles: the
-    kernel then runs its f32 instantiation on h upcast (exact), and dh
-    returns in h's dtype, dw in w's."""
+    """h and w may differ in dtype (a bf16 hidden state against an f32
+    trainable head): the kernels take each as it comes, every product from
+    its bf16 pieces with f32 sums, as the TPU kernel upcasts both tiles;
+    dh returns in h's dtype, dw in w's."""
 
     @staticmethod
     def forward(ctx, h, w, labels):
@@ -98,8 +98,7 @@ class _SoftmaxXent(torch.autograd.Function):
             loss, lse = _sx.softmax_xent_fwd_plain(h, w, labels)
         else:
             h, w, labels = h.contiguous(), w.contiguous(), labels.contiguous()
-            hk, wk = (h, w) if h.dtype == w.dtype else (h.float(), w.float())
-            loss, lse = _sx.softmax_xent_fwd(hk, wk, labels)
+            loss, lse = _sx.softmax_xent_fwd(h, w, labels)
         ctx.save_for_backward(h, w, labels, lse)
         return loss
 
@@ -107,11 +106,9 @@ class _SoftmaxXent(torch.autograd.Function):
     def backward(ctx, g):
         h, w, labels, lse = ctx.saved_tensors
         g = g.float().contiguous()
-        if _on_cpu(h):
-            return (*_sx.softmax_xent_bwd_plain(h, w, labels, lse, g), None)
-        hk, wk = (h, w) if h.dtype == w.dtype else (h.float(), w.float())
-        dh, dw = _sx.softmax_xent_bwd(hk, wk, labels, lse, g)
-        return dh.to(h.dtype), dw.to(w.dtype), None
+        fn = (_sx.softmax_xent_bwd_plain if _on_cpu(h)
+              else _sx.softmax_xent_bwd)
+        return (*fn(h, w, labels, lse, g), None)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,7 @@ chunks, a ring of out-of-order positions under a window, and rows with no
 key; the chunk planner's cover of the keys. The tensor-core route's
 rounding points (a test-local model of where the bf16 kernels round)
 against the JAX kernel and its VJP. The CE autograd Function's dtype
-routing. And the bf16 compute paths that drive the new kernels, serving
+routing (the mixed pair reaches the kernels as it comes). And the bf16 compute paths that drive the new kernels, serving
 and the MPSL loss of reduced minitron-4b, against the JAX package at
 ``compute_dtype="bfloat16"``. Inputs come from numpy with a seed."""
 import itertools
@@ -281,21 +281,21 @@ def test_tensor_core_rounding_points_stay_within_bf16_tolerance(case):
 # the CE Function at mixed dtypes (a bf16 hidden state, an f32 head)
 
 
-def test_ce_function_hands_the_kernel_one_dtype(monkeypatch):
-    """At bf16 compute the trainable head stays f32: the CUDA kernel takes
-    one dtype, so the Function meets both in f32 (the TPU kernel upcasts
-    both tiles) and returns dh in h's dtype, dw in w's. The kernel
-    wrappers are stood in for by their plain versions, which assert the
-    dtypes they are handed."""
+def test_ce_function_hands_the_kernel_the_mixed_pair(monkeypatch):
+    """At bf16 compute the trainable head stays f32: the Function hands the
+    CUDA kernels the pair as it comes (bf16 h, f32 w; the kernels form
+    every product from bf16 pieces with f32 sums, as the TPU kernel upcasts
+    both tiles) and returns dh in h's dtype, dw in w's. The kernel wrappers
+    are stood in for by their plain versions, which record the dtypes they
+    are handed."""
     seen = []
 
     def fwd(h, w, labels):
-        assert h.dtype == w.dtype
-        seen.append(h.dtype)
+        seen.append(("fwd", h.dtype, w.dtype))
         return sx.softmax_xent_fwd_plain(h, w, labels)
 
     def bwd(h, w, labels, lse, g):
-        assert h.dtype == w.dtype
+        seen.append(("bwd", h.dtype, w.dtype))
         return sx.softmax_xent_bwd_plain(h, w, labels, lse, g)
 
     monkeypatch.setattr(ops, "_on_cpu", lambda t: False)
@@ -309,7 +309,8 @@ def test_ce_function_hands_the_kernel_one_dtype(monkeypatch):
     wf = w.clone().requires_grad_()
     loss = ops.softmax_xent_tokens(hb, wf, labels)
     loss.sum().backward()
-    assert seen == [torch.float32]
+    assert seen == [("fwd", torch.bfloat16, torch.float32),
+                    ("bwd", torch.bfloat16, torch.float32)]
     assert hb.grad.dtype == torch.bfloat16 and wf.grad.dtype == torch.float32
     # the same function as in f32 on the upcast h
     hf = hb.detach().float().requires_grad_()
