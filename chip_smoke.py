@@ -6,8 +6,8 @@
 1. card:    the card's name, power limit and count.
 2. build:   every CUDA kernel of the port, built with nvcc from the
             sources in this checkout (``build/repro_torch/``), one nvcc
-            each, all started together; a ptxas spill in either flash
-            source or in the CE source fails the run.
+            each, all started together; a ptxas spill past a source's
+            limit (``SPILL_LIMITS``) fails the run.
 3. kernels: each kernel against its plain PyTorch version on the card,
             at the main paths' shapes and at edge cases, in f32 and bf16;
             timed by device time (torch.profiler) beside its plain
@@ -129,6 +129,9 @@ SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # FLOP/s by input type (f32 outside the tensor cores, bf16 inside them).
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# Exponentials on the SFU: 16 a clock an SM (sm_90's ex2 rate), 132 SMs at
+# the 1.98 GHz boost clock.
+PEAK_EXPS = 132 * 16 * 1.98e9
 
 # The main paths, in the order they run. The paper's protocol fine-tunes
 # the last k blocks; with all 32 of minitron-4b trainable the AdamW state
@@ -267,11 +270,13 @@ def _kernel_name(mangled: str) -> str:
     return f"{name}<{','.join(args)}>"
 
 
-def _spills(log: str) -> list:
-    """The lines of nvcc's ``-Xptxas -v`` log that report a spill."""
+def _spills(log: str, limit: int = 0) -> list:
+    """The lines of nvcc's ``-Xptxas -v`` log that report a spill of more
+    than `limit` bytes of stores, or loads where no store is allowed."""
     return [ln.strip() for ln in log.splitlines()
             if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                               r"loads", ln)) and (int(m[1]) or int(m[2]))]
+                               r"loads", ln))
+            and (int(m[1]) > limit or (limit == 0 and int(m[2])))]
 
 
 def _ptxas_report(log: str) -> list:
@@ -292,19 +297,24 @@ def _ptxas_report(log: str) -> list:
     return out
 
 
-# sources whose kernels must not spill (the build phase fails if ptxas
-# reports a spill in one): the flash kernels and the CE GEMM, whose
-# consumers hold a 64 x 256 f32 accumulator in 128 registers a thread
-NO_SPILL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
-                    "softmax_xent")
+# the spill stores ptxas may report for one kernel of a source, in bytes
+# (the build phase fails past them): none for the flash kernels and the CE
+# GEMM (whose consumers hold a 64 x 256 f32 accumulator in 128 registers a
+# thread); the scan forward's bf16 local pass at ds 16 spills 4 bytes, and
+# the scan backward's ds-16 kernel 88 under its two-blocks-an-SM cap of 128
+# registers (PERF.md)
+SPILL_LIMITS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                "softmax_xent": 0, "selective_scan_fwd": 4,
+                "selective_scan_bwd": 88}
 
 
 def phase_build():
     t0 = time.perf_counter()
     logs = build.build()
     seconds = time.perf_counter() - t0
-    spills = {name: _spills(logs[name]) for name in NO_SPILL_SOURCES
-              if name in logs and _spills(logs[name])}
+    spills = {name: _spills(logs[name], limit)
+              for name, limit in SPILL_LIMITS.items()
+              if name in logs and _spills(logs[name], limit)}
     emit({"phase": "build", "seconds": seconds, "built": sorted(logs),
           "ptxas": {name: _ptxas_report(log) for name, log in logs.items()},
           "spills": spills})
@@ -774,17 +784,23 @@ def _hold_to_bound(kernel, rec):
 
 def kernels_quant8():
     """Compare and time quant8 at the links' shape (4096 token rows x
-    3072): streamed uniforms and round-to-nearest bitwise against the plain
+    3072, minitron-4b's width) and at rows wider than the kernel holds in
+    registers (nemotron-4-15b's 6144, command-r-plus-104b's 12288):
+    streamed uniforms and round-to-nearest bitwise against the plain
     version; the in-kernel Philox for range and unbiasedness (the mean of
     64 draws approaches x)."""
     g = torch.Generator(device="cuda").manual_seed(3)
     results = []
-    for dtype in (torch.float32, torch.bfloat16):
-        x = (torch.randn((4096, 3072), generator=g, device="cuda")
-             * torch.linspace(0.1, 3.0, 3072, device="cuda")).to(dtype)
+    cases = [(name, d, dtype) for name, d in
+             (("links", 3072), ("wide", 6144), ("wide", 12288))
+             for dtype in (torch.float32, torch.bfloat16)]
+    for name, width, dtype in cases:
+        x = (torch.randn((4096, width), generator=g, device="cuda")
+             * torch.linspace(0.1, 3.0, width, device="cuda")).to(dtype)
         u = torch.rand(x.shape, generator=g, device="cuda")
-        rec = {"case": "links", "dtype": str(dtype).split(".")[-1],
-               "shape": list(x.shape), "main_path": True}   # train, train_bf16
+        # the links' shape runs on train and train_bf16
+        rec = {"case": name, "dtype": str(dtype).split(".")[-1],
+               "shape": list(x.shape), "main_path": name == "links"}
         ya, ra = q8.quant_dequant(x, u), q8.quant_dequant_plain(x, u)
         yd, rd = q8.quant_dequant(x), q8.quant_dequant_plain(x)
         gen = torch.Generator(device="cuda").manual_seed(4)
@@ -817,9 +833,9 @@ def kernels_quant8():
         if not ok:
             emit({"phase": "kernels", "kernel": "quant_dequant", **rec,
                   "failed": True})
-            raise AssertionError(f"quant_dequant {dtype}: disagrees with the "
-                                 f"plain version, leaves its range or is "
-                                 f"biased")
+            raise AssertionError(f"quant_dequant {name} {width} {dtype}: "
+                                 f"disagrees with the plain version, leaves "
+                                 f"its range or is biased")
         rec["ms"] = device_ms(lambda: q8.quant_dequant(x, u))
         rec["ms_philox"] = device_ms(lambda: q8.quant_dequant(x, gen))
         rec["plain_ms"] = device_ms(lambda: q8.quant_dequant_plain(x, u))
@@ -841,17 +857,24 @@ def kernels_quant8():
 
 
 def _scan_cases():
-    """(name, b, s, di, ds, chunk, dtype, h0, main_path): the train shapes
-    of falcon-mamba-7b and hymba-1.5b, their serve prefills (falcon's with
-    a nonzero h0), ragged S and d, d_state 4, and bf16 inputs."""
+    """(name, b, s, di, ds, chunk, ref_chunk, dtype, h0, main_path): the
+    train shapes of falcon-mamba-7b and hymba-1.5b, their serve prefills
+    (with a nonzero h0), ragged S and d, d_state 4, and bf16 inputs. The
+    main paths' cases run at the chunk the kernel path checkpoints at
+    (``ss.kernel_chunk`` of the default 256); the ragged case keeps 256, so
+    the backward walks to a later piece's entry. ref_chunk is the chunk
+    whose residual the function must keep, for the bound: the JAX
+    package's and the plain path's 256 where the kernel path takes a finer
+    one, whose extra checkpoints are the design's cost."""
     f32, bf16 = torch.float32, torch.bfloat16
-    return [("train", 8, 512, 8192, 16, 256, f32, False, True),
-            ("prefill", 4, 512, 8192, 16, 256, f32, True, True),
-            ("hymba_train", 8, 512, 3200, 16, 256, f32, False, True),
-            ("hymba_prefill", 4, 1536, 3200, 16, 256, f32, True, True),
-            ("ragged", 2, 300, 1000, 16, 256, f32, True, False),
-            ("ds4", 2, 200, 512, 4, 64, f32, True, False),
-            ("train", 8, 512, 8192, 16, 256, bf16, False, False)]
+    ck = ss.kernel_chunk(256)
+    return [("train", 8, 512, 8192, 16, ck, 256, f32, False, True),
+            ("prefill", 4, 512, 8192, 16, ck, 256, f32, True, True),
+            ("hymba_train", 8, 512, 3200, 16, ck, 256, f32, False, True),
+            ("hymba_prefill", 4, 1536, 3200, 16, ck, 256, f32, True, True),
+            ("ragged", 2, 300, 1000, 16, 256, 256, f32, True, False),
+            ("ds4", 2, 200, 512, 4, 64, 64, f32, True, False),
+            ("train", 8, 512, 8192, 16, ck, 256, bf16, False, False)]
 
 
 def _scan_inputs(g, b, s, di, ds, dtype, with_h0):
@@ -869,11 +892,13 @@ def _scan_inputs(g, b, s, di, ds, dtype, with_h0):
 
 
 def _scan_bound(b, s, di, ds, nc, es, with_h0, backward):
-    """(ms, bound_by) of one scan call. Bytes: each input read once, each
-    output written once. Operations per (b, t, d, s) state step: forward
-    6 (dt*A, exp, a*h + bx, bx, the y term); backward 22 (the forward's 4
-    to recompute the state, then lam, a, the sb and dt-sum terms, dadt, the
-    dA_log term, the db and dc terms and the carry)."""
+    """(ms, bound_by) of one scan call: the largest of three limits. Bytes:
+    each input read once, each output written once. Operations per (b, t,
+    d, s) state-step: forward 6 (dt*A, exp, a*h + bx, bx, the y term);
+    backward 22 (the forward's 4 to recompute the state, then lam, a, the
+    sb and dt-sum terms, dadt, the dA_log term, the db and dc terms and the
+    carry), at the f32 peak. Exponentials: one a state-step, the least
+    either direction needs, at the SFU's rate (PEAK_EXPS)."""
     act = b * s * di * es                   # one [B, S, di] tensor
     bc = b * s * ds * es                    # one [B, S, ds] tensor
     st = b * di * ds * 4                    # one [B, di, ds] f32 state
@@ -888,50 +913,84 @@ def _scan_bound(b, s, di, ds, nc, es, with_h0, backward):
         nbytes = (3 * act + 2 * bc + di * ds * 4 + (st if with_h0 else 0)
                   + st + b * nc * di * ds * 4)
         flops = 6.0 * b * s * di * ds
-    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    limits = {"operations": flops / PEAK_FLOPS[torch.float32],
+              "bytes": nbytes / PEAK_BYTES,
+              "exps": b * s * di * ds / PEAK_EXPS}
+    by = max(limits, key=limits.get)
+    return limits[by] * 1e3, by
+
+
+def _hold_bitwise(kernel, case, dtype, fn, rec):
+    """Two calls on the same inputs give the same bits (no atomics, no
+    order that depends on how the blocks run)."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    rec["bitwise_repeat"] = all(torch.equal(a, b)
+                                for a, b in zip(first, second))
+    if not rec["bitwise_repeat"]:
+        emit({"phase": "kernels", "kernel": kernel, **rec,
+              "failed": "bitwise"})
+        raise AssertionError(f"{kernel} {case} {dtype}: two calls on the "
+                             f"same inputs differ")
 
 
 def kernels_scan():
     """Compare and time the selective-scan forward (y, h_final, h_ckpt)
-    and backward (every output) against their plain versions."""
+    and backward (every output) against their plain versions, and hold
+    each to bitwise repeatability."""
     g = torch.Generator(device="cuda").manual_seed(5)
     fwd_res, bwd_res = [], []
-    for name, b, s, di, ds, chunk, dtype, with_h0, main in _scan_cases():
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (name, b, s, di, ds, chunk, ref_chunk, dtype, with_h0,
+         main) in _scan_cases():
         x, dt, bm, cm, a_log, h0 = _scan_inputs(g, b, s, di, ds, dtype,
                                                 with_h0)
-        nc = -(-s // chunk)
+        nc, nc_ref = -(-s // chunk), -(-s // ref_chunk)
         base = {"case": name, "dtype": str(dtype).split(".")[-1],
                 "shape": dict(b=b, s=s, di=di, ds=ds, chunk=chunk,
-                              h0=with_h0), "main_path": main}
+                              ref_chunk=ref_chunk, h0=with_h0),
+                "main_path": main}
         tol = SCAN_TOL[dtype]
-        iters = 10 if main else 20
+        # a profile window of several ms: the card's clock, lowered while
+        # the profiler starts, is back at its boost for most of it
+        iters = 50
 
-        got = ss.selective_scan_fwd(x, dt, bm, cm, a_log, h0, chunk=chunk)
+        def fwd():
+            return ss.selective_scan_fwd(x, dt, bm, cm, a_log, h0,
+                                         chunk=chunk)
+
+        got = fwd()
         torch.cuda.synchronize()
         want = ss.selective_scan_fwd_plain(x, dt, bm, cm, a_log, h0,
                                            chunk=chunk)
-        rec = dict(base, tol=tol)
+        rec = dict(base, tol=tol,
+                   seg_chunks=ss.fwd_seg_chunks(b, di, nc, sms))
         _check_close("selective_scan_fwd", name, dtype,
                      zip(("y", "h_final", "h_ckpt"), got, want), tol, rec)
         h_ckpt = want[2]
         del got, want
-        rec["ms"] = device_ms(lambda: ss.selective_scan_fwd(
-            x, dt, bm, cm, a_log, h0, chunk=chunk), iters=iters)
+        _hold_bitwise("selective_scan_fwd", name, dtype, fwd, rec)
+        rec["ms"] = device_ms(fwd, iters=iters)
         # (one profiled call: the plain scans launch thousands of kernels)
         rec["plain_ms"] = device_ms(lambda: ss.selective_scan_fwd_plain(
             x, dt, bm, cm, a_log, h0, chunk=chunk), iters=1, warmup=1)
         rec["library_ms"] = None        # no PyTorch call computes the scan
         rec["bound_ms"], rec["bound_by"] = _scan_bound(
-            b, s, di, ds, nc, x.element_size(), with_h0, backward=False)
+            b, s, di, ds, nc_ref, x.element_size(), with_h0, backward=False)
+        rec["bound_ms_at_chunk"] = _scan_bound(
+            b, s, di, ds, nc, x.element_size(), with_h0, backward=False)[0]
+        _hold_to_bound("selective_scan_fwd", rec)
         emit({"phase": "kernels", "kernel": "selective_scan_fwd", **rec})
         fwd_res.append(rec)
 
         gy = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
         gh = torch.randn((b, di, ds), generator=g, device="cuda")
         args = (x, dt, bm, cm, a_log, h_ckpt, gy, gh)
-        got = ss.selective_scan_bwd(*args, chunk=chunk)
+
+        def bwd():
+            return ss.selective_scan_bwd(*args, chunk=chunk)
+
+        got = bwd()
         torch.cuda.synchronize()
         want = ss.selective_scan_bwd_plain(*args, chunk=chunk)
         rec = dict(base, tol=tol)
@@ -939,14 +998,17 @@ def kernels_scan():
                      zip(("dx", "ddt", "db", "dc", "dA_log", "dh0"), got,
                          want), tol, rec)
         del got, want
-        rec["ms"] = device_ms(
-            lambda: ss.selective_scan_bwd(*args, chunk=chunk), iters=iters)
+        _hold_bitwise("selective_scan_bwd", name, dtype, bwd, rec)
+        rec["ms"] = device_ms(bwd, iters=iters)
         rec["plain_ms"] = device_ms(
             lambda: ss.selective_scan_bwd_plain(*args, chunk=chunk), iters=1,
             warmup=1)
         rec["library_ms"] = None
         rec["bound_ms"], rec["bound_by"] = _scan_bound(
-            b, s, di, ds, nc, x.element_size(), with_h0, backward=True)
+            b, s, di, ds, nc_ref, x.element_size(), with_h0, backward=True)
+        rec["bound_ms_at_chunk"] = _scan_bound(
+            b, s, di, ds, nc, x.element_size(), with_h0, backward=True)[0]
+        _hold_to_bound("selective_scan_bwd", rec)
         emit({"phase": "kernels", "kernel": "selective_scan_bwd", **rec})
         bwd_res.append(rec)
         del x, dt, bm, cm, gy, args, h_ckpt
@@ -1233,6 +1295,19 @@ def phase_train(path, spec):
            "grad_tol": grad_tol,
            "kernel_loss_and_grad_s": kernel_s,
            "plain_loss_and_grad_s": plain_s}
+    if not f32:
+        # where the bf16 gradient gap comes from: the same path with naive
+        # attention (the CE kernels and every other bf16 rounding kept)
+        # against the plain path; what is left of the kernel path's gap
+        # beyond this is the bf16 flash backward's rounding of p and ds
+        naive_fn = mpsl.make_lm_loss(cfg, run, impls={"attn": "naive"})
+        _, _, g_n = mpsl.value_and_grad(naive_fn, params, frozen, b0, draws)
+        errs_n = {n: _rel_l2(a, b) for n, a, b in zip(names, g_n, g_p)}
+        worst_n = max(errs_n, key=errs_n.get)
+        cmp["naive_attn_grad_rel_l2_max"] = errs_n[worst_n]
+        cmp["naive_attn_grad_rel_l2_worst_leaf"] = worst_n
+        cmp["naive_attn_grad_rel_l2_of_kernel_worst_leaf"] = errs_n[worst]
+        del g_n
     emit(cmp)
     del g_k, g_p
     torch.cuda.empty_cache()

@@ -21,11 +21,16 @@
 // What bounds it on an H100: one read of x (and of u in mode 1) and one
 // write of y, ~0.15 flop a byte: bound by bytes (3.35 TB/s).
 //
-// What this first design does about it: one 256-thread block per row; each
-// thread keeps its share of the row (at most 16 elements, d <= 4096) in
-// registers between the max reduction and the quantisation, so x is read
-// from device memory once. Divisions are IEEE (no fast math), as the
-// plain version's. Wider rows and vector loads are later work.
+// What this design does about it: one 256-thread block per row. A row of
+// at most 4096 elements is held in registers (16 a thread) between the max
+// reduction and the quantisation, so x is read from device memory once. A
+// wider row (nemotron-4-15b's 6144, command-r-plus-104b's 12288) is read
+// twice: once for the max, once to quantise; the second read finds the row
+// (24-48 KB) in L1 or L2, so device memory still sees it about once. The
+// max does not depend on the order it is taken in and every element's
+// arithmetic is the same in both routes, so both give the plain version's
+// bits. Divisions are IEEE (no fast math), as the plain version's. Vector
+// loads are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,7 +64,8 @@ __device__ __forceinline__ uint4 philox(uint4 c, uint32_t k0, uint32_t k1) {
   return c;
 }
 
-template <typename T>
+// WIDE: d > MAX_D, the row read twice; otherwise held in registers.
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 kernel(const T* __restrict__ x, const float* __restrict__ u,
        const unsigned long long* __restrict__ seed, T* __restrict__ y,
@@ -69,13 +75,18 @@ kernel(const T* __restrict__ x, const float* __restrict__ u,
   const size_t row = blockIdx.x;
   const T* xr = x + row * d;
 
-  float v[PER_THREAD];
+  float v[WIDE ? 1 : PER_THREAD];
   float amax = 0.f;
+  if (WIDE) {
+    for (int c = tid; c < d; c += THREADS)
+      amax = fmaxf(amax, fabsf(to_f32(xr[c])));
+  } else {
 #pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) {
-    const int c = tid + i * THREADS;
-    v[i] = c < d ? to_f32(xr[c]) : 0.f;
-    amax = fmaxf(amax, fabsf(v[i]));
+    for (int i = 0; i < PER_THREAD; ++i) {
+      const int c = tid + i * THREADS;
+      v[i] = c < d ? to_f32(xr[c]) : 0.f;
+      amax = fmaxf(amax, fabsf(v[i]));
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -93,13 +104,15 @@ kernel(const T* __restrict__ x, const float* __restrict__ u,
     k0 = (uint32_t)s;
     k1 = (uint32_t)(s >> 32);
   }
+  const int n = WIDE ? (d + THREADS - 1) / THREADS : PER_THREAD;
 #pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) {
+  for (int i = 0; i < n; ++i) {
     const int c = tid + i * THREADS;
     if (c >= d) continue;
+    const float xv = WIDE ? to_f32(xr[c]) : v[i];
     float qv;
     if (mode == 0) {
-      qv = rintf(v[i] / scale);            // half to even, as jnp.round
+      qv = rintf(xv / scale);              // half to even, as jnp.round
     } else {
       float uu;
       if (mode == 1) {
@@ -111,18 +124,25 @@ kernel(const T* __restrict__ x, const float* __restrict__ u,
                                           0u, 0u), k0, k1);
         uu = (float)(r.x >> 8) * 5.9604644775390625e-08f;   // 2^-24: [0, 1)
       }
-      qv = floorf(v[i] / scale + uu);
+      qv = floorf(xv / scale + uu);
     }
     qv = fminf(fmaxf(qv, -qmax), qmax);
     store(y + row * d + c, qv * scale);
   }
 }
 
+template <typename T>
+void launch(const T* x, const float* u, const unsigned long long* seed, T* y,
+            int rows, int d, float qmax, int mode, cudaStream_t st) {
+  if (d > MAX_D)
+    kernel<T, true><<<rows, THREADS, 0, st>>>(x, u, seed, y, d, qmax, mode);
+  else
+    kernel<T, false><<<rows, THREADS, 0, st>>>(x, u, seed, y, d, qmax, mode);
+}
+
 }  // namespace
 
 extern "C" {
-
-int quant8_max_d() { return MAX_D; }
 
 // dtype: 0 = float32, 1 = bfloat16. x, y [rows, d] contiguous; mode 0:
 // round to nearest; mode 1: u [rows, d] f32 uniforms in [0, 1); mode 2:
@@ -131,20 +151,18 @@ int quant8_max_d() { return MAX_D; }
 int quant_dequant(int dtype, const void* x, const void* u, const void* seed,
                   void* y, int rows, int d, float qmax, int mode,
                   void* stream) {
-  if (rows <= 0 || d <= 0 || d > MAX_D || mode < 0 || mode > 2 ||
+  if (rows <= 0 || d <= 0 || mode < 0 || mode > 2 ||
       (mode == 1 && u == nullptr) || (mode == 2 && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* uu = static_cast<const float*>(u);
   const unsigned long long* s = static_cast<const unsigned long long*>(seed);
   if (dtype == 0)
-    kernel<float><<<rows, THREADS, 0, st>>>(static_cast<const float*>(x), uu,
-                                            s, static_cast<float*>(y), d,
-                                            qmax, mode);
+    launch(static_cast<const float*>(x), uu, s, static_cast<float*>(y), rows,
+           d, qmax, mode, st);
   else if (dtype == 1)
-    kernel<__nv_bfloat16><<<rows, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), uu, s,
-        static_cast<__nv_bfloat16*>(y), d, qmax, mode);
+    launch(static_cast<const __nv_bfloat16*>(x), uu, s,
+           static_cast<__nv_bfloat16*>(y), rows, d, qmax, mode, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

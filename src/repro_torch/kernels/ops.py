@@ -143,6 +143,7 @@ class _SelectiveScan(torch.autograd.Function):
                 t.contiguous() for t in (x, dt, b_in, c_in, a_log))
             if h0 is not None:
                 h0 = h0.float().contiguous()
+            chunk = _ss.kernel_chunk(chunk)    # checkpoints a piece apart
             y, h_final, h_ckpt = _ss.selective_scan_fwd(
                 x, dt, b_in, c_in, a_log, h0, chunk=chunk)
         ctx.save_for_backward(x, dt, b_in, c_in, a_log, h0, h_ckpt)

@@ -62,8 +62,6 @@ def _lib():
                                      ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p])
     lib.quant_dequant.restype = ctypes.c_int
-    lib.quant8_max_d.argtypes = []
-    lib.quant8_max_d.restype = ctypes.c_int
     return lib
 
 
@@ -80,9 +78,6 @@ def quant_dequant(x, rng=None, bits: int = 8):
         raise ValueError("x must be contiguous and non-empty")
     lib = _lib()
     d = x.shape[-1]
-    if d > lib.quant8_max_d():
-        raise ValueError(f"rows of {d} exceed the kernel's "
-                         f"{lib.quant8_max_d()}")
     u = seed = None
     mode = 0
     if isinstance(rng, torch.Generator):

@@ -31,6 +31,13 @@ the inputs' dtypes, the rest f32 (the caller casts). The kernel writes
 db/dc as per-block partials [B, nd, S, ds] and dA_log as per-batch
 partials [B, di, ds]; the wrapper sums them, so no atomics are needed and
 the result does not depend on the order blocks run in.
+
+How the kernels split the work (``fwd_seg_chunks``, ``kernel_chunk``):
+the forward runs a small grid as segments of whole chunks (local end
+states from zero, a combine in order, then a sweep from the true
+entries); the backward recomputes a chunk in pieces of ``PIECE`` steps,
+and the autograd Function checkpoints every ``kernel_chunk(chunk)`` steps
+so that a piece is a chunk. Neither changes the function.
 """
 from __future__ import annotations
 
@@ -43,6 +50,39 @@ from repro_torch.kernels import build
 
 STATE_SIZES = (4, 8, 16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The backward kernel's sizes (csrc/selective_scan_bwd.cu, which asserts
+# them): its piece, the steps it recomputes from one entry state with each
+# state computed twice; the sub-chunk it holds in registers; the channels
+# a block covers (the db/dc partials' nd = ceil(di / BWD_CHANNELS)).
+PIECE = 64
+BWD_SUB = 8
+BWD_CHANNELS = 64
+# The forward splits the sequence when fewer (batch, channel) threads than
+# this would run (one thread each): a grid that does not fill the card.
+# Timed on an H100 (PERF.md, PR 16): hymba-1.5b's prefill (4 x 3200) gains
+# from the split, its train shape (8 x 3200) and falcon-mamba's serve
+# prefill (4 x 8192) lose.
+SPLIT_BELOW = 16384
+# Threads the split aims for: 8 blocks of 128 an SM.
+SPLIT_TARGET_PER_SM = 1024
+
+
+def kernel_chunk(chunk: int) -> int:
+    """The checkpoint interval the kernel path uses for a requested scan
+    chunk: at most a backward piece, so the backward walks no chunk twice.
+    The scan's outputs do not depend on it; h_ckpt's length does."""
+    return min(chunk, PIECE)
+
+
+def fwd_seg_chunks(bsz: int, di: int, nc: int, sm_count: int = 132) -> int:
+    """Chunks a forward segment spans: nc (one sweep) when bsz * di
+    threads fill the card, else enough segments for ~SPLIT_TARGET_PER_SM
+    threads an SM, each a whole number of chunks."""
+    threads = bsz * di
+    if threads >= SPLIT_BELOW or nc == 1:
+        return nc
+    want = -(-sm_count * SPLIT_TARGET_PER_SM // threads)
+    return -(-nc // min(want, nc))
 
 
 # ---------------------------------------------------------------------------
@@ -125,15 +165,13 @@ def selective_scan_bwd_plain(x, dt, b, c, a_log, h_ckpt, gy, gh, *,
 def _lib():
     ptr = ctypes.c_void_p
     lib = build.load("selective_scan_fwd")
-    lib.selective_scan_fwd.argtypes = ([ctypes.c_int] * 2 + [ptr] * 9
-                                       + [ctypes.c_int] * 4 + [ptr])
+    lib.selective_scan_fwd.argtypes = ([ctypes.c_int] * 2 + [ptr] * 10
+                                       + [ctypes.c_int] * 5 + [ptr])
     lib.selective_scan_fwd.restype = ctypes.c_int
     bwd = build.load("selective_scan_bwd")
     bwd.selective_scan_bwd.argtypes = ([ctypes.c_int] * 2 + [ptr] * 14
                                        + [ctypes.c_int] * 4 + [ptr])
     bwd.selective_scan_bwd.restype = ctypes.c_int
-    bwd.selective_scan_bwd_channels.argtypes = [ctypes.c_int]
-    bwd.selective_scan_bwd_channels.restype = ctypes.c_int
     bwd.selective_scan_bwd_max_chunk.argtypes = []
     bwd.selective_scan_bwd_max_chunk.restype = ctypes.c_int
     return lib, bwd
@@ -177,23 +215,32 @@ def _check_state(name, t, shape, device):
 
 
 def selective_scan_fwd(x, dt, b, c, a_log, h0=None, *, chunk=256):
-    """Launch the forward kernel on the current stream (no sync).
-    Returns (y, h_final, h_ckpt)."""
+    """Launch the forward kernel on the current stream (no sync), split
+    into segments as ``fwd_seg_chunks`` plans for this card. Returns (y,
+    h_final, h_ckpt)."""
     bsz, s, di, ds = _check_inputs(x, dt, b, c, a_log, chunk)
     if h0 is not None:
         _check_state("h0", h0, (bsz, di, ds), x.device)
     lib, _ = _lib()
+    nc = _n_chunks(s, chunk)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    seg_chunks = fwd_seg_chunks(bsz, di, nc, sms)
     y = torch.empty_like(x)
     h_final = torch.empty((bsz, di, ds), dtype=torch.float32,
                           device=x.device)
-    h_ckpt = torch.empty((bsz, _n_chunks(s, chunk), di, ds),
-                         dtype=torch.float32, device=x.device)
+    h_ckpt = torch.empty((bsz, nc, di, ds), dtype=torch.float32,
+                         device=x.device)
+    seg_dt = (None if seg_chunks == nc else
+              torch.empty((bsz, -(-nc // seg_chunks), di),
+                          dtype=torch.float32, device=x.device))
     with torch.cuda.device(x.device):
         err = lib.selective_scan_fwd(
             _DTYPE_CODES[x.dtype], ds, x.data_ptr(), dt.data_ptr(),
             b.data_ptr(), c.data_ptr(), a_log.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_final.data_ptr(), h_ckpt.data_ptr(), bsz, s, di, chunk,
+            h_final.data_ptr(), h_ckpt.data_ptr(),
+            None if seg_dt is None else seg_dt.data_ptr(), bsz, s, di,
+            chunk, seg_chunks,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "selective_scan_fwd")
     selective_scan_fwd.launches += 1
@@ -217,7 +264,7 @@ def selective_scan_bwd(x, dt, b, c, a_log, h_ckpt, gy, gh, *, chunk=256):
     if chunk > lib.selective_scan_bwd_max_chunk():
         raise ValueError(f"chunk {chunk} exceeds the backward kernel's "
                          f"{lib.selective_scan_bwd_max_chunk()}")
-    nd = -(-di // lib.selective_scan_bwd_channels(ds))
+    nd = -(-di // BWD_CHANNELS)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     db_part = torch.empty((bsz, nd, s, ds), **f32)

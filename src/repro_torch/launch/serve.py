@@ -38,12 +38,39 @@ def resolve_device(name) -> torch.device:
     return device
 
 
+def check_cache_room(cfg, cache, n: int = 1) -> None:
+    """Raise before `n` more tokens would overwrite a KV entry that some
+    query may still attend to. A cache writes at index % length, so once
+    full it evicts the entry `length` positions back: harmless where the
+    layer's window is no longer than the cache (that entry is out of the
+    window), wrong in a global layer or a window longer than its cache,
+    which would then attend over a window it was not built with."""
+    for seg, seg_cache in zip(M.body_segments(cfg), cache):
+        kind = seg.kind
+        if kind.family == "ssm":
+            continue
+        span = 0 if kind.is_global else (cfg.sliding_window or 0)
+        for layer in seg_cache:
+            kv = layer["kv"] if kind.family == "hybrid" else layer
+            length = kv["k"].shape[1]
+            if kv["index"] + n > length and (not span or length < span):
+                raise ValueError(
+                    f"the KV cache holds {length} positions and has "
+                    f"{length - kv['index']} left; {n} more would evict "
+                    f"entries still attended to (build_serving_fns' "
+                    f"decode_slots sizes it)")
+
+
 def build_serving_fns(cfg, compute_dtype=torch.float32, device="cuda",
-                      attn_impl="kernel", ssm_impl="kernel"):
-    """(prefill, decode) for `cfg`. The KV cache holds prompt + 512 slots
-    (a sliding-window layer's, the window) in the compute dtype; prefill
-    returns the last position's logits. decode updates the cache in place
-    and returns it. attn_impl: "kernel" | "naive"; ssm_impl: "kernel" |
+                      attn_impl="kernel", ssm_impl="kernel",
+                      decode_slots=512):
+    """(prefill, decode) for `cfg`. The KV cache holds prompt +
+    `decode_slots` slots (a sliding-window layer's, at most the window) in
+    the compute dtype; prefill returns the last position's logits. decode
+    updates the cache in place and returns it; ``decode.check_room(cache,
+    n)`` raises if n more steps would write past a cache that cannot wrap
+    (``check_cache_room``), and ``generate`` calls it once before its
+    first step. attn_impl: "kernel" | "naive"; ssm_impl: "kernel" |
     "plain"."""
     device = resolve_device(device)
     impls = {"attn": attn_impl, "ssm": ssm_impl}
@@ -51,7 +78,8 @@ def build_serving_fns(cfg, compute_dtype=torch.float32, device="cuda",
     @torch.inference_mode()
     def prefill(params, tokens):
         b, s = tokens.shape
-        cache = M.init_body_cache(cfg, b, s + 512, compute_dtype, device)
+        cache = M.init_body_cache(cfg, b, s + decode_slots, compute_dtype,
+                                  device)
         h = M.embed_tokens(params, tokens, cfg, dtype=compute_dtype)
         positions = layers.positions_from_shape(b, s, device=device)
         h, cache = M.forward_body(params, h, cfg, positions=positions,
@@ -68,6 +96,7 @@ def build_serving_fns(cfg, compute_dtype=torch.float32, device="cuda",
         logits = M.lm_logits(params, h, cfg)
         return logits, cache
 
+    decode.check_room = lambda cache, n: check_cache_room(cfg, cache, n)
     return prefill, decode
 
 
@@ -84,7 +113,9 @@ def generate(prefill, decode, params, tokens, steps: int,
     after each decode step; "logits" [B, steps+1, V]: the logits they came
     from; "prefill_s", "decode_s": host seconds, each ending in a device
     sync}. With `forced_tokens` [B, steps], decode step i is fed
-    forced_tokens[:, i] instead of the greedy token (teacher forcing)."""
+    forced_tokens[:, i] instead of the greedy token (teacher forcing).
+    Raises after the prefill, before any decode step, if the cache has no
+    room for `steps` (``decode.check_room``)."""
     device = tokens.device
     b, s = tokens.shape
     _sync(device)
@@ -92,6 +123,7 @@ def generate(prefill, decode, params, tokens, steps: int,
     logits, cache = prefill(params, tokens)
     _sync(device)
     t_prefill = time.perf_counter() - t0
+    decode.check_room(cache, steps)
 
     all_logits = [logits[:, -1]]
     greedy = [logits[:, -1].argmax(dim=-1)]
@@ -132,7 +164,9 @@ def main(argv=None):
         cfg = reduced(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = M.init_lm(cfg, gen, device)
-    prefill, decode = build_serving_fns(cfg, device=device)
+    # room for every requested step (the default 512 slots and more)
+    prefill, decode = build_serving_fns(
+        cfg, device=device, decode_slots=max(512, args.decode_steps))
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
     out = generate(prefill, decode, params, tokens, args.decode_steps)

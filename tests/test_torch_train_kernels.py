@@ -224,6 +224,24 @@ def test_quant8_nearest_bitwise_equal_to_jax(dtype):
     assert torch.equal(got, tref.quant_dequant_ref(tx))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant8_wide_rows_bitwise_equal_to_jax(dtype):
+    """Rows wider than the CUDA kernel holds in registers (4096), at
+    nemotron-4-15b's width: the plain version gives the JAX kernel's bits,
+    with its uniforms and rounding to nearest."""
+    x = _qd_input((3, 6144), dtype, seed=3)
+    key = jax.random.PRNGKey(11)
+    jx = jnp.asarray(x, JNP[dtype])
+    tx = torch.from_numpy(x).to(TORCH[dtype])
+    u = np.array(jax.random.uniform(key, x.shape, jnp.float32))
+    for got, want in ((q8.quant_dequant_plain(tx, torch.from_numpy(u)),
+                       jax_qd(jx, key=key, interpret=True)),
+                      (q8.quant_dequant_plain(tx),
+                       jax_qd(jx, interpret=True))):
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want.astype(jnp.float32)))
+
+
 def test_quant8_generator_rounds_within_one_level():
     """With a generator the plain version draws its own uniforms: every
     value lands on one of the two int8 levels around x."""
