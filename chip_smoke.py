@@ -14,7 +14,10 @@
             version, its roofline bound and one PyTorch library call
             computing the same function, where one does (each such call
             first held to the plain version).
-4. the main paths, each driven through the port's entry points with
+4. moe_layer: one full-width MoE layer at a prefill's 2048 tokens and a
+   decode step's 4, the ragged dispatch held to the dense one, each timed
+   with its GEMM launches and the ragged dispatch's host sync.
+5. the main paths, each driven through the port's entry points with
    every launch counter set to 0 just before and read just after; each
    must launch exactly the kernels its code calls, and agree with the
    same path through the plain versions on the same params:
@@ -43,9 +46,19 @@
    train_bf16    minitron-4b as train, RunConfig(compute_dtype="bfloat16"):
                  the tensor-core flash backward in every block, and the CE
                  kernels on the mixed pair (bf16 h, the f32 trainable head)
-                 as it comes.
+                 as it comes;
+   moe_serve     full-width qwen2-moe-a2.7b (24 MoE blocks, d_model 2048,
+                 16 heads on 16 KV heads, 60 experts top 4 and a shared
+                 expert, vocab 151936), as serve: flash forward, the ragged
+                 expert dispatch (cuBLAS GEMMs, no kernel of its own);
+   moe_train     qwen2-moe-a2.7b as train, the last 2 blocks trainable
+                 (4 would not fit 80 GB with the AdamW state), with the
+                 router's aux loss in the MPSL loss.
    Each path's serve or train is followed by its profile: device time by
-   kernel (torch.profiler) and the device's busy share.
+   kernel (torch.profiler) and the device's busy share. The MoE paths'
+   plain versions (dense dispatch, naive attention) replay the kernel
+   path's expert choices (``moe.routing_tape``), and the flips it counts
+   must stay under ROUTING_FLIP_LIMIT of the routing decisions.
 
 One JSON line per phase; then the {"kernels": [...]} line and the card's
 ``nvidia-smi`` line; the last line is {"ok": true, "device": {...}}. Any
@@ -56,6 +69,7 @@ sides of a comparison is full f32.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -85,6 +99,7 @@ from repro_torch.kernels import selective_scan as ss  # noqa: E402
 from repro_torch.kernels import softmax_xent as sx  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.optim import schedules  # noqa: E402
 
 # Kernel vs plain version on the card. f32: both sum f32 products, in
@@ -118,6 +133,12 @@ TRAIN_GRAD_TOL = 1e-3
 # path's autograd rounds dP and dS to bf16 in its own places).
 TRAIN_LOSS_TOL_BF16 = 1e-2
 TRAIN_GRAD_TOL_BF16 = 5e-2
+# The MoE paths' plain versions replay the kernel path's expert choices. A
+# token whose own top-k set differs there (a flip) is one whose k-th and
+# next router probabilities lie within the two paths' float noise of each
+# other, which few do; many flips mean that the router inputs really
+# differ.
+ROUTING_FLIP_LIMIT = 1e-3
 # Scan kernels vs plain versions, relative to the largest element of each
 # output, f32: one f32 recurrence in both, the kernel's a*h + bx fused into
 # one FMA and its sums over d_state in another order; the rounding, a few
@@ -150,9 +171,12 @@ PATHS = {
     "hybrid_train": dict(TRAIN, arch="hymba-1.5b", steps=2),
     "serve_bf16": dict(SERVE, compute_dtype="bfloat16"),
     "train_bf16": dict(TRAIN, compute_dtype="bfloat16"),
+    "moe_serve": dict(SERVE, arch="qwen2-moe-a2.7b"),
+    "moe_train": dict(TRAIN, arch="qwen2-moe-a2.7b", trainable_blocks=2),
 }
-# every path's plain version: naive attention, the plain scan, chunked CE
-PLAIN_IMPLS = {"attn": "naive", "ssm": "plain", "ce": "plain"}
+# every path's plain version: naive attention, the plain scan, chunked CE,
+# the dense expert dispatch
+PLAIN_IMPLS = {"attn": "naive", "ssm": "plain", "ce": "plain", "moe": "dense"}
 
 
 # The launch counter of every kernel wrapper: each adds one where it
@@ -377,6 +401,16 @@ def _attn_cases():
                        k_pos=ring[None].expand(b, 1024),
                        k_valid=torch.ones(b, 1024, dtype=torch.bool),
                        causal=True, window=1024), True))
+    # qwen2-moe-a2.7b: 16 heads on 16 KV heads (G = 1), hd 128
+    for name, bb in (("moe_prefill", b), ("moe_train", 8)):
+        pp = torch.arange(s, dtype=torch.int32)[None].expand(bb, s)
+        cases.append((name, dict(b=bb, sq=s, sk=s, h=16, kh=16, hd=hd), dict(
+            q_pos=pp, k_pos=pp, k_valid=torch.ones(bb, s, dtype=torch.bool),
+            causal=True, window=0), True))
+    cases.append(("moe_decode", dict(b=b, sq=1, sk=cache_len, h=16, kh=16,
+                                     hd=hd), dict(
+        q_pos=torch.full((b, 1), filled - 1, dtype=torch.int32),
+        k_pos=k_pos, k_valid=k_pos >= 0, causal=True, window=0), True))
     g = torch.Generator().manual_seed(1)
     kv = torch.rand((2, 203), generator=g) < 0.8
     cases.append(("ragged", dict(b=2, sq=77, sk=203, h=6, kh=3, hd=96), dict(
@@ -417,6 +451,11 @@ def _bound(q, k, q_pos, k_pos, k_valid, causal, window, dtype):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+# the cases whose positions are 0..S-1 on both sides under a plain causal
+# mask: SDPA takes them with is_causal
+PLAIN_CAUSAL = ("prefill", "train", "moe_prefill", "moe_train")
+
+
 def _sdpa_inputs(q, k, v, q_pos, k_pos, k_valid, causal, window,
                  is_causal):
     """SDPA's layout of q, k, v ([B, heads, S, hd]) and its keyword mask:
@@ -436,7 +475,7 @@ def _library_call(q, k, v, q_pos, k_pos, k_valid, m, name):
     boolean mask where the case is not plain causal."""
     qt, kt, vt, kw = _sdpa_inputs(q, k, v, q_pos, k_pos, k_valid,
                                   m["causal"], m["window"],
-                                  name in ("prefill", "train"))
+                                  name in PLAIN_CAUSAL)
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw) \
         .transpose(1, 2)
 
@@ -607,7 +646,7 @@ def kernels_flash_bwd():
             # the backward of SDPA (a yardstick only), held to the plain
             # version first
             qt, kt, vt, skw = _sdpa_inputs(q, k, v, qp, kp, kv, m["causal"],
-                                           m["window"], name == "train")
+                                           m["window"], name in PLAIN_CAUSAL)
             for t in (qt, kt, vt):
                 t.requires_grad_()
             out = F.scaled_dot_product_attention(qt, kt, vt, **skw)
@@ -684,8 +723,8 @@ def kernels_softmax_xent():
     """Compare and time the fused LM-head cross-entropy, forward and
     backward, at every train path's shape and dtype pair (T = 8 x 511
     tokens): minitron-4b in f32 and at bf16 compute (bf16 h, f32 head),
-    falcon-mamba-7b and hymba-1.5b (V 32001: rows of unaligned stride), and
-    a ragged small shape in f32, bf16 and the mixed pair. Each against the
+    falcon-mamba-7b, hymba-1.5b (V 32001: rows of unaligned stride) and
+    qwen2-moe-a2.7b (D 2048, V 151936), and a ragged small shape in f32, bf16 and the mixed pair. Each against the
     plain version (the oracle) and beside the split-bf16 pieces model."""
     g = torch.Generator(device="cuda").manual_seed(2)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -693,6 +732,7 @@ def kernels_softmax_xent():
              ("train_bf16", 4088, 3072, 256000, bf16, f32, True),
              ("ssm_train", 4088, 4096, 65024, f32, f32, True),
              ("hybrid_train", 4088, 1600, 32001, f32, f32, True),
+             ("moe_train", 4088, 2048, 151936, f32, f32, True),
              ("ragged", 1000, 200, 10007, f32, f32, False),
              ("ragged", 1000, 200, 10007, bf16, bf16, False),
              ("ragged", 1000, 200, 10007, bf16, f32, False)]
@@ -783,24 +823,27 @@ def _hold_to_bound(kernel, rec):
 
 
 def kernels_quant8():
-    """Compare and time quant8 at the links' shape (4096 token rows x
-    3072, minitron-4b's width) and at rows wider than the kernel holds in
-    registers (nemotron-4-15b's 6144, command-r-plus-104b's 12288):
-    streamed uniforms and round-to-nearest bitwise against the plain
-    version; the in-kernel Philox for range and unbiasedness (the mean of
-    64 draws approaches x)."""
+    """Compare and time quant8 at the links' shapes (4096 token rows x
+    3072, minitron-4b's width; x 2048, qwen2-moe-a2.7b's, f32) and at rows
+    wider than the kernel holds in registers (nemotron-4-15b's 6144,
+    command-r-plus-104b's 12288): streamed uniforms and round-to-nearest
+    bitwise against the plain version; the in-kernel Philox (the train
+    paths' route) for range and unbiasedness (the mean of 64 draws
+    approaches x), and timed beside its own bound (no uniforms read)."""
     g = torch.Generator(device="cuda").manual_seed(3)
     results = []
     cases = [(name, d, dtype) for name, d in
              (("links", 3072), ("wide", 6144), ("wide", 12288))
              for dtype in (torch.float32, torch.bfloat16)]
+    cases.append(("moe_links", 2048, torch.float32))
     for name, width, dtype in cases:
         x = (torch.randn((4096, width), generator=g, device="cuda")
              * torch.linspace(0.1, 3.0, width, device="cuda")).to(dtype)
         u = torch.rand(x.shape, generator=g, device="cuda")
-        # the links' shape runs on train and train_bf16
+        # the links' shapes run on train, train_bf16 and moe_train
         rec = {"case": name, "dtype": str(dtype).split(".")[-1],
-               "shape": list(x.shape), "main_path": name == "links"}
+               "shape": list(x.shape),
+               "main_path": name in ("links", "moe_links")}
         ya, ra = q8.quant_dequant(x, u), q8.quant_dequant_plain(x, u)
         yd, rd = q8.quant_dequant(x), q8.quant_dequant_plain(x)
         gen = torch.Generator(device="cuda").manual_seed(4)
@@ -844,8 +887,11 @@ def kernels_quant8():
         t_bytes = (2 * x.numel() * x.element_size() + u.numel() * 4) \
             / PEAK_BYTES
         rec["bound_ms"], rec["bound_by"] = t_bytes * 1e3, "bytes"
+        # the train paths' route, the in-kernel Philox: x in, y out
         rec["bound_ms_philox"] = 2 * x.numel() * x.element_size() \
             / PEAK_BYTES * 1e3
+        rec["philox_share_of_bound_rate"] = \
+            rec["bound_ms_philox"] / rec["ms_philox"]
         emit({"phase": "kernels", "kernel": "quant_dequant", **rec})
         results.append(rec)
     torch.cuda.empty_cache()
@@ -1034,7 +1080,8 @@ def phase_kernels():
 def _layers(cfg):
     """(attention layers, Mamba layers) of cfg's body."""
     segs = M.body_segments(cfg)
-    return (sum(g.count for g in segs if g.kind.family in ("dense", "hybrid")),
+    return (sum(g.count for g in segs
+                if g.kind.family in ("dense", "moe", "hybrid")),
             sum(g.count for g in segs if g.kind.family in ("ssm", "hybrid")))
 
 
@@ -1086,11 +1133,25 @@ def phase_serve(path, spec):
     if not torch.isfinite(logits).all():
         raise AssertionError(f"{path}: non-finite logits")
 
+    routing, replay = {}, None
+    if cfg.family == "moe":
+        # the kernel path again with its expert choices recorded (the main
+        # path ran outside any tape), for the plain path to replay
+        with _tape(cfg) as tape:
+            again = serve.generate(prefill, decode, params, tokens, steps)
+        routing["recorded_run_bitwise_equal_to_main"] = torch.equal(
+            again["logits"], logits)
+        replay = tape.idx
+        del again
     p_plain, d_plain = serve.build_serving_fns(
         cfg, cdt, device, attn_impl=PLAIN_IMPLS["attn"],
-        ssm_impl=PLAIN_IMPLS["ssm"])
-    ref = serve.generate(p_plain, d_plain, params, tokens, steps,
-                         forced_tokens=out["tokens"][:, :steps])
+        ssm_impl=PLAIN_IMPLS["ssm"], moe_impl=PLAIN_IMPLS["moe"])
+    torch.cuda.reset_peak_memory_stats()
+    with _tape(cfg, replay) as tape:
+        ref = serve.generate(p_plain, d_plain, params, tokens, steps,
+                             forced_tokens=out["tokens"][:, :steps])
+    routing.update(_flips(tape))
+    plain_peak = torch.cuda.max_memory_allocated()
     diff = (logits.float() - ref["logits"].float()).abs().max().item()
     ref_max = ref["logits"].float().abs().max().item()
     agree = (out["tokens"] == ref["tokens"]).float().mean().item()
@@ -1104,7 +1165,8 @@ def phase_serve(path, spec):
            "decode_ms_per_token": out["decode_s"] / steps * 1e3,
            "plain_prefill_ms": ref["prefill_s"] * 1e3,
            "plain_decode_ms_per_token": ref["decode_s"] / steps * 1e3,
-           "peak_mem_bytes": peak,
+           "peak_mem_bytes": peak, "plain_peak_mem_bytes": plain_peak,
+           **routing,
            "max_abs_logit": logits.float().abs().max().item(),
            "max_logit_diff_vs_plain": diff,
            "tol": SERVE_TOL if cdt == torch.float32 else SERVE_TOL_BF16,
@@ -1121,7 +1183,44 @@ def phase_serve(path, spec):
     if not ok:
         raise AssertionError(f"{path}: served logits differ from the plain "
                              f"path by {diff}")
+    # every layer routes in the prefill and in each decode step
+    _hold_flips(path, routing, cfg.num_layers * (1 + steps))
     return counts, (path, prefill, decode, params, tokens, rec)
+
+
+def _tape(cfg, replay=None):
+    """For an MoE arch a routing tape, recording or replaying `replay`
+    (an earlier tape's idx); for any other arch no tape."""
+    return (MOE.routing_tape(replay) if cfg.family == "moe"
+            else contextlib.nullcontext())
+
+
+def _flips(tape) -> dict:
+    if tape is None:
+        return {}
+    return {"routing_flips": int(tape.flips),
+            "routing_decisions": tape.decisions,
+            "routing_calls": tape.calls,
+            "recorded_calls": len(tape.replay),
+            "routing_flip_limit": ROUTING_FLIP_LIMIT}
+
+
+def _hold_flips(path, routing, calls):
+    """The plain path replayed the kernel path's expert choices, one per
+    routing call the code makes (`calls`, each recorded and each
+    replayed), and the tokens whose own top-k set differs stay under the
+    limit."""
+    if not routing:
+        return
+    if not (routing["routing_calls"] == routing["recorded_calls"] == calls
+            and routing["routing_flips"] <= ROUTING_FLIP_LIMIT
+            * routing["routing_decisions"]):
+        raise AssertionError(f"{path}: {routing['routing_flips']} routing "
+                             f"flips in {routing['routing_decisions']} "
+                             f"decisions; {routing['recorded_calls']} "
+                             f"routing calls recorded and "
+                             f"{routing['routing_calls']} replayed, "
+                             f"{calls} expected")
 
 
 def _device_time_by_kernel(prof):
@@ -1269,16 +1368,26 @@ def phase_train(path, spec):
     ug = torch.Generator(device=device).manual_seed(spec["seed"] + 1)
     draws = {k: torch.rand(shape, generator=ug, device=device)
              for k in ("uplink", "downlink")}
+    # (an MoE arch's plain path replays the kernel path's expert choices)
     params = state["params"]
+    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    l_k, _, g_k = mpsl.value_and_grad(loss_fn, params, frozen, b0, draws)
+    with _tape(cfg) as tape:
+        l_k, m_k, g_k = mpsl.value_and_grad(loss_fn, params, frozen, b0,
+                                            draws)
     torch.cuda.synchronize()
     kernel_s = time.perf_counter() - t
     plain_fn = mpsl.make_lm_loss(cfg, run, impls=PLAIN_IMPLS)
     t = time.perf_counter()
-    l_p, _, g_p = mpsl.value_and_grad(plain_fn, params, frozen, b0, draws)
+    with _tape(cfg, None if tape is None else tape.idx) as tape:
+        l_p, m_p, g_p = mpsl.value_and_grad(plain_fn, params, frozen, b0,
+                                            draws)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t
+    routing = _flips(tape)
+    if tape is not None:
+        routing.update(aux_kernel=float(m_k["aux"]),
+                       aux_plain=float(m_p["aux"]))
     names = [".".join(str(x) for x in p) for p in _leaf_paths(params)]
     errs = {n: _rel_l2(a, b) for n, a, b in zip(names, g_k, g_p)}
     loss_err = abs(float(l_k) - float(l_p)) / abs(float(l_p))
@@ -1294,7 +1403,9 @@ def phase_train(path, spec):
                                    if "adapter" in n},
            "grad_tol": grad_tol,
            "kernel_loss_and_grad_s": kernel_s,
-           "plain_loss_and_grad_s": plain_s}
+           "plain_loss_and_grad_s": plain_s,
+           "peak_mem_bytes_with_both": torch.cuda.max_memory_allocated(),
+           **routing}
     if not f32:
         # where the bf16 gradient gap comes from: the same path with naive
         # attention (the CE kernels and every other bf16 rounding kept)
@@ -1315,6 +1426,8 @@ def phase_train(path, spec):
         raise AssertionError(f"{path}: kernel path differs from the plain "
                              f"path: loss {loss_err}, gradient {worst} "
                              f"{errs[worst]}")
+    # every block routes in the forward and again in its remat recompute
+    _hold_flips(path, routing, 2 * cfg.num_layers)
     return counts, (path, step_fn, state, batches[-1], rec)
 
 
@@ -1350,6 +1463,84 @@ def phase_train_profile(path, step_fn, state, batch, train_rec, top=10):
           "top_kernels_ms": [[k[:90], v] for k, v in ranked]})
 
 
+def _gemms_and_sync(fn, iters=10):
+    """(GEMM launches a call, host ms a call blocked in CUDA syncs and
+    device-to-host copies): the aten matmul ops and the CUDA runtime's
+    synchronising calls a profile of `iters` calls recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    gemms, sync_us = 0, 0.0
+    for evt in prof.key_averages():
+        if evt.key in ("aten::mm", "aten::bmm", "aten::addmm"):
+            gemms += evt.count
+        elif evt.key.startswith("cuda") and ("Synchronize" in evt.key
+                                             or "Memcpy" in evt.key):
+            sync_us += evt.cpu_time_total
+    # the profile's window ends in one synchronize of its own
+    return gemms / iters, sync_us / 1e3 / iters
+
+
+def phase_moe_layer():
+    """One full-width qwen2-moe-a2.7b MoE layer (60 experts top 4, F 1408,
+    a shared expert of F 5632), f32, at a serve prefill's 2048 tokens and a
+    decode step's 4: the ragged dispatch held to the dense one (the same
+    routing, within TOL of the dense output's largest element), each timed
+    by device time and by host time a call, with its GEMM launches and,
+    for the ragged dispatch, the host's time blocked at its group-size
+    readback. The evidence on whether a grouped-GEMM kernel is needed."""
+    cfg = get_config("qwen2-moe-a2.7b")
+    m = cfg.moe
+    g = torch.Generator(device="cuda").manual_seed(6)
+    p = MOE.init_moe(g, cfg, "cuda")
+    tol = TOL[torch.float32]
+    for name, t in (("prefill", 2048), ("decode", 4)):
+        x = torch.randn((1, t, cfg.d_model), generator=g, device="cuda")
+        run = {impl: (lambda impl=impl: MOE.apply_moe(p, x, cfg, impl))
+               for impl in ("ragged", "dense")}
+        with torch.inference_mode():
+            (yr, ar), (yd, ad) = run["ragged"](), run["dense"]()
+            _, idx, _ = MOE._routing(p, x[0], cfg)
+        torch.cuda.synchronize()
+        active = int((torch.bincount(idx.reshape(-1),
+                                     minlength=m.num_experts) > 0).sum())
+        rec = {"phase": "moe_layer", "case": name, "tokens": t,
+               "experts": m.num_experts, "top_k": m.top_k,
+               "active_experts": active, "tol": tol}
+        _check_close("moe ragged vs dense", name, "float32",
+                     [("y", yr, yd)], tol, rec)
+        rec["aux_ragged"], rec["aux_dense"] = float(ar), float(ad)
+        if ar != ad:
+            raise AssertionError(f"moe_layer {name}: aux {ar} != {ad}")
+        # FLOPs: routed experts' three products over their T*k slots
+        # (dense: over every expert), the shared expert's three, the router
+        routed = 2 * 3 * cfg.d_model * m.d_ff_expert
+        shared = 2 * 3 * cfg.d_model * m.d_ff_shared + 2 * cfg.d_model * (
+            m.num_experts + 1)
+        flops = {"ragged": t * (m.top_k * routed + shared),
+                 "dense": t * (m.num_experts * routed + shared)}
+        with torch.inference_mode():
+            for impl, fn in run.items():
+                rec[f"{impl}_ms"] = device_ms(fn, iters=10)
+                rec[f"{impl}_host_ms"] = time_ms(fn, iters=10)
+                rec[f"{impl}_gemm_launches"], sync = _gemms_and_sync(fn)
+                rec[f"{impl}_tflops"] = flops[impl] / rec[f"{impl}_ms"] / 1e9
+                if impl == "ragged":
+                    rec["ragged_sync_wait_ms"] = sync
+        rec["ragged_device_idle_share"] = max(
+            0.0, 1 - rec["ragged_ms"] / rec["ragged_host_ms"])
+        emit(rec)
+        del x, yr, yd
+    del p
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1359,6 +1550,7 @@ def main() -> int:
     smi = phase_card()
     phase_build()
     kernels = phase_kernels()
+    phase_moe_layer()
     counts = {}
     for path, spec in PATHS.items():
         if "serve" in path:

@@ -35,7 +35,8 @@ from repro_torch.models import layers, model as M
 from repro_torch.optim import (adamw_init, adamw_update, apply_updates,
                                clip_by_global_norm)
 
-DEFAULT_IMPLS = {"attn": "kernel", "ce": "kernel", "ssm": "kernel"}
+DEFAULT_IMPLS = {"attn": "kernel", "ce": "kernel", "ssm": "kernel",
+                 "moe": "ragged"}
 
 
 # ---------------------------------------------------------------------------
@@ -67,16 +68,17 @@ def len_from_params(tree_) -> int:
 
 
 def _run_body(frozen, server, cfg, h, positions, impls, remat):
-    """Frozen prefix + trainable suffix, then final norm."""
+    """Frozen prefix + trainable suffix, then final norm. Returns (h, the
+    router's aux loss summed over both)."""
     fsegs, tsegs = split.split_segments(M.body_segments(cfg),
                                         len_from_params(frozen))
-    for sp, seg in zip(frozen["segments"], fsegs):
-        h, _ = M.apply_segment(sp, h, cfg, seg, positions=positions,
-                               impls=impls, remat=remat)
-    for sp, seg in zip(server["segments"], tsegs):
-        h, _ = M.apply_segment(sp, h, cfg, seg, positions=positions,
-                               impls=impls, remat=remat)
-    return layers.apply_norm(h, server["final_norm"], cfg.norm)
+    aux = 0.0
+    for sp, seg in ([*zip(frozen["segments"], fsegs)]
+                    + [*zip(server["segments"], tsegs)]):
+        h, _, a = M.apply_segment(sp, h, cfg, seg, positions=positions,
+                                  impls=impls, remat=remat)
+        aux = aux + a
+    return layers.apply_norm(h, server["final_norm"], cfg.norm), aux
 
 
 # ---------------------------------------------------------------------------
@@ -89,8 +91,14 @@ def make_lm_loss(cfg, run, impls=None):
     batch: tokens [N, Bn, S], labels [N, Bn, S] (int), mask [N] (f32).
     impls: {"attn": "kernel" | "naive", "ce": "kernel" | "plain", "ssm":
     "kernel" | "plain", "ssm_chunk": int, "ssm_bwd": "fused" |
-    "recompute"}; the kernels by default, the chunk and the scan's
-    backward from ``run``."""
+    "recompute", "moe": "ragged" | "dense"}; the kernels and the ragged
+    dispatch by default, the chunk and the scan's backward from ``run``.
+
+    L_S = sum_n w_n L_n + aux, the router's load-balance loss of the MoE
+    blocks, as in the JAX package. aux is taken over every client's tokens
+    and added after the client weights, so with ``router_aux_coef > 0`` a
+    client with mask 0 still gets an adapter gradient, and one client's
+    tokens move another's gradient through the expert density."""
     if cfg.family not in M.PORTED_FAMILIES or cfg.encoder_layers:
         raise NotImplementedError(
             f"the {cfg.family} family comes with a later slice of the port "
@@ -127,8 +135,8 @@ def make_lm_loss(cfg, run, impls=None):
         positions = layers.positions_from_shape(n * bn, s, device=dev)
 
         # ---- 3. server forward: ONE pass over the global batch ----
-        hb = _run_body(frozen, trainable["server"], cfg, hb, positions,
-                       impls, remat)
+        hb, aux = _run_body(frozen, trainable["server"], cfg, hb, positions,
+                            impls, remat)
 
         # ---- 4. tail in CLIENT layout: labels never leave their client ----
         hc = hb.reshape(n, bn, s, cfg.d_model)
@@ -144,9 +152,10 @@ def make_lm_loss(cfg, run, impls=None):
 
         # ---- 5. aggregated loss => single backward pass ----
         w = _client_weights(batch["mask"], n)
-        l_s = (w * per_client).sum()
+        l_s = (w * per_client).sum() + aux
         metrics = {"loss": l_s.detach(), "per_client": per_client.detach(),
-                   "aux": torch.zeros((), device=dev),
+                   "aux": (aux.detach() if torch.is_tensor(aux)
+                           else torch.zeros((), device=dev)),
                    "participating": batch["mask"].sum()}
         return l_s, metrics
 

@@ -86,6 +86,20 @@ def _cast(t, dtype):
     return t.to(dtype) if t.is_floating_point() else t
 
 
+def _cast_in_place(tree_, dtype):
+    """Cast every leaf of a tree of dicts and lists, replacing each leaf
+    where it lies: its original is freed before the next is cast, so the
+    frozen tree never lies on the device in both dtypes at once (at
+    qwen2-moe-a2.7b's width the two would not fit one 80 GB card beside
+    the trainable tree)."""
+    items = tree_.items() if isinstance(tree_, dict) else enumerate(tree_)
+    for k, v in list(items):
+        if isinstance(v, (dict, list)):
+            _cast_in_place(v, dtype)
+        else:
+            tree_[k] = _cast(v, dtype)
+
+
 # ---------------------------------------------------------------------------
 # Client heads
 
@@ -131,10 +145,8 @@ def init_mpsl_lm(generator, cfg, run, device=None):
         # the tail stays trainable and shared with tied embeddings: a
         # trainable copy (the frozen table is the client-side tokenizer)
         server["lm_head"] = base["embed"]["table"].T.contiguous()
-    fdt = getattr(torch, run.frozen_dtype)
-    frozen = tree.map_(lambda t: _cast(t, fdt),
-                       {"embed": base.pop("embed"), "segments": fseg_p})
-    del fseg_p                           # the f32 originals go here
+    frozen = {"embed": base.pop("embed"), "segments": fseg_p}
+    _cast_in_place(frozen, getattr(torch, run.frozen_dtype))
     client = {"adapter": init_client_adapters(generator, cfg, run.mpsl,
                                               device)}
     return {"client": client, "server": server}, frozen, plan

@@ -8,9 +8,11 @@ greedy decode over a batch of requests with a per-layer cache (KV for
 attention, the state and conv history for Mamba), updated in place.
 Attention runs the hand-written flash-attention kernel, prefill and
 decode; a Mamba layer's prefill runs the selective-scan kernel seeded
-with the cached state, its decode the O(1) recurrence step. The dense,
-SSM (``--arch falcon-mamba-7b``) and hybrid (``--arch hymba-1.5b``)
-families serve. Runs on
+with the cached state, its decode the O(1) recurrence step; an MoE
+layer's experts run the ragged dispatch (one GEMM per active expert and
+projection). The dense, MoE (``--arch qwen2-moe-a2.7b``), SSM (``--arch
+falcon-mamba-7b``) and hybrid (``--arch hymba-1.5b``) families serve.
+Runs on
 ``cuda`` unless ``--device cpu`` is given (then the kernels' plain
 versions run); without a card it raises rather than carry on on the CPU.
 """
@@ -63,7 +65,7 @@ def check_cache_room(cfg, cache, n: int = 1) -> None:
 
 def build_serving_fns(cfg, compute_dtype=torch.float32, device="cuda",
                       attn_impl="kernel", ssm_impl="kernel",
-                      decode_slots=512):
+                      moe_impl="ragged", decode_slots=512):
     """(prefill, decode) for `cfg`. The KV cache holds prompt +
     `decode_slots` slots (a sliding-window layer's, at most the window) in
     the compute dtype; prefill returns the last position's logits. decode
@@ -71,9 +73,9 @@ def build_serving_fns(cfg, compute_dtype=torch.float32, device="cuda",
     n)`` raises if n more steps would write past a cache that cannot wrap
     (``check_cache_room``), and ``generate`` calls it once before its
     first step. attn_impl: "kernel" | "naive"; ssm_impl: "kernel" |
-    "plain"."""
+    "plain"; moe_impl: "ragged" | "dense"."""
     device = resolve_device(device)
-    impls = {"attn": attn_impl, "ssm": ssm_impl}
+    impls = {"attn": attn_impl, "ssm": ssm_impl, "moe": moe_impl}
 
     @torch.inference_mode()
     def prefill(params, tokens):
@@ -82,8 +84,8 @@ def build_serving_fns(cfg, compute_dtype=torch.float32, device="cuda",
                                   device)
         h = M.embed_tokens(params, tokens, cfg, dtype=compute_dtype)
         positions = layers.positions_from_shape(b, s, device=device)
-        h, cache = M.forward_body(params, h, cfg, positions=positions,
-                                  cache=cache, impls=impls)
+        h, cache, _ = M.forward_body(params, h, cfg, positions=positions,
+                                     cache=cache, impls=impls)
         logits = M.lm_logits(params, h[:, -1:], cfg)
         return logits, cache
 
@@ -91,8 +93,8 @@ def build_serving_fns(cfg, compute_dtype=torch.float32, device="cuda",
     def decode(params, cache, tokens, positions):
         h = M.embed_tokens(params, tokens, cfg, positions=positions,
                            dtype=compute_dtype)
-        h, cache = M.forward_body(params, h, cfg, positions=positions,
-                                  cache=cache, impls=impls)
+        h, cache, _ = M.forward_body(params, h, cfg, positions=positions,
+                                     cache=cache, impls=impls)
         logits = M.lm_logits(params, h, cfg)
         return logits, cache
 

@@ -10,7 +10,8 @@ than carry on on the CPU). The MPSL LM train step runs with the
 kernels: flash attention in every attention block, the selective scan
 forward and backward in every Mamba block (``--arch falcon-mamba-7b``,
 ``--arch hymba-1.5b``), the fused LM-head cross-entropy, and quant8 on
-both links under ``--compress``. A plain
+both links under ``--compress``; MoE blocks (``--arch qwen2-moe-a2.7b``)
+run the ragged dispatch and add the router's load-balance loss. A plain
 loop steps it over the ported loader; the trainer, prefetching,
 checkpoints, telemetry and fault plans come with a later slice.
 """
@@ -111,7 +112,8 @@ def main(argv=None):
         loss = float(metrics["loss"])           # waits for the step
         times.append(time.perf_counter() - t0)
         losses.append(loss)
-        log.info(f"step {step}: loss {loss:.4f} grad_norm "
+        log.info(f"step {step}: loss {loss:.4f} aux "
+                 f"{float(metrics['aux']):.4f} grad_norm "
                  f"{float(metrics['grad_norm']):.4f} lr "
                  f"{float(metrics['lr']):.2e} ({times[-1] * 1e3:.1f} ms)")
     summary = {"arch": cfg.name, "device": str(device), "steps": args.steps,

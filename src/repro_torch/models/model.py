@@ -8,14 +8,20 @@ per-layer cache dicts updated in place.
 
 Block kinds: dense (norm1 -> attention -> residual, norm2 -> MLP ->
 residual), ssm (norm1 -> Mamba -> residual; no MLP) and hybrid (norm1 ->
-parallel attention + Mamba -> residual, norm2 -> MLP -> residual). MoE,
-cross-attention, ViT and encoder blocks raise NotImplementedError naming
+parallel attention + Mamba -> residual, norm2 -> MLP -> residual) and moe
+(as dense, with the MoE FFN of ``models/moe.py`` for the MLP).
+Cross-attention, ViT and encoder blocks raise NotImplementedError naming
 the slice of ROADMAP.md that brings them. The segment plan and the
 analytic parameter counts cover every family.
 
+A block, a segment and the body return the router's load-balance loss
+beside the hidden states, as in the JAX package: a 0-d f32 tensor summed
+over the MoE blocks, or 0.0 where there is none.
+
 ``impls``: {"attn": "kernel" | "naive", "ssm": "kernel" | "plain",
-"ssm_chunk": the scan's chunk (256), "ssm_bwd": "fused" | "recompute"};
-the kernels by default.
+"ssm_chunk": the scan's chunk (256), "ssm_bwd": "fused" | "recompute",
+"moe": "ragged" | "dense"}; the kernels and the ragged dispatch by
+default.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.models import attention, hybrid, layers, mamba, mlp
+from repro_torch.models import attention, hybrid, layers, mamba, mlp, moe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,9 +75,8 @@ def body_segments(cfg) -> List[Segment]:
     raise ValueError(f"unknown family {fam!r}")
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 _LATER_SLICES = {
-    "moe": "the MoE slice",
     "dec": "the enc-dec / VLM slice",
     "enc": "the enc-dec / VLM slice",
     "vit": "the paper ViT-mode slice",
@@ -101,14 +106,17 @@ def init_block(generator, cfg, kind: BlockKind, device=None):
     else:
         p["attn"] = attention.init_attention(generator, cfg, device)
     p["norm2"] = layers.init_norm(cfg.norm, cfg.d_model, device)
-    p["mlp"] = mlp.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.activation,
-                            device)
+    if kind.family == "moe":
+        p["moe"] = moe.init_moe(generator, cfg, device)
+    else:
+        p["mlp"] = mlp.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                cfg.activation, device)
     return p
 
 
 def apply_block(params, x, cfg, kind: BlockKind, *, positions, cache=None,
                 impls=None):
-    """One transformer block. Returns (x, cache)."""
+    """One transformer block. Returns (x, cache, aux)."""
     _require_ported(kind)
     impls = impls or {}
     h = layers.apply_norm(x, params["norm1"], cfg.norm)
@@ -119,7 +127,7 @@ def apply_block(params, x, cfg, kind: BlockKind, *, positions, cache=None,
         out, cache = mamba.apply_mamba(
             params["ssm"], h, cfg, cache=cache, impl=ssm_kw["ssm_impl"],
             chunk=ssm_kw["ssm_chunk"], bwd_impl=ssm_kw["ssm_bwd"])
-        return x + out, cache
+        return x + out, cache, 0.0
     if kind.family == "hybrid":
         out, cache = hybrid.apply_hybrid(
             params["mix"], h, cfg, positions=positions,
@@ -132,8 +140,11 @@ def apply_block(params, x, cfg, kind: BlockKind, *, positions, cache=None,
             window=window, cache=cache, impl=impls.get("attn", "kernel"))
     x = x + out
     h = layers.apply_norm(x, params["norm2"], cfg.norm)
-    x = x + mlp.apply_mlp(params["mlp"], h, cfg.activation)
-    return x, cache
+    if "moe" in params:
+        out, aux = moe.apply_moe(params["moe"], h, cfg,
+                                 impl=impls.get("moe", "ragged"))
+        return x + out, cache, aux
+    return x + mlp.apply_mlp(params["mlp"], h, cfg.activation), cache, 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -162,25 +173,28 @@ def init_segment_cache(cfg, seg: Segment, batch: int, cache_len: int,
 
 def apply_segment(layer_params, x, cfg, seg: Segment, *, positions,
                   cache=None, impls=None, remat=False):
-    """Run a segment's layers in order. Returns (x, cache); the per-layer
-    caches are updated in place.
+    """Run a segment's layers in order. Returns (x, cache, aux summed over
+    the layers); the per-layer caches are updated in place.
 
     remat (train path, no cache): each block keeps only its input for the
     backward and recomputes the rest there, as ``jax.checkpoint`` with
     ``nothing_saveable`` does around the JAX package's scan step."""
+    aux = 0.0
     for i, lp in enumerate(layer_params):
         if remat and cache is None:
             def block(h, lp=lp):
-                return apply_block(lp, h, cfg, seg.kind, positions=positions,
-                                   impls=impls)[0]
+                y, _, a = apply_block(lp, h, cfg, seg.kind,
+                                      positions=positions, impls=impls)
+                return y, a
             # blocks draw no random numbers: no RNG state to carry over
-            x = torch.utils.checkpoint.checkpoint(
+            x, a = torch.utils.checkpoint.checkpoint(
                 block, x, use_reentrant=False, preserve_rng_state=False)
-            continue
-        x, _ = apply_block(lp, x, cfg, seg.kind, positions=positions,
-                           cache=None if cache is None else cache[i],
-                           impls=impls)
-    return x, cache
+        else:
+            x, _, a = apply_block(lp, x, cfg, seg.kind, positions=positions,
+                                  cache=None if cache is None else cache[i],
+                                  impls=impls)
+        aux = aux + a
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -236,16 +250,17 @@ def embed_tokens(params, tokens, cfg, positions=None, dtype=torch.bfloat16):
 
 def forward_body(params, h, cfg, *, positions, cache=None, impls=None,
                  remat=False):
-    """Embeddings -> final hidden states. Returns (h, caches); the caches
-    are updated in place. (The JAX package also returns an auxiliary
-    loss, which only MoE blocks make; it comes with the MoE slice.)"""
+    """Embeddings -> final hidden states. Returns (h, caches, aux); the
+    caches are updated in place."""
+    aux = 0.0
     for i, (seg_params, seg) in enumerate(zip(params["segments"],
                                               body_segments(cfg))):
-        h, _ = apply_segment(seg_params, h, cfg, seg, positions=positions,
-                             cache=None if cache is None else cache[i],
-                             impls=impls, remat=remat)
+        h, _, a = apply_segment(seg_params, h, cfg, seg, positions=positions,
+                                cache=None if cache is None else cache[i],
+                                impls=impls, remat=remat)
+        aux = aux + a
     h = layers.apply_norm(h, params["final_norm"], cfg.norm)
-    return h, cache
+    return h, cache, aux
 
 
 def lm_logits(params, h, cfg):

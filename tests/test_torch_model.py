@@ -23,6 +23,7 @@ from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import mlp as TMLP
 from repro_torch.models import model as TM
+from repro_torch.models import moe as TMOE
 
 F32 = dict(atol=2e-5, rtol=2e-5)
 BODY = dict(atol=5e-5, rtol=5e-5)
@@ -219,9 +220,9 @@ def test_forward_body_hidden_states(arch, impl):
                                  impls={"attn": JAX_IMPL[impl]}, remat=False)
     th = TM.embed_tokens(params, _t(tokens), cfg, dtype=torch.float32)
     _close(th, jh)
-    got, cache = TM.forward_body(params, th, cfg, positions=_t(pos),
-                                 impls={"attn": impl})
-    assert cache is None
+    got, cache, aux = TM.forward_body(params, th, cfg, positions=_t(pos),
+                                      impls={"attn": impl})
+    assert cache is None and aux == 0.0
     _close(got, want, BODY)
     _close(TM.lm_logits(params, got, cfg), JM.lm_logits(tree, want, cfg),
            BODY)
@@ -234,9 +235,22 @@ def test_param_count_matches_jax(arch):
         reduced(get_config(arch)).param_count(2)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "qwen2-moe-a2.7b",
-                                  "whisper-tiny", "vit-tiny"])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "vit-tiny"])
 def test_other_families_name_their_slice(arch):
     cfg = t_reduced(t_get_config(arch))
     with pytest.raises(NotImplementedError, match="slice"):
         TM.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "qwen2-moe-a2.7b"])
+def test_moe_archs_init_and_name_the_ep_slice(arch):
+    """The MoE family is ported: a reduced model initialises with an MoE
+    FFN in every block; only the expert-parallel dispatch is left, to the
+    multi-GPU slice."""
+    cfg = t_reduced(t_get_config(arch))
+    params = TM.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    layer = params["segments"][0][0]
+    assert "moe" in layer and "mlp" not in layer
+    x = torch.zeros((1, 3, cfg.d_model))
+    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+        TMOE.apply_moe(layer["moe"], x, cfg, impl="ep")

@@ -44,8 +44,8 @@ def test_decode_to_the_cache_capacity_matches_full_forward(arch, window):
     impls = {"attn": "kernel", "ssm": "kernel"}
     h = M.embed_tokens(params, tokens[:, :n], cfg, dtype=torch.float32)
     with torch.no_grad():
-        h, _ = M.forward_body(params, h, cfg, impls=impls,
-                              positions=layers.positions_from_shape(B, n))
+        h, _, _ = M.forward_body(params, h, cfg, impls=impls,
+                                 positions=layers.positions_from_shape(B, n))
         full = M.lm_logits(params, h, cfg)[:, S - 1:n]
     assert out["logits"].shape == full.shape
     torch.testing.assert_close(out["logits"], full, atol=DECODE_VS_FULL,

@@ -196,9 +196,9 @@ def test_forward_body_hidden_states(arch, path):
     want, _, _ = JM.forward_body(params, jh, jcfg, positions=jnp.asarray(pos),
                                  impls=ji, remat=False)
     th = TM.embed_tokens(tparams, _t(tokens), tcfg, dtype=torch.float32)
-    got, cache = TM.forward_body(tparams, th, tcfg, positions=_t(pos),
-                                 impls=ti)
-    assert cache is None
+    got, cache, aux = TM.forward_body(tparams, th, tcfg, positions=_t(pos),
+                                      impls=ti)
+    assert cache is None and aux == 0.0
     _close(got, want, BODY)
     _close(TM.lm_logits(tparams, got, tcfg),
            JM.lm_logits(params, want, jcfg), BODY)
@@ -288,14 +288,15 @@ def test_decode_matches_full_forward(arch, window):
     impls = {"attn": "kernel", "ssm": "kernel"}
     pos = TL.positions_from_shape(b, s + steps)
     h = TM.embed_tokens(params, tokens, tcfg, dtype=torch.float32)
-    full, _ = TM.forward_body(params, h, tcfg, positions=pos, impls=impls)
+    full, _, _ = TM.forward_body(params, h, tcfg, positions=pos, impls=impls)
     cache = TM.init_body_cache(tcfg, b, s + steps, torch.float32)
     outs = []
     for lo, hi in [(0, s)] + [(t, t + 1) for t in range(s, s + steps)]:
         ht = TM.embed_tokens(params, tokens[:, lo:hi], tcfg,
                              dtype=torch.float32)
-        o, cache = TM.forward_body(params, ht, tcfg, positions=pos[:, lo:hi],
-                                   cache=cache, impls=impls)
+        o, cache, _ = TM.forward_body(params, ht, tcfg,
+                                      positions=pos[:, lo:hi], cache=cache,
+                                      impls=impls)
         outs.append(o)
     inc = torch.cat(outs, dim=1)
     assert float((full - inc).abs().max()) < DECODE_VS_FULL
