@@ -13,7 +13,9 @@
             timed by device time (torch.profiler) beside its plain
             version, its roofline bound and one PyTorch library call
             computing the same function, where one does (each such call
-            first held to the plain version).
+            first held to the plain version). quant8 is held bitwise in
+            every route (nearest, streamed, in-kernel Philox) and timed
+            with a cold L2 (a ring of distinct buffers).
 4. moe_layer: one full-width MoE layer at a prefill's 2048 tokens and a
    decode step's 4, the ragged dispatch held to the dense one, each timed
    with its GEMM launches and the ragged dispatch's host sync.
@@ -226,11 +228,11 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, warmup=3) -> float:
-    """Device time of one fn() call: the durations of the CUDA kernels its
-    calls launched (torch.profiler), summed and divided by `iters`. Host
-    dispatch is left out, so a call shorter than its Python wrapper is
-    timed as the card runs it."""
+def device_ms_by_kernel(fn, iters=20, warmup=3) -> dict:
+    """{kernel name: device ms a call} of one fn() call: the durations of
+    the CUDA kernels its calls launched (torch.profiler), by name, divided
+    by `iters`. Host dispatch is left out, so a call shorter than its
+    Python wrapper is timed as the card runs it."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -241,11 +243,16 @@ def device_ms(fn, iters=20, warmup=3) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(_device_time_by_kernel(prof).values())
-        if total > 0:
-            return total / iters
+        times = _device_time_by_kernel(prof)
+        if sum(times.values()) > 0:
+            return {k: v / iters for k, v in times.items()}
     raise AssertionError("torch.profiler recorded no device time for a call "
                          "that launches kernels")
+
+
+def device_ms(fn, iters=20, warmup=3) -> float:
+    """Device time of one fn() call: its kernels' durations, summed."""
+    return sum(device_ms_by_kernel(fn, iters, warmup).values())
 
 
 def phase_card():
@@ -326,9 +333,11 @@ def _ptxas_report(log: str) -> list:
 # GEMM (whose consumers hold a 64 x 256 f32 accumulator in 128 registers a
 # thread); the scan forward's bf16 local pass at ds 16 spills 4 bytes, and
 # the scan backward's ds-16 kernel 88 under its two-blocks-an-SM cap of 128
-# registers (PERF.md)
+# registers (PERF.md); none for quant8, whose thread holds 16 words of its
+# row under a cap of 128 registers (512-thread blocks): a spill there would
+# put the row in local memory and read it from device memory twice
 SPILL_LIMITS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
-                "softmax_xent": 0, "selective_scan_fwd": 4,
+                "softmax_xent": 0, "quant8": 0, "selective_scan_fwd": 4,
                 "selective_scan_bwd": 88}
 
 
@@ -822,84 +831,173 @@ def _hold_to_bound(kernel, rec):
                              f"{rec['bound_ms']} ms")
 
 
+# quant8's cases: (case, rows, d, dtype, route, offset). The train paths'
+# links (4096 token rows: 4 clients x 2 x 512) at each path's width; rows
+# wider than the register route holds in f32 (8192) and near it in bf16
+# (nemotron-4-15b's 6144, command-r-plus-104b's 12288); and edges: a
+# ragged d, an x one element off 16-byte alignment (both on the scalar
+# route), short rows (d < 32, blocks shared by rows, a row count that
+# fills no whole block), and the two-read route in bf16 vectors and f32
+# scalars. route: "vector" or "scalar", as the wrapper must pick it.
+QUANT8_CASES = [
+    ("hybrid_train", 4096, 1600, torch.float32, "vector", 0),
+    ("moe_train", 4096, 2048, torch.float32, "vector", 0),
+    ("train", 4096, 3072, torch.float32, "vector", 0),
+    ("ssm_train", 4096, 4096, torch.float32, "vector", 0),
+    ("train_bf16", 4096, 3072, torch.bfloat16, "vector", 0),
+    *[("wide", 4096, d, dt, "vector", 0) for d in (6144, 12288)
+      for dt in (torch.float32, torch.bfloat16)],
+    *[(name, rows, d, dt, "scalar", off)
+      for name, rows, d, off in (("ragged", 4096, 1001, 0),
+                                 ("misaligned", 4096, 3072, 1))
+      for dt in (torch.float32, torch.bfloat16)],
+    *[("short_rows", 1001, 24, dt, "vector", 0)
+      for dt in (torch.float32, torch.bfloat16)],
+    ("two_reads", 512, 20480, torch.bfloat16, "vector", 0),
+    ("two_reads", 512, 10001, torch.float32, "scalar", 0),
+]
+# distinct buffers a timed ring holds (x, u, y): 4 x the H100's 50 MB L2
+RING_BYTES = 200e6
+
+
+def _quant8_input(g, rows, d, dtype, offset):
+    """x [rows, d]: normal values scaled by 0.1..3 along the row; with an
+    offset, a contiguous view that many elements into its buffer."""
+    x = (torch.randn((rows, d), generator=g, device="cuda")
+         * torch.linspace(0.1, 3.0, d, device="cuda")).to(dtype)
+    if not offset:
+        return x
+    buf = torch.empty(rows * d + offset, dtype=dtype, device="cuda")
+    view = buf[offset:].view(rows, d)
+    view.copy_(x)
+    return view
+
+
+def _hold_quant8_bits(rec, x, u):
+    """Each route bitwise equal to the plain version: nearest, streamed u,
+    and the in-kernel Philox against the plain Philox, from two generators
+    in the same state; then the Philox route's range and unbiasedness over
+    64 draws (a stream that is reproducible but wrong passes the bitwise
+    check alone)."""
+    routes = {"nearest": (q8.quant_dequant(x), q8.quant_dequant_plain(x)),
+              "streamed": (q8.quant_dequant(x, u),
+                           q8.quant_dequant_plain(x, u))}
+    ga = torch.Generator(device="cuda").manual_seed(41)
+    gb = torch.Generator(device="cuda").manual_seed(41)
+    routes["philox"] = (q8.quant_dequant(x, ga), q8.quant_dequant_plain(x, gb))
+    bits = torch.int32 if x.dtype == torch.float32 else torch.int16
+    for route, (got, want) in routes.items():
+        rec[f"max_abs_err_{route}"] = _max_err(got, want)
+        rec[f"bitwise_{route}"] = torch.equal(got.view(bits), want.view(bits))
+    del routes
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    scale = x.float().abs().amax(-1, keepdim=True) / 127
+    # one draw lands on one of the two levels around x, less than a level
+    # away; in bf16 that value is rounded to bf16 after, by up to 2^-8 of
+    # its size (|x| + a level)
+    slack = scale if x.dtype == torch.float32 else \
+        scale + (x.float().abs() + scale) * 2 ** -8
+    slack = slack * (1 + 1e-5)
+    mean = torch.zeros(x.shape, device="cuda")
+    in_range = True
+    for _ in range(64):
+        y = q8.quant_dequant(x, gen).float()
+        in_range &= bool(((y - x.float()).abs() <= slack).all())
+        mean += y / 64
+    torch.cuda.synchronize()
+    rec["philox_in_range"] = in_range
+    ok = in_range and all(rec[f"bitwise_{r}"]
+                          for r in ("nearest", "streamed", "philox"))
+    if x.dtype == torch.float32:
+        # a draw errs by less than a level and on average by nothing: the
+        # mean of 64 draws spreads by at most 1/16 of a level
+        err = (mean - x.float()) / scale
+        rec["philox_mean_abs_err_levels"] = err.abs().mean().item()
+        rec["philox_mean_err_levels"] = err.mean().item()
+        ok = (ok and rec["philox_mean_abs_err_levels"] < 0.1
+              and abs(rec["philox_mean_err_levels"]) < 0.01)
+    if not ok:
+        emit({"phase": "kernels", "kernel": "quant_dequant", **rec,
+              "failed": True})
+        raise AssertionError(f"quant_dequant {rec['case']} {rec['shape']} "
+                             f"{rec['dtype']}: differs from the plain "
+                             f"version, leaves its range or is biased")
+
+
+def _ring_ms(fn, xs, us, rng, iters):
+    """{kernel name: device ms a call} of fn(x, rng(u)), every call on
+    the next (x, u) of the ring and writing a y of its own (each output is
+    kept until the window ends), so no call finds its buffers in L2."""
+    ring, keep = itertools.cycle(range(len(xs))), []
+
+    def call():
+        i = next(ring)
+        keep.append(fn(xs[i], rng(us[i])))
+
+    times = device_ms_by_kernel(call, iters=iters, warmup=len(xs))
+    keep.clear()
+    return times
+
+
 def kernels_quant8():
-    """Compare and time quant8 at the links' shapes (4096 token rows x
-    3072, minitron-4b's width; x 2048, qwen2-moe-a2.7b's, f32) and at rows
-    wider than the kernel holds in registers (nemotron-4-15b's 6144,
-    command-r-plus-104b's 12288): streamed uniforms and round-to-nearest
-    bitwise against the plain version; the in-kernel Philox (the train
-    paths' route) for range and unbiasedness (the mean of 64 draws
-    approaches x), and timed beside its own bound (no uniforms read)."""
+    """Compare and time quant8 at every train path's link shape, at wide
+    rows and at edges (``QUANT8_CASES``). Every case holds all three
+    routes bitwise to the plain version (``_hold_quant8_bits``). Timed
+    with a cold L2: each call takes the next x and u of a ring of distinct
+    buffers, x, u and the outputs together at least RING_BYTES (4 x the
+    50 MB L2), so no call finds its input in L2. The kernel's time is its
+    own kernels' device time (named ``quant8::kernel``); the Philox
+    route's whole call adds the seed's ``torch.randint`` kernel
+    (``ms_call``). Each route is held to its own bytes bound: nearest and
+    Philox x in, y out; streamed u in as well."""
     g = torch.Generator(device="cuda").manual_seed(3)
     results = []
-    cases = [(name, d, dtype) for name, d in
-             (("links", 3072), ("wide", 6144), ("wide", 12288))
-             for dtype in (torch.float32, torch.bfloat16)]
-    cases.append(("moe_links", 2048, torch.float32))
-    for name, width, dtype in cases:
-        x = (torch.randn((4096, width), generator=g, device="cuda")
-             * torch.linspace(0.1, 3.0, width, device="cuda")).to(dtype)
-        u = torch.rand(x.shape, generator=g, device="cuda")
-        # the links' shapes run on train, train_bf16 and moe_train
+    for name, rows, d, dtype, route, offset in QUANT8_CASES:
+        xb = rows * d * dtype.itemsize
+        n_sets = max(2, math.ceil(RING_BYTES / (2 * xb + rows * d * 4)))
+        xs = [_quant8_input(g, rows, d, dtype, offset)
+              for _ in range(n_sets)]
+        us = [torch.rand((rows, d), generator=g, device="cuda")
+              for _ in range(n_sets)]
         rec = {"case": name, "dtype": str(dtype).split(".")[-1],
-               "shape": list(x.shape),
-               "main_path": name in ("links", "moe_links")}
-        ya, ra = q8.quant_dequant(x, u), q8.quant_dequant_plain(x, u)
-        yd, rd = q8.quant_dequant(x), q8.quant_dequant_plain(x)
-        gen = torch.Generator(device="cuda").manual_seed(4)
-        scale = x.float().abs().amax(-1, keepdim=True) / 127
-        # one draw lands on one of the two levels around x, less than a
-        # level away; in bf16 that value is rounded to bf16 after, by up
-        # to 2^-8 of its size (|x| + a level)
-        slack = scale if dtype == torch.float32 else \
-            scale + (x.float().abs() + scale) * 2 ** -8
-        slack = slack * (1 + 1e-5)
-        mean = torch.zeros(x.shape, device="cuda")
-        in_range = True
-        for _ in range(64):
-            y = q8.quant_dequant(x, gen).float()
-            in_range &= bool(((y - x.float()).abs() <= slack).all())
-            mean += y / 64
-        torch.cuda.synchronize()
-        rec["max_abs_err_streamed"] = _max_err(ya, ra)
-        rec["max_abs_err_nearest"] = _max_err(yd, rd)
-        rec["philox_in_range"] = in_range
-        ok = torch.equal(ya, ra) and torch.equal(yd, rd) and in_range
-        if dtype == torch.float32:
-            # a draw errs by less than a level and on average by nothing:
-            # the mean of 64 draws spreads by at most 1/16 of a level
-            err = (mean - x.float()) / scale
-            rec["philox_mean_abs_err_levels"] = err.abs().mean().item()
-            rec["philox_mean_err_levels"] = err.mean().item()
-            ok = (ok and rec["philox_mean_abs_err_levels"] < 0.1
-                  and abs(rec["philox_mean_err_levels"]) < 0.01)
-        if not ok:
-            emit({"phase": "kernels", "kernel": "quant_dequant", **rec,
-                  "failed": True})
-            raise AssertionError(f"quant_dequant {name} {width} {dtype}: "
-                                 f"disagrees with the plain version, leaves "
-                                 f"its range or is biased")
-        rec["ms"] = device_ms(lambda: q8.quant_dequant(x, u))
-        rec["ms_philox"] = device_ms(lambda: q8.quant_dequant(x, gen))
-        rec["plain_ms"] = device_ms(lambda: q8.quant_dequant_plain(x, u))
-        rec["library_ms"] = None
-        # bytes of the streamed-uniform call: x and u in, y out
-        t_bytes = (2 * x.numel() * x.element_size() + u.numel() * 4) \
-            / PEAK_BYTES
-        rec["bound_ms"], rec["bound_by"] = t_bytes * 1e3, "bytes"
-        # the train paths' route, the in-kernel Philox: x in, y out
-        rec["bound_ms_philox"] = 2 * x.numel() * x.element_size() \
-            / PEAK_BYTES * 1e3
-        rec["philox_share_of_bound_rate"] = \
-            rec["bound_ms_philox"] / rec["ms_philox"]
+               "shape": [rows, d], "route": route,
+               "main_path": name in PATHS, "ring_sets": n_sets}
+        if q8.vector_route(xs[0], us[0]) != (route == "vector"):
+            raise AssertionError(f"quant_dequant {name} {d} {dtype}: the "
+                                 f"wrapper does not take the {route} route")
+        _hold_quant8_bits(rec, xs[0], us[0])
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        rngs = {"nearest": lambda u: None, "streamed": lambda u: u,
+                "philox": lambda u: gen}
+        iters = 20
+        for r, rng in rngs.items():
+            times = _ring_ms(q8.quant_dequant, xs, us, rng, iters)
+            own = {k: v for k, v in times.items() if "quant8" in k}
+            rec[f"ms_{r}"] = sum(own.values())
+            rec[f"kernels_{r}"] = sorted(own)
+            if r == "philox":
+                rec["ms_call"] = sum(times.values())
+            rec[f"plain_ms_{r}"] = sum(_ring_ms(
+                q8.quant_dequant_plain, xs, us, rng, 5).values())
+        rec["library_ms"] = None    # no single PyTorch call computes it
+        io = 2 * xb / PEAK_BYTES * 1e3              # x in, y out
+        rec["bound_ms_nearest"] = rec["bound_ms_philox"] = io
+        rec["bound_ms_streamed"] = io + rows * d * 4 / PEAK_BYTES * 1e3
+        for r in rngs:
+            _hold_to_bound("quant_dequant", {
+                "case": f"{name} ({r})", "dtype": rec["dtype"],
+                "ms": rec[f"ms_{r}"], "bound_ms": rec[f"bound_ms_{r}"]})
+        # the train paths' route: the in-kernel Philox
+        rec["ms"], rec["plain_ms"] = rec["ms_philox"], rec["plain_ms_philox"]
+        rec["bound_ms"], rec["bound_by"] = io, "bytes"
+        rec["share_of_bound_rate"] = io / rec["ms"]
         emit({"phase": "kernels", "kernel": "quant_dequant", **rec})
         results.append(rec)
-    torch.cuda.empty_cache()
-    entry = _entry_of("quant_dequant", "quant8.cu",
-                      "src/repro/kernels/quant8.py:63", results, results[0])
-    entry["max_abs_err"] = max(max(r["max_abs_err_streamed"],
-                                   r["max_abs_err_nearest"]) for r in results)
-    return entry
+        del xs, us
+        torch.cuda.empty_cache()
+    head = next(r for r in results if r["case"] == "train")
+    return _entry_of("quant_dequant", "quant8.cu",
+                     "src/repro/kernels/quant8.py:63", results, head)
 
 
 def _scan_cases():
@@ -1360,28 +1458,25 @@ def phase_train(path, spec):
         raise AssertionError(f"{path}: non-finite loss or grad norm: "
                              f"{losses} {norms}")
 
-    # the kernel path against the plain path: same params, batch and link
-    # uniforms (quant8 streams them in, bitwise equal in both)
+    # the kernel path against the plain path: same params, batch and the
+    # first timed step's int seed, so both sides' links run quant8's
+    # in-kernel Philox from generators in the same state (the same bits)
     b0 = batches[0]
-    shape = (spec["n_clients"], spec["batch_per_client"], spec["seq"],
-             cfg.d_model)
-    ug = torch.Generator(device=device).manual_seed(spec["seed"] + 1)
-    draws = {k: torch.rand(shape, generator=ug, device=device)
-             for k in ("uplink", "downlink")}
+    rng = mpsl.fold_in(spec["seed"], 0)
     # (an MoE arch's plain path replays the kernel path's expert choices)
     params = state["params"]
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     with _tape(cfg) as tape:
         l_k, m_k, g_k = mpsl.value_and_grad(loss_fn, params, frozen, b0,
-                                            draws)
+                                            rng)
     torch.cuda.synchronize()
     kernel_s = time.perf_counter() - t
     plain_fn = mpsl.make_lm_loss(cfg, run, impls=PLAIN_IMPLS)
     t = time.perf_counter()
     with _tape(cfg, None if tape is None else tape.idx) as tape:
         l_p, m_p, g_p = mpsl.value_and_grad(plain_fn, params, frozen, b0,
-                                            draws)
+                                            rng)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t
     routing = _flips(tape)
@@ -1412,7 +1507,7 @@ def phase_train(path, spec):
         # against the plain path; what is left of the kernel path's gap
         # beyond this is the bf16 flash backward's rounding of p and ds
         naive_fn = mpsl.make_lm_loss(cfg, run, impls={"attn": "naive"})
-        _, _, g_n = mpsl.value_and_grad(naive_fn, params, frozen, b0, draws)
+        _, _, g_n = mpsl.value_and_grad(naive_fn, params, frozen, b0, rng)
         errs_n = {n: _rel_l2(a, b) for n, a, b in zip(names, g_n, g_p)}
         worst_n = max(errs_n, key=errs_n.get)
         cmp["naive_attn_grad_rel_l2_max"] = errs_n[worst_n]

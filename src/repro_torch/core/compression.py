@@ -10,8 +10,9 @@ version on the CPU), with stochastic rounding:
   * compress_gradients   — identity on forward, quant-dequant applied to
     the COTANGENT (an int8 gradient downlink).
 
-``rng`` is a ``torch.Generator`` (the kernel draws its uniforms with an
-in-kernel Philox seeded from it) or a tensor of uniforms of x's shape
+``rng`` is a ``torch.Generator`` (a seed drawn from it keys quant8's
+Philox stream: the kernel draws it in registers, the plain version with
+torch integer ops, to the same bits) or a tensor of uniforms of x's shape
 (used as given, so a test can feed ``jax.random.uniform``'s draws).
 """
 from __future__ import annotations

@@ -19,10 +19,21 @@ the constant qmax so); its eager ``compression._quant_dequant_jnp``
 divides instead, which moves the scale of some rows by one ulp.
 
 ``rng`` picks the rounding: None rounds to nearest (half to even); a
-tensor of uniforms u (x's shape, f32, in [0, 1)) is used as given, and
-kernel and plain version then agree bitwise; a ``torch.Generator`` draws
-the uniforms — in the kernel from a Philox stream keyed by a seed drawn
-from the generator, in the plain version with ``torch.rand``.
+tensor of uniforms u (x's shape, f32, in [0, 1)) is used as given; a
+``torch.Generator`` gives one int64 seed (``torch.randint`` on it, into
+the tensor's device memory: no host sync) and the uniforms come from the
+Philox stream of that seed:
+
+  element (r, c) of x viewed as [rows, d] takes word c mod 4 of
+  Philox4x32-10 (Salmon et al., SC'11) at counter (g_lo, g_hi, 0, 0),
+  g = r * ceil(d / 4) + floor(c / 4), under the key (seed_lo, seed_hi),
+  the seed's two 32-bit words; u = (word >> 8) * 2^-24, in [0, 1).
+
+One draw serves four neighbouring elements of a row and no draw straddles
+two rows. The kernel draws it in registers; the plain version computes it
+with torch integer ops (``philox_uniforms``). Kernel and plain version,
+given the same uniforms or generators in the same state, give the same
+bits.
 """
 from __future__ import annotations
 
@@ -34,6 +45,55 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_M32 = 0xFFFFFFFF
+# Philox4x32's round multipliers and Weyl key increments (Random123)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def mulhilo32(a, b):
+    """(hi, lo) 32-bit words of the exact 64-bit product of 32-bit
+    unsigned a and b (int64 tensors or ints holding values in [0, 2^32)).
+    Formed from 16-bit halves, so no intermediate passes 2^34 and nothing
+    relies on int64 wrapping."""
+    a_hi, a_lo = a >> 16, a & 0xFFFF
+    b_hi, b_lo = b >> 16, b & 0xFFFF
+    mid = a_hi * b_lo + a_lo * b_hi                 # < 2^33
+    low = a_lo * b_lo + ((mid & 0xFFFF) << 16)      # < 2^33
+    return a_hi * b_hi + (mid >> 16) + (low >> 32), low & _M32
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 of counter (c0, c1, c2, c3) under key (k0, k1): four
+    int64 tensors of 32-bit words (broadcast together)."""
+    for _ in range(10):
+        hi0, lo0 = mulhilo32(c0, _PHILOX_M[0])
+        hi1, lo1 = mulhilo32(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _M32
+        k1 = (k1 + _PHILOX_W[1]) & _M32
+    return c0, c1, c2, c3
+
+
+def philox_uniforms(seed, rows: int, d: int):
+    """The kernel's uniforms for x viewed as [rows, d]: f32 [rows, d] in
+    [0, 1), on seed's device. ``seed``: an int64 tensor of one element in
+    [0, 2^63) (as the wrapper draws it) or an int."""
+    seed = torch.as_tensor(seed, dtype=torch.int64).reshape(())
+    n4 = -(-d // 4)
+    g = torch.arange(rows * n4, dtype=torch.int64, device=seed.device)
+    zero = torch.zeros((), dtype=torch.int64, device=seed.device)
+    words = philox4x32(g & _M32, g >> 32, zero, zero, seed & _M32,
+                       seed >> 32)
+    w = torch.stack(torch.broadcast_tensors(*words), dim=-1)
+    w = w.reshape(rows, 4 * n4)[:, :d]
+    return (w >> 8).to(torch.float32) * 2.0 ** -24
+
+
+def _draw_seed(gen, device):
+    """The one seed a call draws from its generator, in device memory."""
+    return torch.randint(0, 2 ** 62, (1,), dtype=torch.int64, device=device,
+                         generator=gen)
 
 
 def quant_dequant_plain(x, rng=None, bits: int = 8):
@@ -48,8 +108,9 @@ def quant_dequant_plain(x, rng=None, bits: int = 8):
         y = torch.round(y)
     else:
         if isinstance(rng, torch.Generator):
-            rng = torch.rand(x.shape, generator=rng, dtype=torch.float32,
-                             device=x.device)
+            d = x.shape[-1]
+            rng = philox_uniforms(_draw_seed(rng, x.device), x.numel() // d,
+                                  d).reshape(x.shape)
         y = torch.floor(y + rng)
     return (y.clamp(-qmax, qmax) * scale).to(x.dtype)
 
@@ -60,9 +121,23 @@ def _lib():
     lib.quant_dequant.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                                   + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_void_p])
+                                     ctypes.c_int, ctypes.c_void_p])
     lib.quant_dequant.restype = ctypes.c_int
     return lib
+
+
+# elements of a 16-byte access, by dtype
+_VECTOR = {torch.float32: 4, torch.bfloat16: 8}
+
+
+def vector_route(x, *others) -> bool:
+    """Whether the kernel takes 16-byte accesses: x's rows a whole number
+    of vectors (4 f32, 8 bf16), and x and the other tensors it reads or
+    writes (u, y; None for none) 16-byte aligned. Otherwise it takes the
+    scalar route, with the same arithmetic and the same stream."""
+    return (x.shape[-1] % _VECTOR[x.dtype] == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, *others)
+                    if t is not None))
 
 
 def quant_dequant(x, rng=None, bits: int = 8):
@@ -82,8 +157,7 @@ def quant_dequant(x, rng=None, bits: int = 8):
     mode = 0
     if isinstance(rng, torch.Generator):
         mode = 2
-        seed = torch.randint(0, 2 ** 62, (1,), dtype=torch.int64,
-                             device=x.device, generator=rng)
+        seed = _draw_seed(rng, x.device)
     elif rng is not None:
         mode = 1
         u = rng
@@ -98,6 +172,7 @@ def quant_dequant(x, rng=None, bits: int = 8):
             None if u is None else u.data_ptr(),
             None if seed is None else seed.data_ptr(), y.data_ptr(),
             x.numel() // d, d, 2.0 ** (bits - 1) - 1, mode,
+            int(vector_route(x, u, y)),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "quant_dequant")
     quant_dequant.launches += 1
