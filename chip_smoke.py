@@ -56,6 +56,25 @@
    moe_train     qwen2-moe-a2.7b as train, the last 2 blocks trainable
                  (4 would not fit 80 GB with the AdamW state), with the
                  router's aux loss in the MPSL loss.
+   vit_train     the paper mode: full-width vit-base (12 bidirectional
+                 blocks, d_model 768, 12 heads on 12 KV heads, hd 64),
+                 every block trainable, 4 clients x 16 samples of the
+                 synthetic (vision, text) task on Dirichlet(0.1) shards,
+                 early fusion (77 + 197 = 274 tokens), int8 links, f32,
+                 3 steps: the flash kernels' non-causal route at G 1 and
+                 quant8 at a 768-wide link; then the post-training model
+                 (the client tokenizers FedAvg-ed, the body assembled) on
+                 the batch, kernel path against plain path;
+   vit_train_bf16  vit_train at bf16 compute;
+   vit_late      vision + audio + text, late fusion: three encoder passes
+                 (197, 513, 77 tokens), each behind its own link, 2 steps;
+   vit_retrieval vision + text, contrastive (two 512-wide projections),
+                 two passes, 2 steps;
+   vit_fedavg    FedAvg baseline rounds of the full model
+                 (``core.baselines.make_fl_round``): 4 clients x 2 local
+                 AdamW steps x 8 samples, 3 rounds from the same bank
+                 (timed from the second), kernel attention against naive
+                 (the mean loss and the averaged params' updates).
    Each path's serve or train is followed by its profile: device time by
    kernel (torch.profiler) and the device's busy share. The MoE paths'
    plain versions (dense dispatch, naive attention) replay the kernel
@@ -93,7 +112,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch import tree  # noqa: E402
 from repro_torch.configs import (MPSLConfig, RunConfig, SHAPES,  # noqa: E402
                                  get_config)
-from repro_torch.core import mpsl, split  # noqa: E402
+from repro_torch.core import (aggregation, baselines, losses,  # noqa: E402
+                              mpsl, split)
+from repro_torch.data import (ClientLoader, SyntheticMultimodal,  # noqa: E402
+                              SyntheticRetrieval, dirichlet_partition)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quant8 as q8  # noqa: E402
@@ -102,6 +124,7 @@ from repro_torch.kernels import softmax_xent as sx  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models import tokenizers  # noqa: E402
 from repro_torch.optim import schedules  # noqa: E402
 
 # Kernel vs plain version on the card. f32: both sum f32 products, in
@@ -135,6 +158,13 @@ TRAIN_GRAD_TOL = 1e-3
 # path's autograd rounds dP and dS to bf16 in its own places).
 TRAIN_LOSS_TOL_BF16 = 1e-2
 TRAIN_GRAD_TOL_BF16 = 5e-2
+# A FedAvg round, kernel vs naive attention, f32: each averaged leaf's
+# update (from the clients' mean start) in relative L2. AdamW's steps are
+# ~lr * sign(g), so an element whose gradient lies within the two paths'
+# float noise of 0 may step the other way (2 lr a step): a share f of such
+# elements gives ~2 sqrt(f). 1e-3, the CPU parity test's limit, admits f up
+# to 2.5e-7; a wrong attention moves most elements (a gap near 1).
+FEDAVG_UPDATE_TOL = 1e-3
 # The MoE paths' plain versions replay the kernel path's expert choices. A
 # token whose own top-k set differs there (a flip) is one whose k-th and
 # next router probabilities lie within the two paths' float noise of each
@@ -164,6 +194,16 @@ SERVE = dict(arch="minitron-4b", batch=4, prompt_len=512, decode_steps=16,
 TRAIN = dict(arch="minitron-4b", n_clients=4, batch_per_client=2, seq=512,
              trainable_blocks=4, steps=3, lr=3e-4, seed=0,
              compute_dtype="float32")
+# The paper mode: full-width vit-base (12 layers, d_model 768, 12 heads,
+# hd 64, d_ff 3072), every block trainable (MPSLConfig's default), 4
+# clients x 16 samples of the synthetic multimodal task on Dirichlet(0.1)
+# shards, 10 classes, both links int8, f32 compute, frozen tree bf16,
+# block remat. Early fusion (77 text + 197 vision tokens) unless the path
+# says otherwise.
+VIT = dict(arch="vit-base", n_clients=4, batch_per_client=16,
+           modalities=("vision", "text"), task="classification",
+           fusion="early", n_classes=10, trainable_blocks=-1, steps=3,
+           lr=3e-4, seed=0, compute_dtype="float32")
 PATHS = {
     "serve": SERVE,
     "train": TRAIN,
@@ -175,6 +215,12 @@ PATHS = {
     "train_bf16": dict(TRAIN, compute_dtype="bfloat16"),
     "moe_serve": dict(SERVE, arch="qwen2-moe-a2.7b"),
     "moe_train": dict(TRAIN, arch="qwen2-moe-a2.7b", trainable_blocks=2),
+    "vit_train": VIT,
+    "vit_train_bf16": dict(VIT, compute_dtype="bfloat16"),
+    "vit_late": dict(VIT, modalities=("vision", "audio", "text"),
+                     fusion="late", steps=2),
+    "vit_retrieval": dict(VIT, task="retrieval", steps=2),
+    "vit_fedavg": dict(VIT, batch_per_client=8, local_steps=2, rounds=3),
 }
 # every path's plain version: naive attention, the plain scan, chunked CE,
 # the dense expert dispatch
@@ -436,7 +482,31 @@ def _attn_cases():
                        k_pos=torch.arange(333, dtype=torch.int32)[None].expand(
                            3, 333),
                        k_valid=kv, causal=True, window=0), False))
+    # vit-base (the paper mode): bidirectional, 12 heads on 12 KV heads
+    # (G 1), hd 64; the early-fusion joint sequence (77 text + 197 vision
+    # tokens) and late fusion's and retrieval's passes over 4 clients x 16
+    # samples, and a FedAvg client's local step (8 samples, early fusion)
+    for name, (bv, sv) in VIT_ATTN.items():
+        vp = torch.arange(sv, dtype=torch.int32)[None].expand(bv, sv)
+        cases.append((name, dict(b=bv, sq=sv, sk=sv, h=12, kh=12, hd=64),
+                      dict(q_pos=vp, k_pos=vp,
+                           k_valid=torch.ones(bv, sv, dtype=torch.bool),
+                           causal=False, window=0), True))
     return cases
+
+
+# the vit cases: (batch, sequence length); only the early-fusion joint
+# sequence runs at bf16 compute on a main path (vit_train_bf16), the others
+# f32 only
+VIT_ATTN = {"vit_early": (64, 274), "vit_vision": (64, 197),
+            "vit_text": (64, 77), "vit_audio": (64, 513),
+            "vit_fedavg": (8, 274)}
+
+
+def _attn_dtypes(name):
+    if name in VIT_ATTN and name != "vit_early":
+        return (torch.float32,)
+    return (torch.float32, torch.bfloat16)
 
 
 def _bound(q, k, q_pos, k_pos, k_valid, causal, window, dtype):
@@ -461,19 +531,21 @@ def _bound(q, k, q_pos, k_pos, k_valid, causal, window, dtype):
 
 
 # the cases whose positions are 0..S-1 on both sides under a plain causal
-# mask: SDPA takes them with is_causal
+# mask: SDPA takes them with is_causal; the vit cases attend every key
 PLAIN_CAUSAL = ("prefill", "train", "moe_prefill", "moe_train")
 
 
-def _sdpa_inputs(q, k, v, q_pos, k_pos, k_valid, causal, window,
-                 is_causal):
+def _sdpa_inputs(q, k, v, q_pos, k_pos, k_valid, causal, window, name):
     """SDPA's layout of q, k, v ([B, heads, S, hd]) and its keyword mask:
     is_causal where positions are 0..S-1 on both sides and the mask is
-    plain causal, else a boolean attn_mask [B, 1, Sq, Sk] from the
-    kernel's own pair mask."""
+    plain causal, none where every query sees every key (the vit cases),
+    else a boolean attn_mask [B, 1, Sq, Sk] from the kernel's own pair
+    mask."""
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    if is_causal:
+    if name in PLAIN_CAUSAL:
         return qt, kt, vt, dict(is_causal=True, enable_gqa=True)
+    if name in VIT_ATTN:
+        return qt, kt, vt, dict(is_causal=False, enable_gqa=True)
     mask = fa.pair_mask(q_pos, k_pos, k_valid, causal, window)[:, None]
     return qt, kt, vt, dict(attn_mask=mask, enable_gqa=True)
 
@@ -481,10 +553,9 @@ def _sdpa_inputs(q, k, v, q_pos, k_pos, k_valid, causal, window,
 def _library_call(q, k, v, q_pos, k_pos, k_valid, m, name):
     """One PyTorch call computing the same function (a yardstick only;
     the port never calls it) and its o [B, Sq, H, hd]: SDPA, with a
-    boolean mask where the case is not plain causal."""
+    boolean mask where the case is neither plain causal nor full."""
     qt, kt, vt, kw = _sdpa_inputs(q, k, v, q_pos, k_pos, k_valid,
-                                  m["causal"], m["window"],
-                                  name in PLAIN_CAUSAL)
+                                  m["causal"], m["window"], name)
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw) \
         .transpose(1, 2)
 
@@ -509,7 +580,7 @@ def kernels_flash_fwd():
     g = torch.Generator(device="cuda").manual_seed(0)
     results = []
     for name, shp, m, main_path in _attn_cases():
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in _attn_dtypes(name):
             # four input sets, cycled, so timed launches find K/V cold in L2
             sets = [_attn_inputs(g, dtype=dtype, q_pos=m["q_pos"],
                                  k_pos=m["k_pos"], k_valid=m["k_valid"],
@@ -630,7 +701,7 @@ def kernels_flash_bwd():
     for name, shp, m, main_path in _attn_cases():
         if name.endswith(("prefill", "decode")):  # serve shapes: no backward
             continue
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in _attn_dtypes(name):
             q, k, v, qp, kp, kv = _attn_inputs(
                 g, dtype=dtype, q_pos=m["q_pos"], k_pos=m["k_pos"],
                 k_valid=m["k_valid"], **shp)
@@ -655,7 +726,7 @@ def kernels_flash_bwd():
             # the backward of SDPA (a yardstick only), held to the plain
             # version first
             qt, kt, vt, skw = _sdpa_inputs(q, k, v, qp, kp, kv, m["causal"],
-                                           m["window"], name in PLAIN_CAUSAL)
+                                           m["window"], name)
             for t in (qt, kt, vt):
                 t.requires_grad_()
             out = F.scaled_dot_product_attention(qt, kt, vt, **skw)
@@ -855,6 +926,13 @@ QUANT8_CASES = [
       for dt in (torch.float32, torch.bfloat16)],
     ("two_reads", 512, 20480, torch.bfloat16, "vector", 0),
     ("two_reads", 512, 10001, torch.float32, "scalar", 0),
+    # vit-base's links: 4 clients x 16 samples x 274 tokens (early
+    # fusion), and the 197-, 513- and 77-token passes of late fusion (the
+    # vision and text ones also retrieval's)
+    ("vit_train", 17536, 768, torch.float32, "vector", 0),
+    ("vit_train_bf16", 17536, 768, torch.bfloat16, "vector", 0),
+    *[("vit_late", 64 * s, 768, torch.float32, "vector", 0)
+      for s in (197, 513, 77)],
 ]
 # distinct buffers a timed ring holds (x, u, y): 4 x the H100's 50 MB L2
 RING_BYTES = 200e6
@@ -1179,7 +1257,7 @@ def _layers(cfg):
     """(attention layers, Mamba layers) of cfg's body."""
     segs = M.body_segments(cfg)
     return (sum(g.count for g in segs
-                if g.kind.family in ("dense", "moe", "hybrid")),
+                if g.kind.family in ("dense", "moe", "hybrid", "vit")),
             sum(g.count for g in segs if g.kind.family in ("ssm", "hybrid")))
 
 
@@ -1383,10 +1461,99 @@ def train_launches_per_step(cfg) -> dict:
     return want
 
 
-def _rel_l2(a, b) -> float:
-    den = b.float().norm().item()
+def _rel_l2(a, b, ref=None) -> float:
+    """|a - b| / |ref| (ref: b unless given), or |a - b| where |ref| is 0."""
+    den = (b if ref is None else ref).float().norm().item()
     num = (a.float() - b.float()).norm().item()
     return num / den if den else num
+
+
+def _grad_gaps(names, got, want, den_for=None) -> dict:
+    """{leaf: relative L2 gap of got against want}. A leaf whose name ends
+    in a key of `den_for` is held against the norm of the same layer's leaf
+    that the key maps to: its own gradient is 0 in exact arithmetic, each
+    side's float noise."""
+    ref = dict(zip(names, want))
+    errs = {}
+    for n, a, b in zip(names, got, want):
+        end = next((k for k in den_for or () if n.endswith(k)), None)
+        den = b if end is None else ref[n[:-len(end)] + den_for[end]]
+        errs[n] = _rel_l2(a, b, den)
+    return errs
+
+
+def _timed_grads(loss_fn, params, frozen, batch, rng):
+    """(loss, metrics, gradients, seconds) of one ``mpsl.value_and_grad``,
+    ending in a sync."""
+    t = time.perf_counter()
+    loss, met, grads = mpsl.value_and_grad(loss_fn, params, frozen, batch,
+                                           rng)
+    torch.cuda.synchronize()
+    return loss, met, grads, time.perf_counter() - t
+
+
+def _hold_vs_plain(path, kernel, plain, errs, f32, ok=True, **extra):
+    """Record the kernel path's loss and every trainable gradient leaf
+    (`errs`, from ``_grad_gaps``) against the plain path's, with the peak
+    bytes since the caller's reset, and fail outside the f32 or bf16
+    limits or where `ok` is false. kernel, plain: (loss, seconds)."""
+    (l_k, kernel_s), (l_p, plain_s) = kernel, plain
+    loss_err = abs(float(l_k) - float(l_p)) / abs(float(l_p))
+    worst = max(errs, key=errs.get)
+    loss_tol = TRAIN_LOSS_TOL if f32 else TRAIN_LOSS_TOL_BF16
+    grad_tol = TRAIN_GRAD_TOL if f32 else TRAIN_GRAD_TOL_BF16
+    emit({"phase": f"{path}_vs_plain", "loss_kernel": float(l_k),
+          "loss_plain": float(l_p), "loss_rel_err": loss_err,
+          "loss_tol": loss_tol, "grad_leaves": len(errs),
+          "grad_rel_l2_max": errs[worst], "grad_rel_l2_worst_leaf": worst,
+          "grad_tol": grad_tol, **extra,
+          "kernel_loss_and_grad_s": kernel_s,
+          "plain_loss_and_grad_s": plain_s,
+          "peak_mem_bytes_with_both": torch.cuda.max_memory_allocated()})
+    if not (loss_err <= loss_tol and errs[worst] <= grad_tol and ok):
+        raise AssertionError(f"{path}: kernel path differs from the plain "
+                             f"path: loss {loss_err}, gradient {worst} "
+                             f"{errs[worst]}, {extra}")
+
+
+def _run_steps(step_fn, state, batches, per_step):
+    """Take a step on each batch, every launch counter set to 0 just
+    before the first. Returns the counts, and the record's losses, grad
+    norms, host ms a step (ending in a sync), the median from the second
+    step on, peak bytes and each step's launches beside `per_step`."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, norms, times, step_counts = [], [], [], []
+    for batch in batches:
+        before = read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = step_fn(state, batch)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        after = read_counts()
+        step_counts.append({k: after[k] - before[k] for k in after})
+    return read_counts(), {
+        "losses": losses, "grad_norms": norms,
+        "step_ms": [x * 1e3 for x in times],
+        "median_step_ms": statistics.median(times[1:]) * 1e3,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches_per_step": step_counts, "expected_per_step": per_step}
+
+
+def _hold_steps(path, rec):
+    """Each step launched exactly the kernels its code calls; every loss
+    and grad norm is finite."""
+    want = rec["expected_per_step"]
+    if any(c != want for c in rec["launches_per_step"]):
+        raise AssertionError(f"{path}: train-step launches "
+                             f"{rec['launches_per_step']}, expected {want} "
+                             f"each step")
+    if not all(math.isfinite(x) for x in rec["losses"] + rec["grad_norms"]):
+        raise AssertionError(f"{path}: non-finite loss or grad norm: "
+                             f"{rec['losses']} {rec['grad_norms']}")
 
 
 def phase_train(path, spec):
@@ -1415,23 +1582,8 @@ def phase_train(path, spec):
     step_fn = mpsl.make_train_step(
         loss_fn, run, schedules.warmup_cosine(spec["lr"], 10, steps))
 
-    per_step = train_launches_per_step(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    losses, norms, times, step_counts = [], [], [], []
-    for i in range(steps):
-        before = read_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        state, met = step_fn(state, batches[i])
-        losses.append(float(met["loss"]))
-        norms.append(float(met["grad_norm"]))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        after = read_counts()
-        step_counts.append({k: after[k] - before[k] for k in after})
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
+    counts, steps_rec = _run_steps(step_fn, state, batches,
+                                   train_launches_per_step(cfg))
     keys = ("arch", "n_clients", "batch_per_client", "seq",
             "trainable_blocks", "steps", "lr", "seed")
     rec = {"phase": path, "layers": cfg.num_layers,
@@ -1445,18 +1597,9 @@ def phase_train(path, spec):
            **{k: spec[k] for k in keys},
            "ce_tokens": spec["n_clients"] * spec["batch_per_client"]
            * (spec["seq"] - 1),
-           "init_s": init_s, "losses": losses, "grad_norms": norms,
-           "step_ms": [x * 1e3 for x in times],
-           "median_step_ms": statistics.median(times[1:]) * 1e3,
-           "peak_mem_bytes": peak, "launches_per_step": step_counts,
-           "expected_per_step": per_step}
+           "init_s": init_s, **steps_rec}
     emit(rec)
-    if any(c != per_step for c in step_counts):
-        raise AssertionError(f"{path}: train-step launches {step_counts}, "
-                             f"expected {per_step} each step")
-    if not all(math.isfinite(x) for x in losses + norms):
-        raise AssertionError(f"{path}: non-finite loss or grad norm: "
-                             f"{losses} {norms}")
+    _hold_steps(path, rec)
 
     # the kernel path against the plain path: same params, batch and the
     # first timed step's int seed, so both sides' links run quant8's
@@ -1466,41 +1609,23 @@ def phase_train(path, spec):
     # (an MoE arch's plain path replays the kernel path's expert choices)
     params = state["params"]
     torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
     with _tape(cfg) as tape:
-        l_k, m_k, g_k = mpsl.value_and_grad(loss_fn, params, frozen, b0,
-                                            rng)
-    torch.cuda.synchronize()
-    kernel_s = time.perf_counter() - t
+        l_k, m_k, g_k, kernel_s = _timed_grads(loss_fn, params, frozen, b0,
+                                               rng)
     plain_fn = mpsl.make_lm_loss(cfg, run, impls=PLAIN_IMPLS)
-    t = time.perf_counter()
     with _tape(cfg, None if tape is None else tape.idx) as tape:
-        l_p, m_p, g_p = mpsl.value_and_grad(plain_fn, params, frozen, b0,
-                                            rng)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t
+        l_p, m_p, g_p, plain_s = _timed_grads(plain_fn, params, frozen, b0,
+                                              rng)
     routing = _flips(tape)
     if tape is not None:
         routing.update(aux_kernel=float(m_k["aux"]),
                        aux_plain=float(m_p["aux"]))
-    names = [".".join(str(x) for x in p) for p in _leaf_paths(params)]
-    errs = {n: _rel_l2(a, b) for n, a, b in zip(names, g_k, g_p)}
-    loss_err = abs(float(l_k) - float(l_p)) / abs(float(l_p))
+    names = _leaf_names(params)
+    errs = _grad_gaps(names, g_k, g_p)
     worst = max(errs, key=errs.get)
     f32 = run.compute_dtype == "float32"
-    loss_tol = TRAIN_LOSS_TOL if f32 else TRAIN_LOSS_TOL_BF16
-    grad_tol = TRAIN_GRAD_TOL if f32 else TRAIN_GRAD_TOL_BF16
-    cmp = {"phase": f"{path}_vs_plain", "loss_kernel": float(l_k),
-           "loss_plain": float(l_p), "loss_rel_err": loss_err,
-           "loss_tol": loss_tol, "grad_leaves": len(errs),
-           "grad_rel_l2_max": errs[worst], "grad_rel_l2_worst_leaf": worst,
-           "grad_rel_l2_adapter": {n: e for n, e in errs.items()
-                                   if "adapter" in n},
-           "grad_tol": grad_tol,
-           "kernel_loss_and_grad_s": kernel_s,
-           "plain_loss_and_grad_s": plain_s,
-           "peak_mem_bytes_with_both": torch.cuda.max_memory_allocated(),
-           **routing}
+    cmp = {"grad_rel_l2_adapter": {n: e for n, e in errs.items()
+                                   if "adapter" in n}, **routing}
     if not f32:
         # where the bf16 gradient gap comes from: the same path with naive
         # attention (the CE kernels and every other bf16 rounding kept)
@@ -1508,38 +1633,33 @@ def phase_train(path, spec):
         # beyond this is the bf16 flash backward's rounding of p and ds
         naive_fn = mpsl.make_lm_loss(cfg, run, impls={"attn": "naive"})
         _, _, g_n = mpsl.value_and_grad(naive_fn, params, frozen, b0, rng)
-        errs_n = {n: _rel_l2(a, b) for n, a, b in zip(names, g_n, g_p)}
+        errs_n = _grad_gaps(names, g_n, g_p)
         worst_n = max(errs_n, key=errs_n.get)
         cmp["naive_attn_grad_rel_l2_max"] = errs_n[worst_n]
         cmp["naive_attn_grad_rel_l2_worst_leaf"] = worst_n
         cmp["naive_attn_grad_rel_l2_of_kernel_worst_leaf"] = errs_n[worst]
         del g_n
-    emit(cmp)
     del g_k, g_p
     torch.cuda.empty_cache()
-    if not (loss_err <= loss_tol and errs[worst] <= grad_tol):
-        raise AssertionError(f"{path}: kernel path differs from the plain "
-                             f"path: loss {loss_err}, gradient {worst} "
-                             f"{errs[worst]}")
+    _hold_vs_plain(path, (l_k, kernel_s), (l_p, plain_s), errs, f32, **cmp)
     # every block routes in the forward and again in its remat recompute
     _hold_flips(path, routing, 2 * cfg.num_layers)
     return counts, (path, step_fn, state, batches[-1], rec)
 
 
-def _leaf_paths(t, prefix=()):
-    """Paths of a tree's leaves, in ``tree.leaves`` order."""
-    if isinstance(t, dict):
-        return [p for k in sorted(t) for p in _leaf_paths(t[k], prefix + (k,))]
-    if isinstance(t, (list, tuple)):
-        return [p for i, v in enumerate(t)
-                for p in _leaf_paths(v, prefix + (i,))]
-    return [prefix]
+def _leaf_names(t):
+    """"."-joined paths of a tree's leaves, in ``tree.leaves`` order."""
+    return [p.replace("/", ".") for p in tree.paths(t)]
 
 
-def phase_train_profile(path, step_fn, state, batch, train_rec, top=10):
+def phase_train_profile(path, step_fn, state, batch, train_rec, top=10,
+                        per="step"):
     """Where a train step's time goes: device time by kernel over one step
-    (torch.profiler), and the device's idle share of the unprofiled median
-    step time."""
+    (torch.profiler), the device's idle share of the unprofiled median
+    step time, and the kernels launched a step with the unprofiled host
+    time per launch (a step whose host time per launch nears the host's
+    cost of a launch is bound by the launches). `per` names what a step
+    is (a FedAvg path: a round)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1548,14 +1668,334 @@ def phase_train_profile(path, step_fn, state, batch, train_rec, top=10):
         float(met["loss"])
         torch.cuda.synchronize()
     times = _device_time_by_kernel(prof)
+    launched = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
     busy = sum(times.values())
     wall = train_rec["median_step_ms"]
     ranked = sorted(times.items(), key=lambda kv: -kv[1])[:top]
-    emit({"phase": "train_profile", "path": path, "per": "step",
+    emit({"phase": "train_profile", "path": path, "per": per,
           "device_busy_ms": busy,
           "host_ms_unprofiled": wall,
           "device_idle_share": max(0.0, 1 - busy / wall),
+          "device_kernels": launched,
+          "host_us_per_kernel": wall * 1e3 / max(launched, 1),
           "top_kernels_ms": [[k[:90], v] for k, v in ranked]})
+
+
+# ---------------------------------------------------------------------------
+# the paper mode (vit-base)
+
+
+def _vit_passes(spec) -> int:
+    """Encoder passes a step: one over the early-fusion joint sequence,
+    else one a modality (late fusion, retrieval), each behind its own
+    link."""
+    if spec["task"] == "classification" and spec["fusion"] == "early":
+        return 1
+    return len(spec["modalities"])
+
+
+def vit_launches_per_step(cfg, spec) -> dict:
+    """Each kernel's launches in one paper-mode train step, from the code:
+    each encoder pass runs the flash forward once per block and again in
+    the block's remat recompute, and the backward once per block (every
+    block trains; with a frozen prefix the cut-layer gradient would still
+    cross it to the tokenizers); each pass's link runs quant8 on its
+    uplink value and its downlink cotangent. The task head's CE over [B,
+    10] logits is plain PyTorch, as the JAX package's is (no kernel)."""
+    attn, _ = _layers(cfg)
+    p = _vit_passes(spec)
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update({"flash_attention_fwd": 2 * attn * p,
+                 "flash_attention_bwd": attn * p,
+                 "quant_dequant": 2 * p})
+    return want
+
+
+def _vit_loader(spec):
+    """The step-indexed client loader over the path's synthetic set
+    (SyntheticMultimodal, or SyntheticRetrieval for retrieval), with
+    Dirichlet(0.1) shards over its classes (retrieval: its latent codes)."""
+    if spec["task"] == "retrieval":
+        ds = SyntheticRetrieval(seed=spec["seed"])
+        labels = ds.codes
+    else:
+        ds = SyntheticMultimodal(modalities=spec["modalities"],
+                                 n_classes=spec["n_classes"],
+                                 seed=spec["seed"])
+        labels = ds.labels
+    shards = dirichlet_partition(labels, spec["n_clients"], alpha=0.1,
+                                 seed=spec["seed"],
+                                 min_per_client=spec["batch_per_client"])
+    return ClientLoader(ds, shards, spec["batch_per_client"],
+                        seed=spec["seed"])
+
+
+def _vit_to_device(batch, device):
+    """A numpy batch as tensors on `device` (ids and labels int64)."""
+    return {k: torch.from_numpy(v).to(device, torch.int64
+                                      if v.dtype.kind in "iu" else None)
+            for k, v in batch.items()}
+
+
+def _vit_eval(path, spec, cfg, run, state, frozen, plan, batch):
+    """The post-training model (paper Sec. 3.3): the client tokenizers
+    FedAvg-ed, the body assembled from the frozen and trained segments, the
+    server's head; evaluated on every client's samples of `batch` as one
+    centralized model, kernel path against plain path. Returns its
+    launches."""
+    mods, cdt = spec["modalities"], getattr(torch, run.compute_dtype)
+    server = state["params"]["server"]
+    with torch.no_grad():
+        full = split.assemble_full_params(state["params"], frozen, plan)
+        full["tokenizers"] = aggregation.fedavg_heads(
+            state["params"]["client"]["tokenizers"])
+        full.update({k: v for k, v in server.items()
+                     if k not in ("segments", "final_norm")})
+        x = {m: batch[m].flatten(0, 1) for m in mods}
+        retrieval = spec["task"] == "retrieval"
+
+        def run_eval(impls):
+            if retrieval:
+                return baselines.retrieval_embeddings(
+                    full, x, cfg, mods, dtype=cdt, impls=impls)
+            return (baselines.full_vit_logits(
+                full, x, cfg, modalities=mods, fusion_mode=spec["fusion"],
+                dtype=cdt, impls=impls),)
+
+        reset_counts()
+        got = run_eval(None)                      # the kernels
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = run_eval(PLAIN_IMPLS)
+    expected = dict.fromkeys(COUNTERS, 0)
+    expected["flash_attention_fwd"] = _layers(cfg)[0] * _vit_passes(spec)
+    diff = max(_max_err(a, b) for a, b in zip(got, want))
+    ref_max = max(b.float().abs().max().item() for b in want)
+    f32 = cdt == torch.float32
+    rec = {"phase": f"{path}_eval", "samples": x[mods[0]].shape[0],
+           "launches": counts, "expected_launches": expected,
+           "max_abs_diff_vs_plain": diff, "max_abs_plain": ref_max,
+           "tol": SERVE_TOL if f32 else SERVE_TOL_BF16,
+           "tol_is": ("atol and rtol" if f32
+                      else "of the plain path's largest |output|")}
+    if retrieval:
+        rec["recall_at_1"] = float(losses.recall_at_k(*got, 1))
+        rec["recall_at_5"] = float(losses.recall_at_k(*got, 5))
+    else:
+        labels = batch["labels"].flatten()
+        rec["accuracy"] = (got[0].argmax(-1) == labels).float().mean().item()
+    emit(rec)
+    if counts != expected:
+        raise AssertionError(f"{path}: evaluation launches {counts}, "
+                             f"expected {expected}")
+    ok = all(torch.isfinite(a).all() for a in got) and (
+        all(torch.allclose(a.float(), b.float(), atol=SERVE_TOL,
+                           rtol=SERVE_TOL) for a, b in zip(got, want))
+        if f32 else diff <= SERVE_TOL_BF16 * ref_max)
+    if not ok:
+        raise AssertionError(f"{path}: the post-training model differs from "
+                             f"its plain path by {diff}")
+    return counts
+
+
+def phase_vit_train(path, spec):
+    """Drive the paper-mode MPSL train step at full-width vit-base, then
+    its post-training model (``_vit_eval``). Returns the launches of the
+    steps and the evaluation, and what the profile phase needs to drive a
+    step again."""
+    cfg = get_config(spec["arch"])
+    device = serve.resolve_device("cuda")
+    mods, retrieval = spec["modalities"], spec["task"] == "retrieval"
+    mp = MPSLConfig(n_clients=spec["n_clients"],
+                    trainable_blocks=spec["trainable_blocks"],
+                    fusion=spec["fusion"], compress_uplink=True,
+                    compress_downlink=True)
+    run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mpsl=mp,
+                    compute_dtype=spec["compute_dtype"],
+                    learning_rate=spec["lr"], seed=spec["seed"])
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
+    params, frozen, plan = split.init_mpsl_vit(
+        gen, cfg, run, mods, spec["n_classes"], retrieval, device)
+    state = mpsl.init_state(params, frozen, spec["seed"])
+    loader = _vit_loader(spec)
+    batches = [_vit_to_device(loader.batch(i), device)
+               for i in range(spec["steps"])]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kw = dict(modalities=mods, task=spec["task"],
+              n_classes=spec["n_classes"])
+    loss_fn = mpsl.make_vit_loss(cfg, run, **kw)          # the kernels
+    step_fn = mpsl.make_train_step(
+        loss_fn, run, schedules.warmup_cosine(spec["lr"], 10, spec["steps"]))
+
+    counts, steps_rec = _run_steps(step_fn, state, batches,
+                                   vit_launches_per_step(cfg, spec))
+    keys = ("arch", "modalities", "task", "fusion", "n_classes",
+            "n_clients", "batch_per_client", "trainable_blocks", "steps",
+            "lr", "seed")
+    tokens = {m: tokenizers.MODALITIES[m].num_tokens for m in mods}
+    rec = {"phase": path, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "d_ff": cfg.d_ff,
+           "encoder_params": cfg.param_count(cfg.num_layers),
+           "trainable_params": sum(p.numel()
+                                   for p in tree.leaves(state["params"])),
+           "frozen_dtype": run.frozen_dtype,
+           "compute_dtype": run.compute_dtype, "remat": run.remat,
+           "compress": True, **{k: spec[k] for k in keys},
+           "tokens_per_sample": tokens, "encoder_passes": _vit_passes(spec),
+           "init_s": init_s, **steps_rec}
+    emit(rec)
+    _hold_steps(path, rec)
+
+    # the kernel path against the plain path: same params, batch and the
+    # first step's int seed, so both sides' links run quant8's in-kernel
+    # Philox from generators in the same state (the same bits)
+    b0, rng = batches[0], mpsl.fold_in(spec["seed"], 0)
+    params = state["params"]
+    torch.cuda.reset_peak_memory_stats()
+    l_k, _, g_k, kernel_s = _timed_grads(loss_fn, params, frozen, b0, rng)
+    plain_fn = mpsl.make_vit_loss(cfg, run, impls=PLAIN_IMPLS, **kw)
+    l_p, _, g_p, plain_s = _timed_grads(plain_fn, params, frozen, b0, rng)
+    names = _leaf_names(params)
+    # a key bias's gradient against its layer's query bias's norm: no RoPE,
+    # so softmax is invariant to its shift along a row
+    errs = _grad_gaps(names, g_k, g_p, den_for={"attn.bk": "attn.bq"})
+    zero_table = all(not g.any() for n, g in zip(names, g_k)
+                     if n.endswith("text.embed"))
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    _hold_vs_plain(
+        path, (l_k, kernel_s), (l_p, plain_s), errs,
+        run.compute_dtype == "float32", ok=zero_table,
+        grad_rel_l2_tokenizers={n: e for n, e in errs.items()
+                                if "tokenizers" in n},
+        grad_rel_l2_key_bias_max=max(e for n, e in errs.items()
+                                     if n.endswith("attn.bk")),
+        text_table_grad_exactly_zero=zero_table)
+    ev = _vit_eval(path, spec, cfg, run, state, frozen, plan, b0)
+    counts = {k: counts[k] + ev[k] for k in counts}
+    return counts, (path, step_fn, state, batches[-1], rec)
+
+
+def fedavg_launches(cfg, spec) -> dict:
+    """A FedAvg round's launches: each client's local steps run the whole
+    model without remat (``baselines._encode``), the flash forward and
+    backward once per block and encoder pass; no link, no quant8."""
+    attn, _ = _layers(cfg)
+    n = attn * spec["n_clients"] * spec["local_steps"] * _vit_passes(spec)
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update({"flash_attention_fwd": n, "flash_attention_bwd": n})
+    return want
+
+
+def phase_vit_fedavg(path, spec):
+    """FedAvg baseline rounds (``core.baselines.make_fl_round``) of
+    ``full_vit_loss`` at full-width vit-base: each client, in turn, takes
+    `local_steps` AdamW steps on its own shard from its row of the bank,
+    then the params are averaged. `rounds` rounds from the same bank, each
+    launching exactly the kernels its code calls; the round time is the
+    median from the second on (the first meets the shapes cold). The
+    kernel path against naive attention from the same bank and batches:
+    the mean loss, and each averaged leaf's update from the clients' mean
+    start. The key biases are not compared: their gradient is 0 in exact
+    arithmetic (no RoPE), each side's float noise, and AdamW steps noise of
+    either sign by ~lr; their gap is recorded only."""
+    cfg = get_config(spec["arch"])
+    device = serve.resolve_device("cuda")
+    mods, steps, lr = spec["modalities"], spec["local_steps"], spec["lr"]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
+    models = [baselines.init_full_vit(gen, cfg, mods, spec["n_classes"],
+                                      device=device)
+              for _ in range(spec["n_clients"])]
+    bank = tree.map_(lambda *xs: torch.stack(xs), *models)
+    del models
+    loader = _vit_loader(spec)
+    per_step = [_vit_to_device(loader.batch(i), device)
+                for i in range(steps)]
+    batches = {k: torch.stack([b[k] for b in per_step], dim=1)
+               for k in per_step[0] if k != "mask"}
+    start = tree.map_(lambda a: a.mean(dim=0), bank)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def fl_round(impls):
+        return baselines.make_fl_round(
+            lambda p, b: baselines.full_vit_loss(
+                p, b, cfg, modalities=mods, fusion_mode=spec["fusion"],
+                impls=impls), lr=lr, local_steps=steps)
+
+    rnd = fl_round(None)                                  # the kernels
+    want = fedavg_launches(cfg, spec)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, round_counts = [], []
+    for _ in range(spec["rounds"]):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, avg, loss = rnd(bank, batches)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        after = read_counts()
+        round_counts.append({k: after[k] - before[k] for k in after})
+    counts = read_counts()
+    round_s = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+    _, avg_p, loss_p = fl_round(PLAIN_IMPLS)(bank, batches)
+    loss_p = float(loss_p)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    errs, bias_gaps, flips, total = {}, {}, 0, 0
+    for n, a, b, s in zip(tree.paths(avg), tree.leaves(avg),
+                          tree.leaves(avg_p), tree.leaves(start)):
+        flips += int(((a - b).abs() > lr).sum())
+        total += a.numel()
+        if n.endswith("attn/bk"):
+            bias_gaps[n] = _max_err(a, b)
+        else:
+            errs[n] = _rel_l2(a - s, b - s)
+    worst = max(errs, key=errs.get)
+    loss_err = abs(loss - loss_p) / abs(loss_p)
+    rec = {"phase": path, "arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "modalities": mods,
+           "n_clients": spec["n_clients"], "local_steps": steps,
+           "batch_per_step": spec["batch_per_client"], "lr": lr,
+           "params_per_client": sum(a[0].numel()
+                                    for a in tree.leaves(bank)),
+           "init_s": init_s, "rounds": spec["rounds"],
+           "round_ms_each": [x * 1e3 for x in times],
+           "round_ms": round_s * 1e3,
+           "plain_round_ms": plain_s * 1e3, "peak_mem_bytes": peak,
+           "launches": counts, "launches_per_round": round_counts,
+           "expected_per_round": want,
+           "mean_loss_kernel": loss, "mean_loss_plain": loss_p,
+           "loss_rel_err": loss_err, "loss_tol": TRAIN_LOSS_TOL,
+           "update_rel_l2_max": errs[worst],
+           "update_rel_l2_worst_leaf": worst, "update_tol": FEDAVG_UPDATE_TOL,
+           "elements_apart_by_more_than_lr": flips, "elements": total,
+           "key_bias_max_abs_diff_not_compared": max(bias_gaps.values())}
+    emit(rec)
+    if any(c != want for c in round_counts):
+        raise AssertionError(f"{path}: round launches {round_counts}, "
+                             f"expected {want} each round")
+    if not (math.isfinite(loss) and loss_err <= TRAIN_LOSS_TOL
+            and errs[worst] <= FEDAVG_UPDATE_TOL):
+        raise AssertionError(f"{path}: the kernel round differs from the "
+                             f"plain round: loss {loss_err}, {worst} "
+                             f"{errs[worst]}")
+    del avg_p, start
+    torch.cuda.empty_cache()
+
+    def one_round(state, _):
+        return state, {"loss": rnd(bank, batches)[2]}
+
+    return counts, (path, one_round, None, None,
+                    {"median_step_ms": round_s * 1e3})
 
 
 def _gemms_and_sync(fn, iters=10):
@@ -1651,6 +2091,12 @@ def main() -> int:
         if "serve" in path:
             counts[path], driven = phase_serve(path, spec)
             phase_profile(*driven)
+        elif path == "vit_fedavg":
+            counts[path], driven = phase_vit_fedavg(path, spec)
+            phase_train_profile(*driven, per="round")
+        elif path.startswith("vit"):
+            counts[path], driven = phase_vit_train(path, spec)
+            phase_train_profile(*driven)
         else:
             counts[path], driven = phase_train(path, spec)
             phase_train_profile(*driven)

@@ -1,7 +1,9 @@
-"""MPSL train step — the paper's technique, for the LM family.
+"""MPSL train step — the paper's technique, for the LM family and the
+paper's own Meta-Transformer (ViT) setup.
 
 Counterpart of the JAX package's ``core/mpsl.py`` (``make_lm_loss``,
-``make_train_step``). One step realizes the client/server exchange:
+``make_vit_loss``, ``make_train_step``). One step realizes the
+client/server exchange:
 
   1. client forward  — per-client adapters (stacked [N, ...] params) on a
      frozen embedding make the smashed data a_n;
@@ -23,15 +25,18 @@ Randomness. JAX threads a key; here a step's ``rng`` is an int derived
 from the state's seed and the step, and the loss draws the links'
 stochastic rounding from generators seeded by it, so the same rng gives
 the same draws (as the same key does). A test may pass instead a dict
-``{"uplink": u, "downlink": u}`` of uniforms to use as given.
+``{"uplink": u, "downlink": u}`` of uniforms to use as given; the ViT
+loss, whose late-fusion and retrieval paths send one link a modality,
+takes one such dict a link name (``{"joint": {...}}`` under early
+fusion, else ``{"vision": {...}, "text": {...}, ...}``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import tree
-from repro_torch.core import compression, losses, split
-from repro_torch.models import layers, model as M
+from repro_torch.core import compression, fusion, losses, split
+from repro_torch.models import layers, model as M, tokenizers as tok
 from repro_torch.optim import (adamw_init, adamw_update, apply_updates,
                                clip_by_global_norm)
 
@@ -99,7 +104,9 @@ def make_lm_loss(cfg, run, impls=None):
     and added after the client weights, so with ``router_aux_coef > 0`` a
     client with mask 0 still gets an adapter gradient, and one client's
     tokens move another's gradient through the expert density."""
-    if cfg.family not in M.PORTED_FAMILIES or cfg.encoder_layers:
+    if cfg.family == "vit":
+        raise ValueError("the vit family trains through make_vit_loss")
+    if cfg.family not in M.LM_FAMILIES or cfg.encoder_layers:
         raise NotImplementedError(
             f"the {cfg.family} family comes with a later slice of the port "
             f"(ROADMAP.md)")
@@ -163,16 +170,132 @@ def make_lm_loss(cfg, run, impls=None):
 
 
 # ---------------------------------------------------------------------------
+# Paper-mode (ViT / Meta-Transformer) MPSL loss
+
+
+def _vit_link_rng(rng, link: str, direction: str, device):
+    """A link's stochastic rounding. Every link draws from the same two
+    streams, seeded from fold_in(rng, 2), as the JAX package's loss splits
+    one (r_up, r_down) from fold_in(rng, 2) for all of them; a dict gives
+    each link its own uniforms."""
+    if isinstance(rng, dict):
+        return rng[link][direction]
+    seed = fold_in(fold_in(rng, 2), 1 if direction == "uplink" else 2)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def make_vit_loss(cfg, run, modalities=("vision", "text"),
+                  task: str = "classification", n_classes: int = 10,
+                  impls=None):
+    """Returns loss_fn(trainable, frozen, batch, rng) -> (L_S, metrics).
+
+    batch: one raw input a modality ({vision: [N, Bn, 224, 224, 3], text:
+    [N, Bn, 77] ids, audio: [N, Bn, 1024, 128]}), labels [N, Bn] (for
+    classification) and mask [N]. Each client's tokenizers make its
+    smashed data. Classification: under early fusion the modalities'
+    tokens are joined client-side and cross one link ("joint") into one
+    encoder pass; under late fusion each modality crosses its own link
+    into its own pass, and the passes' summaries are joined after; the
+    pooled embedding feeds the task head. Retrieval (task="retrieval"):
+    one pass a modality, the two pooled embeddings projected (proj_a on
+    the first modality in sorted order) into a symmetric InfoNCE at
+    temperature 1 / exp(logit_scale). impls as for ``make_lm_loss``."""
+    if task not in ("classification", "retrieval"):
+        raise ValueError(f"unknown task {task!r}")
+    mpsl = run.mpsl
+    cdt = getattr(torch, run.compute_dtype)
+    impls = {**DEFAULT_IMPLS, **(impls or {})}
+    remat = run.remat != "none"
+
+    def encode(frozen, server, h):
+        positions = layers.positions_from_shape(h.shape[0], h.shape[1],
+                                                device=h.device)
+        return _run_body(frozen, server, cfg, h, positions, impls, remat)
+
+    def loss_fn(trainable, frozen, batch, rng):
+        mask = batch["mask"]
+        n = mask.shape[0]
+        dev = mask.device
+        server = trainable["server"]
+
+        # ---- client tokenizers (each client its own params) ----
+        tokenized = {m: tok.apply_stacked(
+                         trainable["client"]["tokenizers"][m], batch[m],
+                         tok.MODALITIES[m], cdt)
+                     for m in modalities}
+        bn = tokenized[modalities[0]].shape[1]
+
+        def uplink(a, link):
+            if mpsl.compress_uplink:
+                a = compression.compress_activations(
+                    a, _vit_link_rng(rng, link, "uplink", dev))
+            if mpsl.compress_downlink:
+                a = compression.compress_gradients(
+                    a, _vit_link_rng(rng, link, "downlink", dev))
+            return a.reshape((n * bn,) + a.shape[2:])
+
+        def encode_each():
+            enc, aux = {}, 0.0
+            for m in modalities:
+                enc[m], a = encode(frozen, server, uplink(tokenized[m], m))
+                aux = aux + a
+            return enc, aux
+
+        if task == "retrieval":
+            enc, aux = encode_each()
+            ma, mb = sorted(modalities)
+            emb_a = fusion.gap(fusion.summarize_modality(ma, enc[ma]))
+            emb_b = fusion.gap(fusion.summarize_modality(mb, enc[mb]))
+            pa = emb_a @ server["proj_a"].to(cdt)
+            pb = emb_b @ server["proj_b"].to(cdt)
+            temp = 1.0 / torch.exp(server["logit_scale"])
+            per_sample = losses.contrastive_loss(pa, pb, temp)   # [N*Bn]
+        else:
+            if mpsl.fusion == "early":
+                joint = fusion.fuse_early(tokenized)             # [N,Bn,T,D]
+                h, aux = encode(frozen, server, uplink(joint, "joint"))
+                emb = fusion.gap(h)                              # [N*Bn, D]
+            else:
+                enc, aux = encode_each()
+                emb = fusion.gap(fusion.fuse_late(enc))
+            th = server["task_head"]
+            logits = emb @ th["w"].to(cdt) + th["b"].to(cdt)
+            per_sample = losses.softmax_xent(logits,
+                                             batch["labels"].reshape(-1))
+        per_client = per_sample.reshape(n, bn).mean(dim=1)       # L_n
+
+        w = _client_weights(mask, n)
+        l_s = (w * per_client).sum() + aux
+        metrics = {"loss": l_s.detach(), "per_client": per_client.detach(),
+                   "aux": (aux.detach() if torch.is_tensor(aux)
+                           else torch.zeros((), device=dev)),
+                   "participating": mask.sum()}
+        return l_s, metrics
+
+    return loss_fn
+
+
+# ---------------------------------------------------------------------------
 # Train step
+
+
+def grad(loss, leaves):
+    """Gradients of `loss` w.r.t. `leaves`. A leaf with no path to the
+    loss (a paper-mode client's text table, read detached) gets zeros, as
+    JAX's stop_gradient gives it: AdamW's decoupled decay still moves that
+    leaf, and the global norm counts it."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]
 
 
 def value_and_grad(loss_fn, params, frozen, batch, rng):
     """(loss, metrics, gradients of the loss w.r.t. `params` leaves, in
-    ``tree.leaves`` order); the params must require grad."""
+    ``tree.leaves`` order, zeros for a leaf the loss does not reach); the
+    params must require grad."""
     leaves = tree.leaves(params)
     loss, metrics = loss_fn(params, frozen, batch, rng)
-    grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), metrics, grads
+    return loss.detach(), metrics, grad(loss, leaves)
 
 
 def _split_microbatches(batch, mu: int):

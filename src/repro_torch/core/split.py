@@ -1,12 +1,15 @@
 """The MPSL three-way split  W = [W_h ; W_b ; W_t]  (paper Sec. 3.1).
 
-Counterpart of the JAX package's ``core/split.py`` for the LM family.
-Parameters are partitioned into three trees:
+Counterpart of the JAX package's ``core/split.py``. Parameters are
+partitioned into three trees:
 
-  client  — W_h: per-client low-rank tokenizer adapters on a frozen
-            embedding, STACKED along a leading client axis [N, ...].
-  server  — W_b (the fine-tuned suffix of the body) + W_t (the LM head):
-            shared, one copy, one backward pass.
+  client  — W_h: per-client heads, STACKED along a leading client axis
+            [N, ...]: low-rank tokenizer adapters on a frozen embedding
+            for the LM family; the Meta-Transformer modality tokenizers
+            for the paper's own ViT setup.
+  server  — W_b (the fine-tuned suffix of the body) + W_t (the LM head,
+            or the ViT's task head / retrieval projections): shared, one
+            copy, one backward pass.
   frozen  — the embedding table and the non-fine-tuned prefix of the
             body: on the activation/gradient path but never updated,
             stored in bf16 with no optimizer state.
@@ -23,7 +26,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from repro_torch import tree
-from repro_torch.models import layers, model as M
+from repro_torch.models import layers, model as M, tokenizers as tok
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +127,18 @@ def apply_client_adapter(adapter, h):
     return h + torch.einsum("n...r,nrd->n...d", delta, b)
 
 
+def init_client_tokenizers(generator, cfg, mpsl, modalities, device=None):
+    """Paper-mode client heads: per-client Meta-Transformer tokenizers,
+    each leaf stacked [N, ...]."""
+    out = {}
+    for m in modalities:
+        spec = tok.MODALITIES[m]
+        per = [tok.init_tokenizer(generator, spec, cfg.d_model, device)
+               for _ in range(mpsl.n_clients)]
+        out[m] = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # MPSL parameter trees
 
@@ -152,14 +167,49 @@ def init_mpsl_lm(generator, cfg, run, device=None):
     return {"client": client, "server": server}, frozen, plan
 
 
+def init_mpsl_vit(generator, cfg, run, modalities=("vision", "text"),
+                  n_classes: int = 10, retrieval: bool = False, device=None):
+    """MPSL split parameters for the paper's Meta-Transformer setup:
+    (params, frozen, plan). The server holds the body's trainable suffix,
+    the final norm and a task head (or, for retrieval, the two 512-wide
+    projections and the learned logit scale ln(1/0.07)); each client its
+    modality tokenizers."""
+    plan = make_split_plan(cfg, run.mpsl)
+    segs = M.body_segments(cfg)
+    seg_p = [M.init_segment(generator, cfg, s, device) for s in segs]
+    fseg_p, tseg_p = _slice_stacked(seg_p, segs, plan.boundary)
+    frozen = {"segments": fseg_p}
+    _cast_in_place(frozen, getattr(torch, run.frozen_dtype))
+    server: Dict[str, Any] = {
+        "segments": tseg_p,
+        "final_norm": layers.init_norm(cfg.norm, cfg.d_model, device)}
+    if retrieval:
+        for k in ("proj_a", "proj_b"):
+            server[k] = layers.dense_init(generator, (cfg.d_model, 512),
+                                          device=device)
+        server["logit_scale"] = torch.tensor(2.659, dtype=torch.float32,
+                                             device=device)  # ln(1/0.07)
+    else:
+        server["task_head"] = {
+            "w": layers.dense_init(generator, (cfg.d_model, n_classes),
+                                   device=device),
+            "b": torch.zeros((n_classes,), device=device)}
+    client = {"tokenizers": init_client_tokenizers(generator, cfg, run.mpsl,
+                                                   modalities, device)}
+    return {"client": client, "server": server}, frozen, plan
+
+
 # ---------------------------------------------------------------------------
 # Post-training model construction (paper Sec. 3.3)
 
 
-def assemble_full_params(params, frozen, plan):
-    """[F_C ; F_S] — rebuild ``models.model.init_lm``-style params from the
-    split trees, so the trained model feeds ``launch.serve``. The frozen
-    tree comes back in f32; the client adapters are not part of it."""
+def assemble_full_params(params, frozen, plan, client_head=None):
+    """[F_C ; F_S] — rebuild a full model's body from the split trees: the
+    frozen segments (back in f32) and the trainable ones merged, the final
+    norm, and the embedding and LM head where the trees have them (an LM
+    then feeds ``launch.serve``). The client heads are not part of it:
+    ``core.aggregation`` FedAvgs or selects them. `client_head` is kept
+    from the JAX package's signature, which does not read it either."""
     f32 = lambda t: _cast(t, torch.float32)
     segs = M.body_segments(plan.cfg)
     fseg = [tree.map_(f32, sp) for sp in frozen["segments"]]
@@ -170,8 +220,9 @@ def assemble_full_params(params, frozen, plan):
         while len(layers_) < seg.count:
             layers_ += fseg.pop(0) if fseg else tseg.pop(0)
         merged.append(layers_)
-    out = {"embed": tree.map_(f32, frozen["embed"]), "segments": merged,
-           "final_norm": params["server"]["final_norm"]}
+    out = {"segments": merged, "final_norm": params["server"]["final_norm"]}
+    if "embed" in frozen:
+        out["embed"] = tree.map_(f32, frozen["embed"])
     if "lm_head" in params["server"]:
         out["lm_head"] = params["server"]["lm_head"]
     return out

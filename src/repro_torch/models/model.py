@@ -1,4 +1,5 @@
-"""Model assembly: init + forward of the dense, SSM and hybrid decoders.
+"""Model assembly: init + forward of the dense, SSM and hybrid decoders and
+the paper's ViT encoder.
 
 The transformer body is a list of SEGMENTS — runs of consecutive layers
 with identical static structure — as in the JAX package. There each
@@ -9,9 +10,11 @@ per-layer cache dicts updated in place.
 Block kinds: dense (norm1 -> attention -> residual, norm2 -> MLP ->
 residual), ssm (norm1 -> Mamba -> residual; no MLP) and hybrid (norm1 ->
 parallel attention + Mamba -> residual, norm2 -> MLP -> residual) and moe
-(as dense, with the MoE FFN of ``models/moe.py`` for the MLP).
-Cross-attention, ViT and encoder blocks raise NotImplementedError naming
-the slice of ROADMAP.md that brings them. The segment plan and the
+(as dense, with the MoE FFN of ``models/moe.py`` for the MLP) and vit (as
+dense, bidirectional: the Meta-Transformer encoder, whose tokenizers
+add learned positions, so attention applies no RoPE). Cross-attention and
+encoder blocks raise NotImplementedError naming the slice of ROADMAP.md
+that brings them. The segment plan and the
 analytic parameter counts cover every family.
 
 A block, a segment and the body return the router's load-balance loss
@@ -75,11 +78,11 @@ def body_segments(cfg) -> List[Segment]:
     raise ValueError(f"unknown family {fam!r}")
 
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = LM_FAMILIES + ("vit",)
 _LATER_SLICES = {
     "dec": "the enc-dec / VLM slice",
     "enc": "the enc-dec / VLM slice",
-    "vit": "the paper ViT-mode slice",
 }
 
 
@@ -208,6 +211,11 @@ def init_lm(cfg, generator, device=None):
     if cfg.encoder_layers:
         raise NotImplementedError(
             "encoders come with the enc-dec / VLM slice of the port")
+    if cfg.family == "vit":
+        raise NotImplementedError(
+            "the vit family is an encoder with no embedding table or LM "
+            "head: its params come from core.split.init_mpsl_vit and "
+            "core.baselines.init_full_vit (the paper-mode slice of the port)")
     segs = body_segments(cfg)
     for seg in segs:
         _require_ported(seg.kind)

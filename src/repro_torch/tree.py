@@ -24,3 +24,15 @@ def map_(fn, tree, *rest):
         return type(tree)(map_(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def paths(tree, prefix=""):
+    """The "/"-joined dict keys and list indices of each leaf, in
+    ``leaves``' order (as the JAX package names a leaf's key path)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in paths(v, f"{prefix}{i}/")]
+    return [prefix[:-1]]
