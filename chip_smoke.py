@@ -75,6 +75,36 @@
                  AdamW steps x 8 samples, 3 rounds from the same bank
                  (timed from the second), kernel attention against naive
                  (the mean loss and the averaged params' updates).
+   encdec_serve  the encoder-decoder inputs: full-width whisper-tiny (4
+                 encoder + 4 decoder layers, d_model 384, 6 heads on 6 KV
+                 heads, hd 64, vocab 51865), f32, batch 4, 1500 stub
+                 frames a request and whisper's long-form segment: 223
+                 previous-text tokens and the 4-token start sequence, then
+                 221 greedy steps to the 448-token context: the non-causal
+                 flash forward in the encoder, causal self- and
+                 cross-attention (227 queries on 1500 keys) in prefill,
+                 the split-KV route over the self cache and over the
+                 1500-key cross cache in decode;
+   encdec_train  whisper-tiny, the MPSL step: 4 clients x 8 x 448 text
+                 tokens (the published text context) and 1500 frames a
+                 sample, every decoder block trainable, the frozen tree
+                 (embedding, encoder) bf16: flash forward and backward in
+                 the encoder (the frames' gradient reaches the client
+                 adapters through it), self- and cross-attention; CE at D
+                 384; quant8 at a 384-wide link;
+   vlm_serve     qwen2-vl-72b at its published widths (d_model 8192, 64
+                 heads on 8 KV heads, hd 128, d_ff 29568, vocab 152064,
+                 qkv bias, M-RoPE sections (16, 24, 24)), depth cut to 18
+                 of 80 layers (the most whose f32 weights one card holds
+                 beside the plain path's run), f32, batch 4, 256 stub
+                 patches and 256 text tokens, 16 decode steps:
+                 flash at G 8 under M-RoPE positions (every patch at
+                 temporal position 0, the text from 16);
+   vlm_train     qwen2-vl-72b, 4 layers, the MPSL step: 4 clients x 2 x
+                 (256 patches + 256 text tokens), the last block
+                 trainable (two would need ~75 GB with the AdamW state and
+                 the plain path's gradients); CE at D 8192, quant8 at an
+                 8192-wide f32 link (the widest row held in registers).
    Each path's serve or train is followed by its profile: device time by
    kernel (torch.profiler) and the device's busy share. The MoE paths'
    plain versions (dense dispatch, naive attention) replay the kernel
@@ -91,6 +121,7 @@ sides of a comparison is full f32.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -122,7 +153,7 @@ from repro_torch.kernels import quant8 as q8  # noqa: E402
 from repro_torch.kernels import selective_scan as ss  # noqa: E402
 from repro_torch.kernels import softmax_xent as sx  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
-from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import layers, model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import tokenizers  # noqa: E402
 from repro_torch.optim import schedules  # noqa: E402
@@ -221,6 +252,31 @@ PATHS = {
                      fusion="late", steps=2),
     "vit_retrieval": dict(VIT, task="retrieval", steps=2),
     "vit_fedavg": dict(VIT, batch_per_client=8, local_steps=2, rounds=3),
+    # the encoder-decoder and VLM inputs, on seeded stub frames and patches
+    # (both frontends are stubs in the configs). whisper-tiny at full width
+    # and depth, served as whisper decodes a segment of long-form audio: a
+    # prompt of 223 previous-text tokens (n_text_ctx // 2 - 1) and the
+    # 4-token start sequence, then greedy steps to the 448-token text
+    # context; trained on 448 text tokens beside 1500 frames. qwen2-vl-72b
+    # at its published widths, 256 patches before 256 text tokens, its
+    # depth cut as deep as one card holds for each path (`reduced` says
+    # why).
+    "encdec_serve": dict(SERVE, arch="whisper-tiny", prompt_len=227,
+                         decode_steps=221),
+    "encdec_train": dict(TRAIN, arch="whisper-tiny", batch_per_client=8,
+                         seq=448),
+    "vlm_serve": dict(SERVE, arch="qwen2-vl-72b", layers=18, prompt_len=256,
+                      reduced="depth only: f32 weights are 3.51 GB a layer "
+                      "beside 9.97 GB of embedding and head; 18 layers "
+                      "(73.2 GB) leave ~10 GB of the 85 GB card for the "
+                      "caches, activations and the plain path's run; 20 "
+                      "would not fit"),
+    "vlm_train": dict(TRAIN, arch="qwen2-vl-72b", layers=4,
+                      trainable_blocks=1,
+                      reduced="depth only: the 72 B params exceed one 80 GB "
+                      "card; at 4 layers the trainable block's f32 weights, "
+                      "AdamW moments and both gradient sets, with the bf16 "
+                      "frozen tree and remat activations, peak near 58 GB"),
 }
 # every path's plain version: naive attention, the plain scan, chunked CE,
 # the dense expert dispatch
@@ -492,6 +548,30 @@ def _attn_cases():
                       dict(q_pos=vp, k_pos=vp,
                            k_valid=torch.ones(bv, sv, dtype=torch.bool),
                            causal=False, window=0), True))
+    # whisper-tiny: 6 heads on 6 KV heads (G 1), hd 64, non-causal; the
+    # encoder over 1500 frames and the cross-attention of 448 text queries
+    # over them (encdec_train's 4 x 8 samples), and a decode step's query
+    # over the 1500-key cross cache (encdec_serve, batch 4)
+    fr = torch.arange(1500, dtype=torch.int32)
+    wh = dict(h=6, kh=6, hd=64)
+    for name, bw, sq, q_pos in (
+            ("encdec_enc", 32, 1500, fr), ("encdec_cross", 32, 448,
+                                           torch.arange(448)),
+            ("encdec_cross_decode", 4, 1, torch.tensor([399]))):
+        cases.append((name, dict(b=bw, sq=sq, sk=1500, **wh), dict(
+            q_pos=q_pos.to(torch.int32)[None].expand(bw, sq),
+            k_pos=fr[None].expand(bw, 1500),
+            k_valid=torch.ones(bw, 1500, dtype=torch.bool), causal=False,
+            window=0), True))
+    # qwen2-vl-72b: 64 heads on 8 KV heads (G 8), hd 128, causal under
+    # M-RoPE's row 0 (vlm_train's 4 x 2 samples): its 256 patches all at
+    # temporal position 0, so they attend to each other both ways, and the
+    # text from position 16
+    vp = layers.build_positions(get_config("qwen2-vl-72b"), 8, 512, 256)[:, 0]
+    cases.append(("vlm_train", dict(b=8, sq=512, sk=512, h=64, kh=8, hd=hd),
+                  dict(q_pos=vp, k_pos=vp,
+                       k_valid=torch.ones(8, 512, dtype=torch.bool),
+                       causal=True, window=0), True))
     return cases
 
 
@@ -503,10 +583,16 @@ VIT_ATTN = {"vit_early": (64, 274), "vit_vision": (64, 197),
             "vit_fedavg": (8, 274)}
 
 
+# the cases where every query sees every key (no mask for SDPA)
+ENCDEC_ATTN = ("encdec_enc", "encdec_cross", "encdec_cross_decode")
+FULL_ATTN = (*VIT_ATTN, *ENCDEC_ATTN)
+# the cases no bf16 path runs
+F32_ONLY = (*(n for n in FULL_ATTN if n != "vit_early"), "vlm_train")
+
+
 def _attn_dtypes(name):
-    if name in VIT_ATTN and name != "vit_early":
-        return (torch.float32,)
-    return (torch.float32, torch.bfloat16)
+    return (torch.float32,) if name in F32_ONLY else (torch.float32,
+                                                      torch.bfloat16)
 
 
 def _bound(q, k, q_pos, k_pos, k_valid, causal, window, dtype):
@@ -538,13 +624,13 @@ PLAIN_CAUSAL = ("prefill", "train", "moe_prefill", "moe_train")
 def _sdpa_inputs(q, k, v, q_pos, k_pos, k_valid, causal, window, name):
     """SDPA's layout of q, k, v ([B, heads, S, hd]) and its keyword mask:
     is_causal where positions are 0..S-1 on both sides and the mask is
-    plain causal, none where every query sees every key (the vit cases),
-    else a boolean attn_mask [B, 1, Sq, Sk] from the kernel's own pair
-    mask."""
+    plain causal, none where every query sees every key (the vit and
+    whisper non-causal cases), else a boolean attn_mask [B, 1, Sq, Sk]
+    from the kernel's own pair mask."""
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     if name in PLAIN_CAUSAL:
         return qt, kt, vt, dict(is_causal=True, enable_gqa=True)
-    if name in VIT_ATTN:
+    if name in FULL_ATTN:
         return qt, kt, vt, dict(is_causal=False, enable_gqa=True)
     mask = fa.pair_mask(q_pos, k_pos, k_valid, causal, window)[:, None]
     return qt, kt, vt, dict(attn_mask=mask, enable_gqa=True)
@@ -803,9 +889,12 @@ def kernels_softmax_xent():
     """Compare and time the fused LM-head cross-entropy, forward and
     backward, at every train path's shape and dtype pair (T = 8 x 511
     tokens): minitron-4b in f32 and at bf16 compute (bf16 h, f32 head),
-    falcon-mamba-7b, hymba-1.5b (V 32001: rows of unaligned stride) and
-    qwen2-moe-a2.7b (D 2048, V 151936), and a ragged small shape in f32, bf16 and the mixed pair. Each against the
-    plain version (the oracle) and beside the split-bf16 pieces model."""
+    falcon-mamba-7b, hymba-1.5b (V 32001: rows of unaligned stride),
+    qwen2-moe-a2.7b (D 2048, V 151936), whisper-tiny (T 4 x 8 x 447, D
+    384, V 51865) and qwen2-vl-72b (T 4 x 2 x 255 text tokens, D 8192, V
+    152064); and a ragged small shape in f32, bf16 and the mixed pair.
+    Each against the plain version (the oracle) and beside the split-bf16
+    pieces model."""
     g = torch.Generator(device="cuda").manual_seed(2)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [("train", 4088, 3072, 256000, f32, f32, True),
@@ -813,6 +902,8 @@ def kernels_softmax_xent():
              ("ssm_train", 4088, 4096, 65024, f32, f32, True),
              ("hybrid_train", 4088, 1600, 32001, f32, f32, True),
              ("moe_train", 4088, 2048, 151936, f32, f32, True),
+             ("encdec_train", 14304, 384, 51865, f32, f32, True),
+             ("vlm_train", 2040, 8192, 152064, f32, f32, True),
              ("ragged", 1000, 200, 10007, f32, f32, False),
              ("ragged", 1000, 200, 10007, bf16, bf16, False),
              ("ragged", 1000, 200, 10007, bf16, f32, False)]
@@ -933,6 +1024,10 @@ QUANT8_CASES = [
     ("vit_train_bf16", 17536, 768, torch.bfloat16, "vector", 0),
     *[("vit_late", 64 * s, 768, torch.float32, "vector", 0)
       for s in (197, 513, 77)],
+    # whisper-tiny's link (4 x 8 x 448 text tokens, d 384) and qwen2-vl's
+    # (4 x 2 x 512, d 8192 f32: the widest row the register route holds)
+    ("encdec_train", 14336, 384, torch.float32, "vector", 0),
+    ("vlm_train", 4096, 8192, torch.float32, "vector", 0),
 ]
 # distinct buffers a timed ring holds (x, u, y): 4 x the H100's 50 MB L2
 RING_BYTES = 200e6
@@ -1254,29 +1349,60 @@ def phase_kernels():
 
 
 def _layers(cfg):
-    """(attention layers, Mamba layers) of cfg's body."""
+    """(self-attention layers, Mamba layers) of cfg's body."""
     segs = M.body_segments(cfg)
     return (sum(g.count for g in segs
-                if g.kind.family in ("dense", "moe", "hybrid", "vit")),
+                if g.kind.family in ("dense", "moe", "hybrid", "vit", "dec")),
             sum(g.count for g in segs if g.kind.family in ("ssm", "hybrid")))
+
+
+def _encdec_layers(cfg):
+    """(cross-attention layers of cfg's body, encoder layers)."""
+    return (sum(g.count for g in M.body_segments(cfg) if g.kind.cross),
+            cfg.encoder_layers)
 
 
 def serve_launches(cfg, steps) -> dict:
     """Each kernel's launches in one serve call, from the code: attention
     runs the flash forward in every attention layer's prefill and each
-    decode step; a Mamba layer runs the scan forward in its prefill only
-    (decode steps the recurrence outside any kernel)."""
+    decode step (a decoder layer twice: self- and cross-attention), an
+    encoder layer once, in the prefill; a Mamba layer runs the scan
+    forward in its prefill only (decode steps the recurrence outside any
+    kernel)."""
     attn, ssm = _layers(cfg)
+    cross, enc = _encdec_layers(cfg)
     want = dict.fromkeys(COUNTERS, 0)
-    want["flash_attention_fwd"] = attn * (1 + steps)
+    want["flash_attention_fwd"] = (attn + cross) * (1 + steps) + enc
     want["selective_scan_fwd"] = ssm
     return want
+
+
+def _config(spec):
+    """(the path's config, its record's depth keys): the published config,
+    its depth cut to spec["layers"] where the spec gives one."""
+    cfg = get_config(spec["arch"])
+    if "layers" not in spec:
+        return cfg, {"layers": cfg.num_layers}
+    cut = dataclasses.replace(cfg, num_layers=spec["layers"])
+    return cut, {"layers": f"{cut.num_layers} of {cfg.num_layers}",
+                 "reduced": spec["reduced"]}
+
+
+def _frontend(cfg) -> dict:
+    """The record's stub frontend sizes (frames or patches a sample)."""
+    if cfg.family == "audio":
+        return {"encoder_layers": cfg.encoder_layers,
+                "frames": cfg.encoder_seq}
+    if cfg.family == "vlm":
+        return {"patches": cfg.frontend_tokens,
+                "mrope_sections": list(cfg.mrope_sections)}
+    return {}
 
 
 def phase_serve(path, spec):
     """Drive a serving path at full width. Returns the kernel launches,
     and what the profile phase needs to drive the same path again."""
-    cfg = get_config(spec["arch"])
+    cfg, depth = _config(spec)
     device = serve.resolve_device("cuda")
     gen = torch.Generator(device=device).manual_seed(spec["seed"])
     t0 = time.perf_counter()
@@ -1284,6 +1410,7 @@ def phase_serve(path, spec):
     tokens = torch.randint(0, cfg.vocab_size,
                            (spec["batch"], spec["prompt_len"]),
                            generator=gen, device=device)
+    stub = serve.stub_inputs(cfg, spec["batch"], spec["seed"], device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     steps = spec["decode_steps"]
@@ -1291,11 +1418,11 @@ def phase_serve(path, spec):
     prefill, decode = serve.build_serving_fns(cfg, cdt, device)
     # warm-up at the timed shapes: the allocator's and cuBLAS's first-use
     # costs for them would otherwise land in the timed prefill
-    serve.generate(prefill, decode, params, tokens, 1)
+    serve.generate(prefill, decode, params, tokens, 1, **stub)
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    out = serve.generate(prefill, decode, params, tokens, steps)
+    out = serve.generate(prefill, decode, params, tokens, steps, **stub)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
@@ -1314,7 +1441,8 @@ def phase_serve(path, spec):
         # the kernel path again with its expert choices recorded (the main
         # path ran outside any tape), for the plain path to replay
         with _tape(cfg) as tape:
-            again = serve.generate(prefill, decode, params, tokens, steps)
+            again = serve.generate(prefill, decode, params, tokens, steps,
+                                   **stub)
         routing["recorded_run_bitwise_equal_to_main"] = torch.equal(
             again["logits"], logits)
         replay = tape.idx
@@ -1325,15 +1453,16 @@ def phase_serve(path, spec):
     torch.cuda.reset_peak_memory_stats()
     with _tape(cfg, replay) as tape:
         ref = serve.generate(p_plain, d_plain, params, tokens, steps,
-                             forced_tokens=out["tokens"][:, :steps])
+                             forced_tokens=out["tokens"][:, :steps], **stub)
     routing.update(_flips(tape))
     plain_peak = torch.cuda.max_memory_allocated()
     diff = (logits.float() - ref["logits"].float()).abs().max().item()
     ref_max = ref["logits"].float().abs().max().item()
     agree = (out["tokens"] == ref["tokens"]).float().mean().item()
-    rec = {"phase": path, "arch": cfg.name, "layers": cfg.num_layers,
+    rec = {"phase": path, "arch": cfg.name, **depth,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-           "params": cfg.param_count(), "dtype": spec["compute_dtype"],
+           "params": cfg.param_count(), **_frontend(cfg),
+           "dtype": spec["compute_dtype"],
            "batch": spec["batch"], "prompt_len": spec["prompt_len"],
            "decode_steps": steps, "init_s": init_s,
            "launches": counts, "expected_launches": want,
@@ -1361,7 +1490,7 @@ def phase_serve(path, spec):
                              f"path by {diff}")
     # every layer routes in the prefill and in each decode step
     _hold_flips(path, routing, cfg.num_layers * (1 + steps))
-    return counts, (path, prefill, decode, params, tokens, rec)
+    return counts, (path, prefill, decode, params, tokens, stub, rec)
 
 
 def _tape(cfg, replay=None):
@@ -1409,7 +1538,7 @@ def _device_time_by_kernel(prof):
     return out
 
 
-def phase_profile(path, prefill, decode, params, tokens, serve_rec,
+def phase_profile(path, prefill, decode, params, tokens, stub, serve_rec,
                   steps=4, top=8):
     """Where a serve path's time goes: device time by kernel over one
     prefill and over `steps` decode steps (torch.profiler), and the
@@ -1418,14 +1547,16 @@ def phase_profile(path, prefill, decode, params, tokens, serve_rec,
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     b, s = tokens.shape
+    n_patches = (stub["patch_embeds"].shape[1] if "patch_embeds" in stub
+                 else None)
     with profile(activities=acts) as prof:
-        logits, cache = prefill(params, tokens)
+        logits, cache = prefill(params, tokens, **stub)
         torch.cuda.synchronize()
     by_kernel = {"prefill": _device_time_by_kernel(prof)}
     tok = logits[:, -1].argmax(dim=-1)
     with profile(activities=acts) as prof:
         for i in range(steps):
-            pos = torch.full((b, 1), s + i, dtype=torch.int32, device="cuda")
+            pos = decode.positions(b, s, n_patches, i)
             logits, cache = decode(params, cache, tok[:, None], pos)
             tok = logits[:, -1].argmax(dim=-1)
         torch.cuda.synchronize()
@@ -1447,10 +1578,14 @@ def train_launches_per_step(cfg) -> dict:
     """Each kernel's launches in one train step, from the code: attention
     and the scan run once per block forward and again in the block's remat
     recompute, and their backward once (every block: the cut-layer
-    gradient flows through the frozen prefix to the client adapters); the
-    LM-head CE once each way over all clients' tokens; quant8 once on the
-    uplink value, once on the downlink cotangent."""
+    gradient flows through the frozen prefix to the client adapters; a
+    decoder block attends twice, self and cross; the frozen encoder's
+    blocks too, the frames' gradient reaching the adapters through them);
+    the LM-head CE once each way over all clients' tokens; quant8 once on
+    the uplink value, once on the downlink cotangent (the frames take no
+    link compression)."""
     attn, ssm = _layers(cfg)
+    attn += sum(_encdec_layers(cfg))
     want = dict.fromkeys(COUNTERS, 0)
     want.update({"flash_attention_fwd": 2 * attn,
                  "flash_attention_bwd": attn,
@@ -1559,7 +1694,7 @@ def _hold_steps(path, rec):
 def phase_train(path, spec):
     """Drive the MPSL train step at full width. Returns the kernels'
     launches and what the profile phase needs to drive it again."""
-    cfg = get_config(spec["arch"])
+    cfg, depth = _config(spec)
     device = serve.resolve_device("cuda")
     mp = MPSLConfig(n_clients=spec["n_clients"],
                     trainable_blocks=spec["trainable_blocks"],
@@ -1586,17 +1721,17 @@ def phase_train(path, spec):
                                    train_launches_per_step(cfg))
     keys = ("arch", "n_clients", "batch_per_client", "seq",
             "trainable_blocks", "steps", "lr", "seed")
-    rec = {"phase": path, "layers": cfg.num_layers,
+    n, bn, n_text = batches[0]["tokens"].shape
+    rec = {"phase": path, **depth,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-           "params": cfg.param_count(),
+           "params": cfg.param_count(), **_frontend(cfg),
            "trainable_params": sum(p.numel()
                                    for p in tree.leaves(state["params"])),
            "frozen_dtype": run.frozen_dtype,
            "compute_dtype": run.compute_dtype,
            "remat": run.remat, "compress": True,
            **{k: spec[k] for k in keys},
-           "ce_tokens": spec["n_clients"] * spec["batch_per_client"]
-           * (spec["seq"] - 1),
+           "text_tokens": n_text, "ce_tokens": n * bn * (n_text - 1),
            "init_s": init_s, **steps_rec}
     emit(rec)
     _hold_steps(path, rec)

@@ -15,12 +15,14 @@ stays stacked [N, ...], ``server.segments`` and the frozen segments are
 split per layer) and AdamW's ``{mu, nu, count}``, whose moments mirror
 the params, cross as well. So do the SSM and hybrid trees: a hybrid
 layer's beta scalars, stacked [L] in the JAX package, become 0-d tensors.
-So do the paper-mode trees (``init_mpsl_vit``: the stacked [N, ...]
-``client.tokenizers``, the task head or the retrieval projections and
-0-d ``logit_scale``; ``init_full_vit``). A client bank of full models
-(``core.baselines.make_fl_round``), every leaf stacked [N, ...], crosses
-with ``client_axis=True``: its segment leaves are [N, L, ...] in the JAX
-package and split on L, each layer's leaves keeping the client axis.
+So does whisper's ``encoder`` subtree, whose stacked ``segments`` are
+split as the body's. So do the paper-mode trees (``init_mpsl_vit``: the
+stacked [N, ...] ``client.tokenizers``, the task head or the retrieval
+projections and 0-d ``logit_scale``; ``init_full_vit``). A client bank
+of full models (``core.baselines.make_fl_round``), every leaf stacked
+[N, ...], crosses with ``client_axis=True``: its segment leaves are [N,
+L, ...] in the JAX package and split on L, each layer's leaves keeping
+the client axis.
 
 ``cache_to_repro`` stacks the port's per-layer serving caches (KV, SSM,
 hybrid) into the JAX package's stacked layout, for comparing the two.
@@ -56,9 +58,6 @@ def from_repro(tree, device="cpu", client_axis=False):
     layer axis after the client axis, with `client_axis`)."""
     if not isinstance(tree, dict):
         return _map(lambda a: _to_tensor(a, device), tree)
-    if "encoder" in tree:
-        raise NotImplementedError(
-            "encoders come with the enc-dec / VLM slice of the port")
     out = {k: from_repro(v, device, client_axis) for k, v in tree.items()
            if k != "segments"}
     if "segments" in tree:

@@ -72,16 +72,18 @@ def len_from_params(tree_) -> int:
     return sum(len(sp) for sp in tree_["segments"])
 
 
-def _run_body(frozen, server, cfg, h, positions, impls, remat):
+def _run_body(frozen, server, cfg, h, positions, impls, remat,
+              enc_out=None):
     """Frozen prefix + trainable suffix, then final norm. Returns (h, the
-    router's aux loss summed over both)."""
+    router's aux loss summed over both). Cross blocks attend over
+    `enc_out`."""
     fsegs, tsegs = split.split_segments(M.body_segments(cfg),
                                         len_from_params(frozen))
     aux = 0.0
     for sp, seg in ([*zip(frozen["segments"], fsegs)]
                     + [*zip(server["segments"], tsegs)]):
         h, _, a = M.apply_segment(sp, h, cfg, seg, positions=positions,
-                                  impls=impls, remat=remat)
+                                  enc_out=enc_out, impls=impls, remat=remat)
         aux = aux + a
     return layers.apply_norm(h, server["final_norm"], cfg.norm), aux
 
@@ -93,7 +95,14 @@ def _run_body(frozen, server, cfg, h, positions, impls, remat):
 def make_lm_loss(cfg, run, impls=None):
     """Returns loss_fn(trainable, frozen, batch, rng) -> (L_S, metrics).
 
-    batch: tokens [N, Bn, S], labels [N, Bn, S] (int), mask [N] (f32).
+    batch: tokens [N, Bn, S], labels [N, Bn, S] (int), mask [N] (f32);
+    for the vlm family also patch_embeds [N, Bn, P, D], joined before the
+    text (the loss is on the text region only, positions from
+    ``layers.build_positions``); for audio frame_embeds [N, Bn, F, D], which each
+    client's adapter maps before the frozen encoder runs over them, and
+    whose encoding every decoder block cross-attends. As in the JAX
+    package the frames cross the uplink uncompressed: only the text (and
+    patch) activations take the links' quant8.
     impls: {"attn": "kernel" | "naive", "ce": "kernel" | "plain", "ssm":
     "kernel" | "plain", "ssm_chunk": int, "ssm_bwd": "fused" |
     "recompute", "moe": "ragged" | "dense"}; the kernels and the ragged
@@ -106,10 +115,8 @@ def make_lm_loss(cfg, run, impls=None):
     tokens move another's gradient through the expert density."""
     if cfg.family == "vit":
         raise ValueError("the vit family trains through make_vit_loss")
-    if cfg.family not in M.LM_FAMILIES or cfg.encoder_layers:
-        raise NotImplementedError(
-            f"the {cfg.family} family comes with a later slice of the port "
-            f"(ROADMAP.md)")
+    if cfg.family not in M.LM_FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
     mpsl = run.mpsl
     cdt = getattr(torch, run.compute_dtype)
     impls = {**DEFAULT_IMPLS, "ssm_chunk": run.ssm_chunk,
@@ -117,19 +124,25 @@ def make_lm_loss(cfg, run, impls=None):
     remat = run.remat != "none"
 
     def loss_fn(trainable, frozen, batch, rng):
-        if "patch_embeds" in batch or "frame_embeds" in batch:
-            raise NotImplementedError(
-                "VLM and audio inputs come with the enc-dec / VLM slice of "
-                "the port (ROADMAP.md)")
+        if cfg.encoder_layers and "frame_embeds" not in batch:
+            raise ValueError(
+                f"{cfg.name} needs frame_embeds: without them the JAX "
+                f"package's cross blocks attend over the decoder's own "
+                f"tokens, both ways (ROADMAP.md Queue 3)")
         tokens = batch["tokens"]
-        n, bn, s = tokens.shape
+        n, bn, s_text = tokens.shape
         dev = tokens.device
+        adapter = trainable["client"]["adapter"]
 
         # ---- 1. client forward: frozen tokenizer + per-client adapter ----
         h = frozen["embed"]["table"][tokens].to(cdt)           # [N,Bn,S,D]
         if cfg.pos_embed == "learned":
-            h = h + frozen["embed"]["pos"][:s].to(cdt)
-        h = split.apply_client_adapter(trainable["client"]["adapter"], h)
+            h = h + frozen["embed"]["pos"][:s_text].to(cdt)
+        patches = batch.get("patch_embeds")
+        if patches is not None:
+            h = torch.cat([patches.to(cdt), h], dim=2)
+        h = split.apply_client_adapter(adapter, h)
+        s = h.shape[2]
 
         # ---- 2. uplink (smashed data) ----
         if mpsl.compress_uplink:
@@ -139,14 +152,26 @@ def make_lm_loss(cfg, run, impls=None):
             h = compression.compress_gradients(
                 h, _link_rng(rng, "downlink", 2, dev))
         hb = h.reshape(n * bn, s, cfg.d_model)
-        positions = layers.positions_from_shape(n * bn, s, device=dev)
+        positions = layers.build_positions(
+            cfg, n * bn, s, None if patches is None else patches.shape[2],
+            dev)
+
+        # ---- whisper: the frozen encoder over the clients' frames ----
+        enc_out = None
+        if "frame_embeds" in batch:
+            fe = split.apply_client_adapter(
+                adapter, batch["frame_embeds"].to(cdt))
+            enc_out = M.run_encoder(
+                frozen, fe.reshape(n * bn, fe.shape[2], cfg.d_model), cfg,
+                impls=impls, remat=remat)
 
         # ---- 3. server forward: ONE pass over the global batch ----
         hb, aux = _run_body(frozen, trainable["server"], cfg, hb, positions,
-                            impls, remat)
+                            impls, remat, enc_out)
 
         # ---- 4. tail in CLIENT layout: labels never leave their client ----
-        hc = hb.reshape(n, bn, s, cfg.d_model)
+        # (the next-token loss on the text region only)
+        hc = hb.reshape(n, bn, s, cfg.d_model)[:, :, s - s_text:]
         flat_h = hc[:, :, :-1, :].reshape(-1, cfg.d_model)
         flat_l = batch["labels"][:, :, 1:].reshape(-1)
         w_tail = (trainable["server"]["lm_head"]

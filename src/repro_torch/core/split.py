@@ -10,8 +10,9 @@ partitioned into three trees:
   server  — W_b (the fine-tuned suffix of the body) + W_t (the LM head,
             or the ViT's task head / retrieval projections): shared, one
             copy, one backward pass.
-  frozen  — the embedding table and the non-fine-tuned prefix of the
-            body: on the activation/gradient path but never updated,
+  frozen  — the embedding table, the non-fine-tuned prefix of the body
+            and whisper's encoder: on the activation/gradient path but
+            never updated,
             stored in bf16 with no optimizer state.
 
 The body boundary follows the paper's "fine-tune the last k blocks"
@@ -161,6 +162,8 @@ def init_mpsl_lm(generator, cfg, run, device=None):
         # trainable copy (the frozen table is the client-side tokenizer)
         server["lm_head"] = base["embed"]["table"].T.contiguous()
     frozen = {"embed": base.pop("embed"), "segments": fseg_p}
+    if "encoder" in base:                       # whisper: frozen encoder
+        frozen["encoder"] = base.pop("encoder")
     _cast_in_place(frozen, getattr(torch, run.frozen_dtype))
     client = {"adapter": init_client_adapters(generator, cfg, run.mpsl,
                                               device)}
@@ -206,8 +209,8 @@ def init_mpsl_vit(generator, cfg, run, modalities=("vision", "text"),
 def assemble_full_params(params, frozen, plan, client_head=None):
     """[F_C ; F_S] — rebuild a full model's body from the split trees: the
     frozen segments (back in f32) and the trainable ones merged, the final
-    norm, and the embedding and LM head where the trees have them (an LM
-    then feeds ``launch.serve``). The client heads are not part of it:
+    norm, and the embedding, encoder and LM head where the trees have them
+    (an LM then feeds ``launch.serve``). The client heads are not part of it:
     ``core.aggregation`` FedAvgs or selects them. `client_head` is kept
     from the JAX package's signature, which does not read it either."""
     f32 = lambda t: _cast(t, torch.float32)
@@ -221,8 +224,9 @@ def assemble_full_params(params, frozen, plan, client_head=None):
             layers_ += fseg.pop(0) if fseg else tseg.pop(0)
         merged.append(layers_)
     out = {"segments": merged, "final_norm": params["server"]["final_norm"]}
-    if "embed" in frozen:
-        out["embed"] = tree.map_(f32, frozen["embed"])
+    for k in ("embed", "encoder"):
+        if k in frozen:
+            out[k] = tree.map_(f32, frozen[k])
     if "lm_head" in params["server"]:
         out["lm_head"] = params["server"]["lm_head"]
     return out

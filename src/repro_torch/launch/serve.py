@@ -11,8 +11,12 @@ decode; a Mamba layer's prefill runs the selective-scan kernel seeded
 with the cached state, its decode the O(1) recurrence step; an MoE
 layer's experts run the ragged dispatch (one GEMM per active expert and
 projection). The dense, MoE (``--arch qwen2-moe-a2.7b``), SSM (``--arch
-falcon-mamba-7b``) and hybrid (``--arch hymba-1.5b``) families serve.
-Runs on
+falcon-mamba-7b``), hybrid (``--arch hymba-1.5b``), encoder-decoder
+(``--arch whisper-tiny``: the prefill runs the encoder over the frames
+once and keeps each decoder layer's cross-attention K/V beside its cache)
+and VLM (``--arch qwen2-vl-72b``: patch embeddings before the text, M-RoPE
+positions) families serve; the last two on seeded stub frames and patches
+(``stub_embeds``), their frontends being stubs in the configs. Runs on
 ``cuda`` unless ``--device cpu`` is given (then the kernels' plain
 versions run); without a card it raises rather than carry on on the CPU.
 """
@@ -23,6 +27,7 @@ import json
 import logging
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced
@@ -38,6 +43,28 @@ def resolve_device(name) -> torch.device:
         raise RuntimeError("no CUDA device: pass --device cpu (device='cpu') "
                            "to run the plain versions on the CPU")
     return device
+
+
+def stub_embeds(cfg, lead, rng) -> dict:
+    """The stub frontend's inputs for `lead` (e.g. (N, Bn) or (B,))
+    sequences, f32, 0.02 x N(0, 1) from the numpy Generator `rng`:
+    {"frame_embeds": [*lead, encoder_seq, D]} for audio, {"patch_embeds":
+    [*lead, frontend_tokens, D]} for vlm, {} for any other family."""
+    key, n = {"audio": ("frame_embeds", cfg.encoder_seq),
+              "vlm": ("patch_embeds", cfg.frontend_tokens)}.get(
+                  cfg.family, (None, 0))
+    if key is None:
+        return {}
+    x = rng.standard_normal((*lead, n, cfg.d_model), dtype=np.float32)
+    return {key: x * np.float32(0.02)}
+
+
+def stub_inputs(cfg, batch: int, seed: int, device) -> dict:
+    """``generate``'s frontend arguments for `batch` requests:
+    ``stub_embeds`` drawn from `seed`, as tensors on `device`."""
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in stub_embeds(cfg, (batch,),
+                                    np.random.default_rng(seed)).items()}
 
 
 def check_cache_room(cfg, cache, n: int = 1) -> None:
@@ -63,41 +90,88 @@ def check_cache_room(cfg, cache, n: int = 1) -> None:
                     f"decode_slots sizes it)")
 
 
+def _cross_kv(cfg, cache):
+    """The cross-attention K/V that prefill kept beside each decoder
+    layer's cache, per segment (None where the arch has none)."""
+    if not cfg.encoder_layers:
+        return None
+    return [[layer["cross"] for layer in seg_cache] if seg.kind.cross
+            else None
+            for seg, seg_cache in zip(M.body_segments(cfg), cache)]
+
+
 def build_serving_fns(cfg, compute_dtype=torch.float32, device="cuda",
                       attn_impl="kernel", ssm_impl="kernel",
                       moe_impl="ragged", decode_slots=512):
     """(prefill, decode) for `cfg`. The KV cache holds prompt +
     `decode_slots` slots (a sliding-window layer's, at most the window) in
-    the compute dtype; prefill returns the last position's logits. decode
-    updates the cache in place and returns it; ``decode.check_room(cache,
-    n)`` raises if n more steps would write past a cache that cannot wrap
-    (``check_cache_room``), and ``generate`` calls it once before its
-    first step. attn_impl: "kernel" | "naive"; ssm_impl: "kernel" |
-    "plain"; moe_impl: "ragged" | "dense"."""
+    the compute dtype; ``prefill(params, tokens, frame_embeds=None,
+    patch_embeds=None)`` returns the last position's logits and the
+    cache. An audio arch needs `frame_embeds` [B, F, D]: prefill runs the
+    encoder over them once and keeps each decoder layer's cross-attention
+    K/V in its layer cache (under "cross"), so decode does no encoder
+    work. A vlm prompt may lead with `patch_embeds` [B, P, D] (positions from
+    ``layers.build_positions``). decode(params, cache, tokens, positions)
+    updates the cache in place and returns it; ``decode.positions(b,
+    s_text, n_patches, i)`` gives decode step i's positions after a prompt
+    of s_text tokens behind n_patches patches (None: no patches), and
+    ``decode.check_room(cache, n)`` raises if n more steps would write
+    past a cache that cannot wrap (``check_cache_room``); ``generate``
+    calls it once before its first step. attn_impl: "kernel" | "naive";
+    ssm_impl: "kernel" | "plain"; moe_impl: "ragged" | "dense"."""
     device = resolve_device(device)
     impls = {"attn": attn_impl, "ssm": ssm_impl, "moe": moe_impl}
 
     @torch.inference_mode()
-    def prefill(params, tokens):
-        b, s = tokens.shape
+    def prefill(params, tokens, frame_embeds=None, patch_embeds=None):
+        if (frame_embeds is not None) != bool(cfg.encoder_layers):
+            raise ValueError(f"{cfg.name}: frame embeddings are the input "
+                             f"of an encoder-decoder arch, and only of one")
+        if patch_embeds is not None and cfg.family != "vlm":
+            raise ValueError(f"{cfg.name}: patch embeddings are a vlm input")
+        h = M.embed_tokens(params, tokens, cfg, dtype=compute_dtype)
+        n_patches = None
+        if patch_embeds is not None:
+            h = torch.cat([patch_embeds.to(compute_dtype), h], dim=1)
+            n_patches = patch_embeds.shape[1]
+        b, s = h.shape[:2]
+        positions = layers.build_positions(cfg, b, s, n_patches, device)
         cache = M.init_body_cache(cfg, b, s + decode_slots, compute_dtype,
                                   device)
-        h = M.embed_tokens(params, tokens, cfg, dtype=compute_dtype)
-        positions = layers.positions_from_shape(b, s, device=device)
+        cross_kv = None
+        if frame_embeds is not None:
+            enc_out = M.run_encoder(params, frame_embeds.to(compute_dtype),
+                                    cfg, impls=impls)
+            cross_kv = M.compute_cross_kv_stacked(params, enc_out, cfg)
+            for seg_cache, seg_kv in zip(cache, cross_kv):
+                for layer, kv in zip(seg_cache, seg_kv or ()):
+                    layer["cross"] = kv
         h, cache, _ = M.forward_body(params, h, cfg, positions=positions,
-                                     cache=cache, impls=impls)
+                                     cache=cache, cross_kv=cross_kv,
+                                     impls=impls)
         logits = M.lm_logits(params, h[:, -1:], cfg)
         return logits, cache
 
     @torch.inference_mode()
     def decode(params, cache, tokens, positions):
-        h = M.embed_tokens(params, tokens, cfg, positions=positions,
+        flat = positions[:, 0] if positions.dim() == 3 else positions
+        h = M.embed_tokens(params, tokens, cfg, positions=flat,
                            dtype=compute_dtype)
         h, cache, _ = M.forward_body(params, h, cfg, positions=positions,
-                                     cache=cache, impls=impls)
+                                     cache=cache,
+                                     cross_kv=_cross_kv(cfg, cache),
+                                     impls=impls)
         logits = M.lm_logits(params, h, cfg)
         return logits, cache
 
+    def positions(b, s_text, n_patches, i):
+        if n_patches is None:
+            return torch.full((b, 1), s_text + i, dtype=torch.int32,
+                              device=device)
+        return torch.full((b, 3, 1), layers.text_start(n_patches) + s_text + i,
+                          dtype=torch.int32, device=device)
+
+    decode.positions = positions
     decode.check_room = lambda cache, n: check_cache_room(cfg, cache, n)
     return prefill, decode
 
@@ -108,8 +182,10 @@ def _sync(device):
 
 
 def generate(prefill, decode, params, tokens, steps: int,
-             forced_tokens=None) -> dict:
-    """Prefill `tokens` [B, S], then `steps` greedy decode steps.
+             forced_tokens=None, frame_embeds=None,
+             patch_embeds=None) -> dict:
+    """Prefill `tokens` [B, S] (with an encoder-decoder's `frame_embeds`,
+    or a vlm's leading `patch_embeds`), then `steps` greedy decode steps.
 
     Returns {"tokens" [B, steps+1]: the greedy token after the prompt and
     after each decode step; "logits" [B, steps+1, V]: the logits they came
@@ -122,7 +198,8 @@ def generate(prefill, decode, params, tokens, steps: int,
     b, s = tokens.shape
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, tokens)
+    logits, cache = prefill(params, tokens, frame_embeds=frame_embeds,
+                            patch_embeds=patch_embeds)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     decode.check_room(cache, steps)
@@ -132,7 +209,8 @@ def generate(prefill, decode, params, tokens, steps: int,
     t0 = time.perf_counter()
     for i in range(steps):
         tok = greedy[-1] if forced_tokens is None else forced_tokens[:, i]
-        pos = torch.full((b, 1), s + i, dtype=torch.int32, device=device)
+        pos = decode.positions(
+            b, s, None if patch_embeds is None else patch_embeds.shape[1], i)
         logits, cache = decode(params, cache, tok[:, None].to(torch.int64),
                                pos)
         all_logits.append(logits[:, -1])
@@ -171,7 +249,8 @@ def main(argv=None):
         cfg, device=device, decode_slots=max(512, args.decode_steps))
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
-    out = generate(prefill, decode, params, tokens, args.decode_steps)
+    out = generate(prefill, decode, params, tokens, args.decode_steps,
+                   **stub_inputs(cfg, args.batch, args.seed, device))
 
     t_prefill, t_decode = out["prefill_s"], out["decode_s"]
     summary = {"arch": cfg.name, "device": str(device), "batch": args.batch,

@@ -11,7 +11,10 @@ kernels: flash attention in every attention block, the selective scan
 forward and backward in every Mamba block (``--arch falcon-mamba-7b``,
 ``--arch hymba-1.5b``), the fused LM-head cross-entropy, and quant8 on
 both links under ``--compress``; MoE blocks (``--arch qwen2-moe-a2.7b``)
-run the ragged dispatch and add the router's load-balance loss. A plain
+run the ragged dispatch and add the router's load-balance loss. whisper
+(``--arch whisper-tiny``) and qwen2-vl (``--arch qwen2-vl-72b``) train on
+seeded stub frame and patch embeddings (their frontends are stubs in the
+configs); for qwen2-vl ``--seq`` counts the patches too. A plain
 loop steps it over the ported loader; the trainer, prefetching,
 checkpoints, telemetry and fault plans come with a later slice.
 """
@@ -29,7 +32,7 @@ import torch
 from repro_torch.configs import MPSLConfig, RunConfig, SHAPES, get_config, reduced
 from repro_torch.core import mpsl, split
 from repro_torch.data import ClientLoader, SyntheticLM, dirichlet_partition
-from repro_torch.launch.serve import resolve_device
+from repro_torch.launch.serve import resolve_device, stub_embeds
 from repro_torch.optim import schedules
 
 log = logging.getLogger("repro_torch.train")
@@ -37,8 +40,15 @@ log = logging.getLogger("repro_torch.train")
 
 def make_lm_loader(cfg, n_clients: int, bn: int, seq: int, seed: int = 0,
                    drop_prob: float = 0.0):
-    """step -> numpy batch {tokens, labels [N, Bn, seq] int32, mask [N]}."""
-    ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, size=4096,
+    """step -> numpy batch {tokens, labels [N, Bn, S] int32, mask [N]}.
+
+    The stub frontends' inputs join it, as the JAX package's
+    ``launch/steps.py: train_batch_specs`` lays them out, drawn from
+    (seed, step) by ``serve.stub_embeds``: for audio frame_embeds [N, Bn,
+    encoder_seq, D] beside S = seq text tokens; for vlm patch_embeds [N,
+    Bn, frontend_tokens, D], with S = seq - frontend_tokens."""
+    n_text = seq - cfg.frontend_tokens if cfg.family == "vlm" else seq
+    ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=n_text, size=4096,
                      seed=seed)
     shards = dirichlet_partition(ds.labels, n_clients, alpha=0.1, seed=seed,
                                  min_per_client=bn)
@@ -46,18 +56,21 @@ def make_lm_loader(cfg, n_clients: int, bn: int, seq: int, seed: int = 0,
 
     def batch(step):
         b = base.batch(step)
+        rng = np.random.default_rng((seed, step, 0x57AB))
         return {"tokens": b["tokens"].astype(np.int32),
                 "labels": b["labels"].astype(np.int32),
-                "mask": b["mask"]}
+                "mask": b["mask"],
+                **stub_embeds(cfg, (n_clients, bn), rng)}
 
     return batch
 
 
 def to_device(batch, device):
     """A numpy batch as tensors on `device` (token ids as int64 indices)."""
-    return {"tokens": torch.from_numpy(batch["tokens"]).long().to(device),
-            "labels": torch.from_numpy(batch["labels"]).long().to(device),
-            "mask": torch.from_numpy(batch["mask"]).to(device)}
+    out = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    for k in ("tokens", "labels"):
+        out[k] = out[k].long()
+    return out
 
 
 def build(args, device):

@@ -7,8 +7,12 @@ Two interchangeable implementations of the core softmax(QK^T)V:
              on a CUDA tensor, its plain version on a CPU tensor. Like the
              JAX package's ``pallas``, it serves prefill AND decode.
 
-Cross-attention, precomputed K/V, M-RoPE, the blockwise path and
-sequence sharding come with later slices of the port.
+Positions are [B, S], or [B, 3, S] under M-RoPE (Qwen2-VL), whose row 0
+is the flat position the masks, the kernel and the KV cache use.
+Cross-attention (the whisper decoder) takes its keys and values from the
+encoder's output (``kv_x``) or, at decode, precomputed once per layer
+(``compute_cross_kv``); it rotates neither queries nor keys. The
+blockwise path and sequence sharding come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -141,51 +145,81 @@ def _cache_insert(cache, k_new, v_new, positions):
 # Public entry
 
 
+def _kv(params, src, cfg):
+    """Keys and values of `src` [B, S, D]: [B, S, K, hd] each."""
+    k = _proj(src, params["wk"])
+    v = _proj(src, params["wv"])
+    if cfg.qkv_bias:
+        k = k + params["bk"].to(src.dtype)
+        v = v + params["bv"].to(src.dtype)
+    if cfg.qk_norm:
+        k = layers.rms_norm(k, params["k_norm"]["scale"])
+    return k, v
+
+
 def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
-                    cache=None, impl="naive"):
+                    cache=None, impl="naive", kv_x=None, precomputed_kv=None):
     """x [B, S, D] -> (out [B, S, D], cache).
 
-    positions: [B, S] int32 absolute positions.
+    positions: [B, S] int32 absolute positions, or [B, 3, S] for M-RoPE.
     cache: None for train/prefill-without-cache, else a KV cache dict,
-      which is updated in place and returned."""
-    if cfg.pos_embed == "mrope" or positions.dim() != 2:
-        raise NotImplementedError(
-            "M-RoPE comes with the enc-dec / VLM slice of the port")
+      which is updated in place and returned.
+    kv_x: cross-attention source [B, Sk, D] (keys and values from the
+      encoder, at positions 0..Sk-1).
+    precomputed_kv: {"k", "v", "pos"} of ``compute_cross_kv``: decode-time
+      cross-attention, every key valid.
+    Self-attention rotates q and k by the config's rope / mrope;
+    attention over outside keys (``kv_x`` or ``precomputed_kv``) rotates
+    neither."""
     hd = cfg.resolved_head_dim
+    flat_pos = positions[:, 0] if positions.dim() == 3 else positions
     q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
-        k = k + params["bk"].to(x.dtype)
-        v = v + params["bv"].to(x.dtype)
     if cfg.qk_norm:
         q = layers.rms_norm(q, params["q_norm"]["scale"])
-        k = layers.rms_norm(k, params["k_norm"]["scale"])
+    k = v = None
+    if precomputed_kv is None:
+        k, v = _kv(params, x if kv_x is None else kv_x.to(x.dtype), cfg)
 
-    if cfg.pos_embed == "rope":
-        cos, sin = layers.rope_cos_sin(positions, hd, cfg.rope_theta)
+    cross = kv_x is not None or precomputed_kv is not None
+    if not cross and cfg.pos_embed in ("rope", "mrope"):
+        if cfg.pos_embed == "mrope":
+            pos3 = positions if positions.dim() == 3 else \
+                positions[:, None, :].expand(-1, 3, -1)
+            cos, sin = layers.mrope_cos_sin(pos3, hd, cfg.rope_theta,
+                                            cfg.mrope_sections)
+        else:
+            cos, sin = layers.rope_cos_sin(flat_pos, hd, cfg.rope_theta)
         q = layers.apply_rope(q, cos, sin)
         k = layers.apply_rope(k, cos, sin)
 
-    if cache is not None and q.shape[1] > 1:
+    if precomputed_kv is not None:
+        k_all = precomputed_kv["k"].to(x.dtype)
+        v_all = precomputed_kv["v"].to(x.dtype)
+        k_pos, k_valid = precomputed_kv["pos"], None
+    elif cache is not None and q.shape[1] > 1:
         # PREFILL: attend over the full fresh sequence (an empty/stale ring
         # cache cannot serve early queries' windows), then write the cache.
-        cache = _cache_insert(cache, k, v, positions)
-        k_all, v_all, k_pos, k_valid = k, v, positions, None
+        cache = _cache_insert(cache, k, v, flat_pos)
+        k_all, v_all, k_pos, k_valid = k, v, flat_pos, None
     elif cache is not None:
         # DECODE: attend over the whole cache, empty slots masked out.
-        cache = _cache_insert(cache, k, v, positions)
+        cache = _cache_insert(cache, k, v, flat_pos)
         k_all, v_all = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
         k_pos, k_valid = cache["pos"], cache["pos"] >= 0
+    elif kv_x is not None:
+        k_all, v_all, k_valid = k, v, None
+        k_pos = layers.positions_from_shape(kv_x.shape[0], kv_x.shape[1],
+                                            device=x.device)
     else:
-        k_all, v_all, k_pos, k_valid = k, v, positions, None
+        k_all, v_all, k_pos, k_valid = k, v, flat_pos, None
 
     if impl == "naive":
-        bias = _mask_bias(positions, k_pos, causal, window, k_valid)
+        bias = _mask_bias(flat_pos, k_pos, causal, window, k_valid)
         out = _naive_attention(q, k_all, v_all, bias)
     elif impl == "kernel":
-        out = kops.flash_attention(q, k_all, v_all, positions, k_pos,
+        out = kops.flash_attention(q, k_all, v_all, flat_pos, k_pos,
                                    causal=causal, window=window,
                                    k_valid=k_valid)
     else:
@@ -195,3 +229,12 @@ def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
     wo = params["wo"]
     y = out.reshape(b, s, h * hd) @ wo.reshape(h * hd, -1).to(x.dtype)
     return y, cache
+
+
+def compute_cross_kv(params, enc_out, cfg):
+    """Cross-attention K/V of the encoder output, computed once for every
+    decode step: {"k", "v" [B, Sk, K, hd], "pos" [B, Sk] (0..Sk-1)}."""
+    k, v = _kv(params, enc_out, cfg)
+    pos = layers.positions_from_shape(enc_out.shape[0], enc_out.shape[1],
+                                      device=enc_out.device)
+    return {"k": k, "v": v, "pos": pos}

@@ -112,6 +112,29 @@ def rope_cos_sin(positions, head_dim: int, theta: float):
     return torch.cos(angles), torch.sin(angles)
 
 
+def mrope_cos_sin(positions3, head_dim: int, theta: float, sections):
+    """M-RoPE (Qwen2-VL): positions3 [B, 3, S] (t, h, w grids).
+
+    The head_dim/2 rotary frequencies are split into `sections`
+    (sum(sections) == head_dim/2); section i takes its angle from
+    positions3[:, i]. Returns cos/sin [B, S, head_dim/2]. Where the three
+    rows agree it is ``rope_cos_sin`` of that row."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim/2 = {half}")
+    exponent = torch.arange(0, half, dtype=torch.float32,
+                            device=positions3.device) / half
+    freqs = 1.0 / (theta ** exponent)
+    ang = positions3.float()[..., None] * freqs            # [B, 3, S, half]
+    bounds = [0]
+    for sec in sections:
+        bounds.append(bounds[-1] + sec)
+    angles = torch.cat([ang[:, i, :, lo:hi] for i, (lo, hi)
+                        in enumerate(zip(bounds, bounds[1:]))], dim=-1)
+    return torch.cos(angles), torch.sin(angles)
+
+
 def apply_rope(x, cos, sin):
     """x [..., S, H, hd]; cos/sin [..., S, hd/2] broadcast over heads.
 
@@ -128,3 +151,32 @@ def positions_from_shape(batch, seq, offset=0, device=None):
     """[batch, seq] int32 absolute positions offset, offset+1, ..."""
     pos = torch.arange(seq, dtype=torch.int32, device=device) + offset
     return pos[None, :].expand(batch, seq).contiguous()
+
+
+def _patch_grid(n_patches: int) -> int:
+    """Width of the square grid the JAX package lays `n_patches` on."""
+    return int(n_patches ** 0.5) or 1
+
+
+def text_start(n_patches: int) -> int:
+    """The first text position after `n_patches` image patches under
+    M-RoPE: one past the patch grid's last row (0 with no patches)."""
+    return (n_patches - 1) // _patch_grid(n_patches) + 1 if n_patches else 0
+
+
+def build_positions(cfg, b: int, seq: int, n_patches=None, device=None):
+    """Positions of `b` sequences of `seq` tokens, the JAX package's
+    ``_build_positions``: under M-RoPE with `n_patches` image patches in
+    front, [b, 3, seq] rows (t, h, w): a patch i on a sqrt(P)-wide grid
+    has (0, i // grid, i % grid) and the text continues from
+    ``text_start`` in all three rows; else 0..seq-1, [b, seq]."""
+    if cfg.pos_embed != "mrope" or n_patches is None:
+        return positions_from_shape(b, seq, device=device)
+    p = n_patches
+    grid = _patch_grid(p)
+    idx = torch.arange(p, dtype=torch.int32, device=device)
+    img = torch.stack([torch.zeros_like(idx), idx // grid, idx % grid])
+    tpos = torch.arange(seq - p, dtype=torch.int32, device=device) \
+        + text_start(p)
+    pos3 = torch.cat([img, tpos.expand(3, -1)], dim=1)          # [3, seq]
+    return pos3[None].expand(b, -1, -1).contiguous()

@@ -1,5 +1,5 @@
-"""Model assembly: init + forward of the dense, SSM and hybrid decoders and
-the paper's ViT encoder.
+"""Model assembly: init + forward of the dense, MoE, SSM, hybrid and VLM
+decoders, the whisper encoder-decoder and the paper's ViT encoder.
 
 The transformer body is a list of SEGMENTS — runs of consecutive layers
 with identical static structure — as in the JAX package. There each
@@ -10,12 +10,13 @@ per-layer cache dicts updated in place.
 Block kinds: dense (norm1 -> attention -> residual, norm2 -> MLP ->
 residual), ssm (norm1 -> Mamba -> residual; no MLP) and hybrid (norm1 ->
 parallel attention + Mamba -> residual, norm2 -> MLP -> residual) and moe
-(as dense, with the MoE FFN of ``models/moe.py`` for the MLP) and vit (as
+(as dense, with the MoE FFN of ``models/moe.py`` for the MLP), vit (as
 dense, bidirectional: the Meta-Transformer encoder, whose tokenizers
-add learned positions, so attention applies no RoPE). Cross-attention and
-encoder blocks raise NotImplementedError naming the slice of ROADMAP.md
-that brings them. The segment plan and the
-analytic parameter counts cover every family.
+add learned positions, so attention applies no RoPE), enc (whisper's
+encoder: as vit) and dec (whisper's decoder: norm1 -> causal
+self-attention -> residual, norm_cross -> cross-attention over the
+encoder's output -> residual, norm2 -> MLP -> residual). The VLM family
+(qwen2-vl) is dense blocks under M-RoPE positions [B, 3, S].
 
 A block, a segment and the body return the router's load-balance loss
 beside the hidden states, as in the JAX package: a 0-d f32 tensor summed
@@ -78,20 +79,15 @@ def body_segments(cfg) -> List[Segment]:
     raise ValueError(f"unknown family {fam!r}")
 
 
-LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-PORTED_FAMILIES = LM_FAMILIES + ("vit",)
-_LATER_SLICES = {
-    "dec": "the enc-dec / VLM slice",
-    "enc": "the enc-dec / VLM slice",
-}
+def encoder_segments(cfg) -> List[Segment]:
+    if cfg.encoder_layers:
+        return [Segment(BlockKind("enc", causal=False), cfg.encoder_layers)]
+    return []
 
 
-def _require_ported(kind: BlockKind) -> None:
-    if kind.family not in PORTED_FAMILIES or kind.cross:
-        raise NotImplementedError(
-            f"{kind.family} blocks come with "
-            f"{_LATER_SLICES.get(kind.family, 'a later slice')} of the "
-            f"port (ROADMAP.md)")
+# the config families that train through core.mpsl.make_lm_loss and serve
+# through launch.serve (vit trains through make_vit_loss)
+LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 # ---------------------------------------------------------------------------
@@ -99,7 +95,6 @@ def _require_ported(kind: BlockKind) -> None:
 
 
 def init_block(generator, cfg, kind: BlockKind, device=None):
-    _require_ported(kind)
     p = {"norm1": layers.init_norm(cfg.norm, cfg.d_model, device)}
     if kind.family == "ssm":
         p["ssm"] = mamba.init_mamba(generator, cfg, device)
@@ -108,6 +103,9 @@ def init_block(generator, cfg, kind: BlockKind, device=None):
         p["mix"] = hybrid.init_hybrid(generator, cfg, device)
     else:
         p["attn"] = attention.init_attention(generator, cfg, device)
+    if kind.cross:
+        p["norm_cross"] = layers.init_norm(cfg.norm, cfg.d_model, device)
+        p["cross"] = attention.init_attention(generator, cfg, device)
     p["norm2"] = layers.init_norm(cfg.norm, cfg.d_model, device)
     if kind.family == "moe":
         p["moe"] = moe.init_moe(generator, cfg, device)
@@ -118,9 +116,11 @@ def init_block(generator, cfg, kind: BlockKind, device=None):
 
 
 def apply_block(params, x, cfg, kind: BlockKind, *, positions, cache=None,
-                impls=None):
-    """One transformer block. Returns (x, cache, aux)."""
-    _require_ported(kind)
+                enc_out=None, cross_kv=None, impls=None):
+    """One transformer block. Returns (x, cache, aux).
+
+    A cross block attends over `cross_kv` (this layer's precomputed K/V)
+    where given, else over `enc_out` [B, Sk, D]."""
     impls = impls or {}
     h = layers.apply_norm(x, params["norm1"], cfg.norm)
     ssm_kw = dict(ssm_impl=impls.get("ssm", "kernel"),
@@ -142,6 +142,13 @@ def apply_block(params, x, cfg, kind: BlockKind, *, positions, cache=None,
             params["attn"], h, cfg, positions=positions, causal=kind.causal,
             window=window, cache=cache, impl=impls.get("attn", "kernel"))
     x = x + out
+    if kind.cross:
+        h = layers.apply_norm(x, params["norm_cross"], cfg.norm)
+        out, _ = attention.apply_attention(
+            params["cross"], h, cfg, positions=positions, causal=False,
+            kv_x=enc_out, precomputed_kv=cross_kv,
+            impl=impls.get("attn", "kernel"))
+        x = x + out
     h = layers.apply_norm(x, params["norm2"], cfg.norm)
     if "moe" in params:
         out, aux = moe.apply_moe(params["moe"], h, cfg,
@@ -162,7 +169,6 @@ def init_segment(generator, cfg, seg: Segment, device=None):
 def init_segment_cache(cfg, seg: Segment, batch: int, cache_len: int,
                        dtype=torch.bfloat16, device=None):
     kind = seg.kind
-    _require_ported(kind)
     if kind.family == "ssm":
         return [mamba.init_mamba_cache(cfg, batch, dtype, device)
                 for _ in range(seg.count)]
@@ -175,27 +181,34 @@ def init_segment_cache(cfg, seg: Segment, batch: int, cache_len: int,
 
 
 def apply_segment(layer_params, x, cfg, seg: Segment, *, positions,
-                  cache=None, impls=None, remat=False):
+                  cache=None, enc_out=None, cross_kv=None, impls=None,
+                  remat=False):
     """Run a segment's layers in order. Returns (x, cache, aux summed over
-    the layers); the per-layer caches are updated in place.
+    the layers); the per-layer caches are updated in place. cross_kv: the
+    segment's per-layer list from ``compute_cross_kv_stacked``.
 
-    remat (train path, no cache): each block keeps only its input for the
-    backward and recomputes the rest there, as ``jax.checkpoint`` with
-    ``nothing_saveable`` does around the JAX package's scan step."""
+    remat (train path, no cache): each block keeps only its input (and the
+    encoder output it reads) for the backward and recomputes the rest
+    there, as ``jax.checkpoint`` with ``nothing_saveable`` does around the
+    JAX package's scan step; the non-reentrant checkpoint carries
+    enc_out's gradient back to the encoder."""
     aux = 0.0
     for i, lp in enumerate(layer_params):
+        ckv = None if cross_kv is None else cross_kv[i]
         if remat and cache is None:
-            def block(h, lp=lp):
+            def block(h, enc, lp=lp, ckv=ckv):
                 y, _, a = apply_block(lp, h, cfg, seg.kind,
-                                      positions=positions, impls=impls)
+                                      positions=positions, enc_out=enc,
+                                      cross_kv=ckv, impls=impls)
                 return y, a
             # blocks draw no random numbers: no RNG state to carry over
             x, a = torch.utils.checkpoint.checkpoint(
-                block, x, use_reentrant=False, preserve_rng_state=False)
+                block, x, enc_out, use_reentrant=False,
+                preserve_rng_state=False)
         else:
             x, _, a = apply_block(lp, x, cfg, seg.kind, positions=positions,
                                   cache=None if cache is None else cache[i],
-                                  impls=impls)
+                                  enc_out=enc_out, cross_kv=ckv, impls=impls)
         aux = aux + a
     return x, cache, aux
 
@@ -205,20 +218,17 @@ def apply_segment(layer_params, x, cfg, seg: Segment, *, positions,
 
 
 def init_lm(cfg, generator, device=None):
-    """Full model params: embed + body segments + final norm + head.
+    """Full model params: embed + body segments (+ encoder) + final norm +
+    head. The encoder (whisper) is {"segments", "norm", "pos"
+    [encoder_seq, D]}, as in the JAX package.
 
     Weights are f32, drawn from `generator` (which lives on `device`)."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            "encoders come with the enc-dec / VLM slice of the port")
     if cfg.family == "vit":
         raise NotImplementedError(
             "the vit family is an encoder with no embedding table or LM "
             "head: its params come from core.split.init_mpsl_vit and "
             "core.baselines.init_full_vit (the paper-mode slice of the port)")
     segs = body_segments(cfg)
-    for seg in segs:
-        _require_ported(seg.kind)
     params: Dict[str, Any] = {}
     embed: Dict[str, Any] = {
         "table": layers.dense_init(generator, (cfg.vocab_size, cfg.d_model),
@@ -234,6 +244,17 @@ def init_lm(cfg, generator, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(
             generator, (cfg.d_model, cfg.vocab_size), device=device)
+    enc_segs = encoder_segments(cfg)
+    if enc_segs:
+        params["encoder"] = {
+            "segments": [init_segment(generator, cfg, s, device)
+                         for s in enc_segs],
+            "norm": layers.init_norm(cfg.norm, cfg.d_model, device),
+            "pos": layers.dense_init(generator,
+                                     (cfg.encoder_seq, cfg.d_model),
+                                     in_axis_size=cfg.d_model,
+                                     device=device),
+        }
     return params
 
 
@@ -256,15 +277,32 @@ def embed_tokens(params, tokens, cfg, positions=None, dtype=torch.bfloat16):
     return h
 
 
-def forward_body(params, h, cfg, *, positions, cache=None, impls=None,
-                 remat=False):
+def run_encoder(params, frame_embeds, cfg, impls=None, remat=False):
+    """Whisper encoder over precomputed (stub) frame embeddings [B, F, D]:
+    the learned positions added, the bidirectional blocks, the norm."""
+    enc = params["encoder"]
+    h = frame_embeds + enc["pos"].to(frame_embeds.dtype)[None]
+    positions = layers.positions_from_shape(h.shape[0], h.shape[1],
+                                            device=h.device)
+    for seg_params, seg in zip(enc["segments"], encoder_segments(cfg)):
+        h, _, _ = apply_segment(seg_params, h, cfg, seg, positions=positions,
+                                impls=impls, remat=remat)
+    return layers.apply_norm(h, enc["norm"], cfg.norm)
+
+
+def forward_body(params, h, cfg, *, positions, cache=None, enc_out=None,
+                 cross_kv=None, impls=None, remat=False):
     """Embeddings -> final hidden states. Returns (h, caches, aux); the
-    caches are updated in place."""
+    caches are updated in place. Cross blocks attend over `cross_kv` (from
+    ``compute_cross_kv_stacked``) where given, else over `enc_out`."""
     aux = 0.0
     for i, (seg_params, seg) in enumerate(zip(params["segments"],
                                               body_segments(cfg))):
         h, _, a = apply_segment(seg_params, h, cfg, seg, positions=positions,
                                 cache=None if cache is None else cache[i],
+                                enc_out=enc_out,
+                                cross_kv=None if cross_kv is None
+                                else cross_kv[i],
                                 impls=impls, remat=remat)
         aux = aux + a
     h = layers.apply_norm(h, params["final_norm"], cfg.norm)
@@ -285,6 +323,15 @@ def init_body_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
                     device=None):
     return [init_segment_cache(cfg, seg, batch, cache_len, dtype, device)
             for seg in body_segments(cfg)]
+
+
+def compute_cross_kv_stacked(params, enc_out, cfg):
+    """Per segment, None (no cross blocks) or the list of its layers'
+    cross-attention K/V over `enc_out` (``attention.compute_cross_kv``)."""
+    return [[attention.compute_cross_kv(lp["cross"], enc_out, cfg)
+             for lp in seg_params] if seg.kind.cross else None
+            for seg_params, seg in zip(params["segments"],
+                                       body_segments(cfg))]
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models import mlp as JMLP
 from repro.models import model as JM
-from repro_torch import bridge
+from repro_torch import bridge, tree
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.models import attention as TA
@@ -237,9 +237,51 @@ def test_param_count_matches_jax(arch):
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "vit-tiny"])
 def test_other_families_name_their_slice(arch):
+    """whisper is ported: init_lm gives it an encoder subtree and cross
+    blocks, counted as param_count() counts them. vit has no LM tree: its
+    params come from the paper-mode slice's own constructors."""
     cfg = t_reduced(t_get_config(arch))
-    with pytest.raises(NotImplementedError, match="slice"):
-        TM.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(0)
+    if arch == "vit-tiny":
+        with pytest.raises(NotImplementedError, match="slice"):
+            TM.init_lm(cfg, gen, "cpu")
+        return
+    params = TM.init_lm(cfg, gen, "cpu")
+    enc = params["encoder"]
+    assert sorted(enc) == ["norm", "pos", "segments"]
+    assert len(enc["segments"][0]) == cfg.encoder_layers
+    assert enc["pos"].shape == (cfg.encoder_seq, cfg.d_model)
+    assert all({"cross", "norm_cross"} <= set(layer)
+               for layer in params["segments"][0])
+    assert not any("cross" in layer for layer in enc["segments"][0])
+    assert sum(t.numel() for t in tree.leaves(params)) == cfg.param_count()
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-72b"])
+def test_new_families_forward_shapes_and_finite(arch):
+    """tests/test_smoke_archs.py::test_forward_shapes_and_finite in the
+    port: init_lm, then the body (whisper over an encoded stub input; the
+    VLM on flat positions, which M-RoPE broadcasts to its three rows) to
+    finite logits of the right shape."""
+    cfg = t_reduced(t_get_config(arch))
+    gen = torch.Generator().manual_seed(0)
+    params = TM.init_lm(cfg, gen, "cpu")
+    b, s = 2, 16
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    h = TM.embed_tokens(params, tokens, cfg, dtype=torch.float32)
+    enc = ckv = None
+    if cfg.encoder_layers:
+        fe = 0.02 * torch.randn((b, cfg.encoder_seq, cfg.d_model),
+                                generator=gen)
+        enc = TM.run_encoder(params, fe, cfg)
+        ckv = TM.compute_cross_kv_stacked(params, enc, cfg)
+    with torch.no_grad():
+        hh, _, aux = TM.forward_body(params, h, cfg,
+                                     positions=TL.positions_from_shape(b, s),
+                                     enc_out=enc, cross_kv=ckv)
+        logits = TM.lm_logits(params, hh, cfg)
+    assert logits.shape == (b, s, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()) and aux == 0.0
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "qwen2-moe-a2.7b"])
