@@ -13,7 +13,10 @@
             timed by device time (torch.profiler) beside its plain
             version, its roofline bound and one PyTorch library call
             computing the same function, where one does (each such call
-            first held to the plain version). quant8 is held bitwise in
+            first held to the plain version). The f32 flash and CE
+            kernels, whose products run on the tensor cores from bf16
+            pieces, also record their gap to the route's plain model
+            (``*_pieces``). quant8 is held bitwise in
             every route (nearest, streamed, in-kernel Philox) and timed
             with a cold L2 (a ring of distinct buffers).
 4. moe_layer: one full-width MoE layer at a prefill's 2048 tokens and a
@@ -595,25 +598,56 @@ def _attn_dtypes(name):
                                                       torch.bfloat16)
 
 
-def _bound(q, k, q_pos, k_pos, k_valid, causal, window, dtype):
-    """(ms, 'bytes' | 'operations'): the least time for this call's work.
+def _route(dtype, sq, h, kh):
+    """The forward's route for a call: "split" (split-KV, CUDA cores),
+    "pieces" (f32 tiled: bf16 pieces on the tensor cores) or "tc" (bf16
+    tiled)."""
+    if fa.uses_split(sq, h, kh):
+        return "split"
+    return "pieces" if dtype == torch.float32 else "tc"
 
-    Operations: 4*hd FLOPs per (query head, key) pair the mask admits.
-    Bytes: q, positions, validity, o and lse once, and the K/V rows of the
-    keys that at least one query of their batch row attends."""
+
+def _attn_bound(flops_per_product, nbytes, dtype, route, backward):
+    """(ms, bound_by, products, CUDA-core ms) of a flash call. Operations:
+    a tiled route's bf16 products (``fa.route_products``) at the tensor
+    cores' bf16 peak; the split-KV route's two products at its dtype's
+    peak. Bytes: `nbytes` at the HBM rate. The last number bounds the same
+    function's products (2, or 5 in the backward) as f32 on the CUDA
+    cores, the f32 route's first design's ceiling (None off that route)."""
+    n = 5 if backward else 2
+    if route == "split":
+        t_ops = n * flops_per_product / PEAK_FLOPS[dtype]
+        products = n
+    else:
+        products = fa.route_products(dtype)[backward]
+        t_ops = products * flops_per_product / PEAK_FLOPS[torch.bfloat16]
+    t_bytes = nbytes / PEAK_BYTES
+    cuda_core = None
+    if route == "pieces":
+        cuda_core = max(n * flops_per_product / PEAK_FLOPS[torch.float32],
+                        t_bytes) * 1e3
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", products,
+            cuda_core)
+
+
+def _bound(q, k, q_pos, k_pos, k_valid, causal, window, dtype):
+    """(ms, bound_by, products, CUDA-core ms): the least time for this
+    call's work (``_attn_bound``).
+
+    Operations: 2*hd FLOPs a product per (query head, key) pair the mask
+    admits. Bytes: q, positions, validity, o and lse once, and the K/V
+    rows of the keys that at least one query of their batch row attends."""
     b, sq, h, hd = q.shape
     kh = k.shape[2]
     ok = fa.pair_mask(q_pos, k_pos, k_valid, causal, window)       # [b, sq, sk]
-    flops = 4.0 * hd * h * ok.sum().item()
     keys_needed = ok.any(dim=1).sum().item()                  # over b, sk
     es = q.element_size()
     nbytes = (2 * q.numel() * es + b * h * sq * 4            # q, o, lse
               + 2 * keys_needed * kh * hd * es                # k, v
               + q_pos.numel() * 4 + k_pos.numel() * 4 + k_valid.numel())
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return _attn_bound(2.0 * hd * h * ok.sum().item(), nbytes, dtype,
+                       _route(dtype, sq, h, kh), backward=False)
 
 
 # the cases whose positions are 0..S-1 on both sides under a plain causal
@@ -684,11 +718,9 @@ def kernels_flash_fwd():
             bad = [n for n, a, r in (("o", o, o_ref), ("lse", lse, lse_ref))
                    if not torch.allclose(a.float(), r.float(), atol=tol,
                                          rtol=tol)]
+            route = _route(dtype, shp["sq"], shp["h"], shp["kh"])
             rec = {"case": name, "dtype": str(dtype).split(".")[-1],
-                   "shape": shp, "main_path": main_path,
-                   "route": ("split" if fa.uses_split(shp["sq"], shp["h"],
-                                                      shp["kh"])
-                             else "tiled"),
+                   "shape": shp, "main_path": main_path, "route": route,
                    "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
                    "tol": tol}
             if bad:
@@ -696,6 +728,10 @@ def kernels_flash_fwd():
                       **rec, "failed": bad})
                 raise AssertionError(f"flash_attention_fwd {name} {dtype}: "
                                      f"{bad} disagree with the plain version")
+            if route == "pieces":
+                _rel_gaps(rec, zip(("o", "lse"), (o, lse),
+                                   fa.flash_attention_fwd_pieces(
+                                       q, k, v, qp, kp, k_valid=kv, **kw)))
             pick = itertools.cycle(sets).__next__
 
             def run_kernel():
@@ -715,7 +751,8 @@ def kernels_flash_fwd():
                 "flash_attention_fwd", name, dtype, lib(), o_ref, rows, tol)
             rec["library_ms"] = device_ms(lib)
             rec["library_wall_ms"] = time_ms(lib)
-            rec["bound_ms"], rec["bound_by"] = _bound(
+            (rec["bound_ms"], rec["bound_by"], rec["bound_products"],
+             rec["bound_f32_cuda_core_ms"]) = _bound(
                 q, k, qp, kp, kv, m["causal"], m["window"], dtype)
             emit({"phase": "kernels", "kernel": "flash_attention_fwd", **rec})
             results.append(rec)
@@ -763,21 +800,22 @@ def _errs(rec):
 
 
 def _bwd_bound(q, k, q_pos, k_pos, k_valid, causal, window, dtype):
-    """(ms, bound_by) of the flash backward: 10*hd FLOPs per (query head,
-    admitted pair) (s, dp, dq, dk, dv); bytes: q, o, dO, dq once, lse, the
-    positions and validity, and k, v, dk, dv of the keys some query sees."""
+    """(ms, bound_by, products, CUDA-core ms) of the flash backward
+    (``_attn_bound``): 2*hd FLOPs a product per (query head, admitted
+    pair), five products (s, dp, dq, dk, dv); bytes: q, o, dO, dq once,
+    lse, the positions and validity, and k, v, dk, dv of the keys some
+    query sees."""
     b, sq, h, hd = q.shape
     kh = k.shape[2]
     ok = fa.pair_mask(q_pos, k_pos, k_valid, causal, window)
-    flops = 10.0 * hd * h * ok.sum().item()
     keys_needed = ok.any(dim=1).sum().item()
     es = q.element_size()
     nbytes = (4 * q.numel() * es + b * h * sq * 4
               + 4 * keys_needed * kh * hd * es
               + q_pos.numel() * 4 + k_pos.numel() * 4 + k_valid.numel())
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    route = "pieces" if dtype == torch.float32 else "tc"
+    return _attn_bound(2.0 * hd * h * ok.sum().item(), nbytes, dtype, route,
+                       backward=True)
 
 
 def kernels_flash_bwd():
@@ -801,12 +839,23 @@ def kernels_flash_bwd():
             want = fa.flash_attention_bwd_plain(*args, **kw)
             rec = {"case": name, "dtype": str(dtype).split(".")[-1],
                    "shape": shp, "main_path": main_path,
+                   "route": "pieces" if dtype == torch.float32 else "tc",
                    "tol": GRAD_TOL[dtype]}
             _check_close("flash_attention_bwd", name, dtype,
                          zip(("dq", "dk", "dv"), got, want),
                          GRAD_TOL[dtype], rec)
-            rec["ms"] = device_ms(lambda: fa.flash_attention_bwd(*args, **kw),
-                                  iters=10)
+            if dtype == torch.float32:
+                _rel_gaps(rec, zip(("dq", "dk", "dv"), got,
+                                   fa.flash_attention_bwd_pieces(*args,
+                                                                 **kw)))
+            del got
+            # the dq and the dk/dv kernels apart, and together
+            by = device_ms_by_kernel(
+                lambda: fa.flash_attention_bwd(*args, **kw), iters=10)
+            rec["ms_by_kernel"] = {
+                re.sub(r"^void |\(anonymous namespace\)::|\(.*", "", n): ms
+                for n, ms in by.items()}
+            rec["ms"] = sum(by.values())
             rec["plain_ms"] = device_ms(
                 lambda: fa.flash_attention_bwd_plain(*args, **kw), iters=5)
             # the backward of SDPA (a yardstick only), held to the plain
@@ -830,7 +879,8 @@ def kernels_flash_bwd():
             rec["library_ms"] = device_ms(lambda: torch.autograd.grad(
                 out, (qt, kt, vt), dot, retain_graph=True), iters=10)
             del out, qt, kt, vt
-            rec["bound_ms"], rec["bound_by"] = _bwd_bound(
+            (rec["bound_ms"], rec["bound_by"], rec["bound_products"],
+             rec["bound_f32_cuda_core_ms"]) = _bwd_bound(
                 q, k, qp, kp, kv, m["causal"], m["window"], dtype)
             emit({"phase": "kernels", "kernel": "flash_attention_bwd", **rec})
             results.append(rec)
@@ -848,7 +898,8 @@ def _entry_of(name, source, replaces, results, head):
             "replaces": replaces, "launches": None,
             "max_abs_err": max(_errs(r) for r in results),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"].split(",")[0],
             "library_ms": head["library_ms"], "cases": results}
 
 

@@ -4,9 +4,10 @@
                     (``csrc/flash_attention_bwd.cu``: dq, then dk/dv), CUDA
                     C++. Online-softmax GQA attention masked by absolute
                     positions, emitting o and the row LSE; the backward
-                    rebuilds p from the LSE. bf16 runs on the tensor cores,
-                    f32 on the CUDA cores, decode by split-KV. Serves
-                    prefill, decode and the train step.
+                    rebuilds p from the LSE. Both tiled routes run on the
+                    tensor cores (f32 from bf16 pieces, ``pieces.py``),
+                    decode by split-KV. Serves prefill, decode and the
+                    train step.
   softmax_xent    — the LM-head cross-entropy, forward (vocab split across
                     blocks, partials merged) and backward (dh, dw through a
                     [T, 8192] ds slab), CUDA C++ (``csrc/softmax_xent.cu``):

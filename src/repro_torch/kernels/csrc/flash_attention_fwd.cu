@@ -21,9 +21,21 @@
 //    tile that no (query, key) pair of the block can pass is skipped
 //    before its copy is issued (half the tiles of causal prefill). Query
 //    tiles run longest-first.
-//  * f32, tiled (`simt::fwd_kernel`): the CUDA-core kernel of the first
-//    port (no TF32: the f32 contract holds); 64-row query tiles, 32-key
-//    tiles staged in shared memory as f32, 4 x 4 scores a thread.
+//  * f32, tiled (`pieces::kernel`): the tc route's blocks, tiling and
+//    skip, with every product on the tensor cores from bf16 pieces
+//    of its f32 operands: x = hi + lo, and a . b = lo.hi + hi.lo + hi.hi
+//    (three mma.sync into one f32 accumulator, the small terms first;
+//    lo.lo dropped). The Q tile is staged in f32, pre-scaled and split
+//    once per block. K, then V, of each 64-key tile is copied by cp.async
+//    (16 bytes a thread, zero-filled past the ragged edge) into one f32
+//    staging buffer and split once in shared memory into one pair of
+//    hi/lo tiles in the padded ldmatrix layout (`ft::ld<HDP>()`): K's
+//    pieces are dead once S is formed, so V's take their place. V's copy
+//    overlaps S and the softmax, the next tile's K copy overlaps PV. P is
+//    split in registers from the accumulators into the two A operands of
+//    PV, so p stays f32 in value. The grid puts the query tiles on its
+//    slowest axis: the longest tiles start first across every head and
+//    batch row.
 //  * split-KV (`split::kernel` + `split::combine`), f32 or bf16, for calls
 //    whose G q heads x Sq queries fit 16 rows (every decode step): one
 //    block per (key chunk, kv head, batch) takes the G heads of its kv
@@ -39,17 +51,27 @@
 // is bytes; mma.sync, whose issue rate is below wgmma's, and the
 // softmax between the two products keep the kernel well above it. At
 // decode (Sq=1) the bound is bytes: the valid part of the cache, read
-// once. In f32 the bound is the 67 TFLOP/s of the CUDA cores.
+// once. The f32 route runs three bf16 products for each of the two, 19
+// GFLOP at prefill (20 us at 989 TFLOP/s) against 20 us for its 67 MB of
+// f32 I/O: about even, where the CUDA cores' 67 TFLOP/s would need 96 us
+// for the same 6.4 GFLOP. Its design spends shared-memory bandwidth once
+// per tile on the split and keeps the products on the tensor cores; one
+// staging buffer and one pair of pieces for K and V in turn keep it at
+// ~102 KB of shared memory at hd 128, two blocks an SM.
 //
 // Numerics. f32 route: s = (q * scale) . k with the scale applied to q
-// first, as the TPU kernel does. Tensor-core route: s = (q . k) * scale in
-// f32, the scale applied after the product (rounding q * scale to bf16
-// would add an error the TPU does not make); exponentials in base 2 of
-// s * log2(e). All routes: p masked explicitly, rounded to v's dtype for
-// the PV product while l sums it in f32; o = acc / max(l, 1e-30);
-// lse = m + log(l) where l > 0, else 0.
+// first, as the TPU kernel does; each split operand misses its f32 value
+// by at most 2^-16 of it, and the dropped lo.lo term is at most 2^-18 of
+// |a| |b|, so a product errs by at most (2^-15 + 2^-18) sum |a_i| |b_i|
+// beyond f32's own rounding (`pieces.PRODUCT_ERROR`). Tensor-core bf16
+// route: s = (q . k) * scale in f32, the scale applied after the product
+// (rounding q * scale to bf16 would add an error the TPU does not make).
+// Both: exponentials in base 2 of s * log2(e). All routes: p masked
+// explicitly, rounded to v's dtype for the PV product (bf16; in f32 split
+// in two) while l sums it in f32; o = acc / max(l, 1e-30); lse = m +
+// log(l) where l > 0, else 0.
 //
-// The new kernels state their minimum blocks an SM in __launch_bounds__:
+// The kernels state their minimum blocks an SM in __launch_bounds__:
 // left to itself, ptxas held some of them to 128 registers and spilled.
 //
 // Left for later: wgmma with TMA and a warp-specialised producer, and a
@@ -87,192 +109,263 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
 }
 
 // ---------------------------------------------------------------------------
-// f32: the CUDA-core kernel
+// f32: the pieces kernel (three bf16 tensor-core products a product)
 
-namespace simt {
-
-constexpr int BQ = 64;               // query rows per block
-constexpr int BK = 32;               // keys per tile
+namespace pieces {
+constexpr int BQ = 64;        // query rows per block, 16 per warp
+constexpr int BK = 64;        // keys per tile
 constexpr int THREADS = 128;
-constexpr int TX = 8;                // threads sharing one query row
-constexpr int RPT = BQ / (THREADS / TX);   // rows per thread (4)
-constexpr int CPT = BK / TX;               // score columns per thread (4)
-using ft::NEG_INF;
 
+// Shared memory: the Q tile's pieces; the pieces of one K or V tile (K's
+// are dead once S is formed, so V's take their place) and the f32 staging
+// of the next K or V tile; the key positions of the tile being computed;
+// the bitmasks of reachable and of unmasked key tiles (a word per 32).
+// Q's own f32 staging lies where the K/V pieces go, before the first of
+// them is written. At hd 128 that is ~102 KB: two blocks an SM.
 template <int HDP>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * (HDP + 1) + BK * (HDP + 1) + BK * HDP +
-                          BQ * (BK + 1)) +
-         sizeof(int) * 2 * BK;
+size_t smem_bytes(int Sk) {
+  return sizeof(bf16) * (2 * BQ + 2 * BK) * ft::ld<HDP>() +
+         sizeof(float) * BK * HDP + sizeof(int) * 2 * BK +
+         2 * sizeof(unsigned) * ((Sk + 32 * BK - 1) / (32 * BK));
 }
 
-// HDP: head dim padded up to 16/32/64/128; columns >= hd are zero.
-template <typename T, int HDP>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const int* __restrict__ q_pos,
-           const int* __restrict__ k_pos, const uint8_t* __restrict__ k_valid,
-           T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H,
-           int KH, int hd, float scale, int causal, int window) {
-  constexpr int QS = HDP + 1;        // padded row strides
-  constexpr int PS = BK + 1;
-  constexpr int DPT = HDP / TX;      // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                  // [BQ][QS], pre-scaled
-  float* Ks = Qs + BQ * QS;          // [BK][QS]
-  float* Vs = Ks + BK * QS;          // [BK][HDP]
-  float* Ps = Vs + BK * HDP;         // [BQ][PS]
-  int* kp_s = reinterpret_cast<int*>(Ps + BQ * PS);  // [BK] key positions
-  int* kv_s = kp_s + BK;                              // [BK] key usable
+// HDP: head dim padded to 32/64/96/128; columns >= hd are zero.
+template <int HDP>
+__global__ void __launch_bounds__(THREADS, 1)
+kernel(const float* __restrict__ q, const float* __restrict__ k,
+       const float* __restrict__ v, const int* __restrict__ q_pos,
+       const int* __restrict__ k_pos, const uint8_t* __restrict__ k_valid,
+       float* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H,
+       int KH, int hd, float scale, int causal, int window) {
+  constexpr int LD = ft::ld<HDP>();
+  constexpr int NT = BK / 8;       // 8-key score tiles a warp
+  constexpr int NO = HDP / 8;      // 8-column output tiles a warp
+  static_assert(BQ * HDP * sizeof(float) <= 2 * BK * LD * sizeof(bf16),
+                "Q's f32 staging must fit where the K/V pieces go");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qh = reinterpret_cast<bf16*>(smem_raw);      // [BQ][LD], q * scale
+  bf16* Ql = Qh + BQ * LD;
+  bf16* Ph = Ql + BQ * LD;                            // [BK][LD]: K or V
+  bf16* Pl = Ph + BK * LD;
+  float* F = reinterpret_cast<float*>(Pl + BK * LD);  // [BK][HDP] staging
+  float* Qf = reinterpret_cast<float*>(Ph);            // [BQ][HDP] staging
+  int* kp_s = reinterpret_cast<int*>(F + BK * HDP);    // [BK]
+  int* kv_s = kp_s + BK;                               // [BK]
+  const int nkt = (Sk + BK - 1) / BK;
+  unsigned* reach = reinterpret_cast<unsigned*>(kv_s + BK);
+  unsigned* full = reach + (nkt + 31) / 32;
+  __shared__ int wmin[THREADS / 32], wmax[THREADS / 32];
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // grid (H, B, query tiles): the longest tiles (the last, under a causal
+  // mask) first across every head and batch row
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int h = blockIdx.x, b = blockIdx.y;
   const int kh = h / (H / KH);
+  const int nq = min(BQ, Sq - q0);
+  const size_t kstride = (size_t)KH * hd;
 
-  for (int i = tid; i < BQ * HDP; i += THREADS) {
-    const int r = i / HDP, d = i % HDP, s = q0 + r;
-    float x = 0.f;
-    if (s < Sq && d < hd)
-      x = to_f32(q[(((size_t)b * Sq + s) * H + h) * hd + d]) * scale;
-    Qs[r * QS + d] = x;
+  const int* kpos = k_pos + (size_t)b * Sk;
+  const uint8_t* kval = k_valid + (size_t)b * Sk;
+  // a tile's key positions travel in registers while its K copy is in
+  // flight, and land in kp_s / kv_s beside its split
+  int kp_r = 0, kv_r = 0;
+  auto fetch_pos = [&](int t) {
+    const int c = t * BK + tid;
+    if (tid < BK && c < Sk) {
+      kp_r = kpos[c];
+      kv_r = kval[c];
+    } else {
+      kv_r = 0;
+    }
+  };
+  // copy tile t of k or v into the staging buffer, as one group
+  auto load = [&](const float* src, int t) {
+    const int k0 = t * BK;
+    const size_t off = (((size_t)b * Sk + k0) * KH + kh) * hd;
+    ft::load_tile_f32<HDP, THREADS>(F, src + off, kstride, BK,
+                                    min(BK, Sk - k0), hd, tid);
+    ft::cp_async_commit();
+  };
+
+  // Q, then (before anything is known) K of tile 0, as two copy groups
+  ft::load_tile_f32<HDP, THREADS>(Qf, q + (((size_t)b * Sq + q0) * H + h) * hd,
+                                  (size_t)H * hd, BQ, nq, hd, tid);
+  ft::cp_async_commit();
+  load(k, 0);
+  fetch_pos(0);
+
+  // this thread's two query rows (g and g + 8 of its warp's 16)
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16 + g, r1 = r0 + 8;
+  const bool ok0 = r0 < nq, ok1 = r1 < nq;
+  const int qp0 = ok0 ? q_pos[(size_t)b * Sq + q0 + r0] : 0;
+  const int qp1 = ok1 ? q_pos[(size_t)b * Sq + q0 + r1] : 0;
+
+  // the block's position range, for skipping key tiles no pair can pass
+  int mn = INT_MAX, mx = INT_MIN;
+  if (tid < nq) mn = mx = q_pos[(size_t)b * Sq + q0 + tid];
+  mn = __reduce_min_sync(0xffffffffu, mn);
+  mx = __reduce_max_sync(0xffffffffu, mx);
+  if (lane == 0) {
+    wmin[warp] = mn;
+    wmax[warp] = mx;
   }
-
-  int qp[RPT];
-  bool row_ok[RPT];
-  float m[RPT], l[RPT], acc[RPT][DPT];
+  __syncthreads();
+  int qmin = wmin[0], qmax = wmax[0];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int s = q0 + ty * RPT + i;
-    row_ok[i] = s < Sq;
-    qp[i] = row_ok[i] ? q_pos[(size_t)b * Sq + s] : 0;
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
+  for (int w = 1; w < THREADS / 32; ++w) {
+    qmin = min(qmin, wmin[w]);
+    qmax = max(qmax, wmax[w]);
   }
+  ft::build_reach<BK, THREADS>(reach, full, Sk, [&](int c) {
+    const int kp = kpos[c];
+    const bool valid = kval[c];
+    return (valid && ft::key_reaches(kp, qmin, qmax, causal, window)) |
+           (valid && ft::key_passes_all(kp, qmin, qmax, causal, window)) << 1;
+  });
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m0 = ft::NEG_INF, m1 = ft::NEG_INF, l0 = 0.f, l1 = 0.f;
 
-  for (int k0 = 0; k0 < Sk; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed; Qs is written
+  int t = ft::next_tile(reach, 0, nkt);
+  if (t > 0 && t < nkt) {   // tile 0 is not needed: copy the first tile
+    ft::cp_async_wait<0>();   // (each thread's tile-0 copy lands first)
+    load(k, t);
+    fetch_pos(t);
+  }
+  if (t < nkt) {   // Q's pieces, pre-scaled, once per block
+    ft::cp_async_wait<1>();
+    __syncthreads();
+    ft::split_tile<HDP, THREADS>(Qh, Ql, Qf, BQ, scale, tid);
+  }
+  // Per tile, K then V pass through the staging buffer and the pieces: V's
+  // copy overlaps S and the softmax, the next K's copy overlaps PV.
+  while (t < nkt) {
+    ft::cp_async_wait<0>();   // K of tile t has landed
+    __syncthreads();          // (and every warp is done with V's pieces)
+    ft::split_tile<HDP, THREADS>(Ph, Pl, F, BK, 1.f, tid);
     if (tid < BK) {
-      const int c = k0 + tid;
-      const bool valid = c < Sk && k_valid[(size_t)b * Sk + c];
-      kv_s[tid] = valid;
-      kp_s[tid] = valid ? k_pos[(size_t)b * Sk + c] : 0;
+      kp_s[tid] = kp_r;
+      kv_s[tid] = kv_r;
     }
     __syncthreads();
+    load(v, t);
 
-    bool ok[RPT][CPT];
-    int any = 0;
+    // S = (Q * scale) K^T: three products from pieces
+    float s[NT][4];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    ft::mma3_abt<HDP>(s, Qh, Ql, Ph, Pl, warp * 16, lane);
+
+    // mask (not on a tile every pair passes); s in base-2 units; a masked
+    // pair becomes -inf, so its p = exp2(-inf - m) is exactly 0. (Rows
+    // past Sq stay unmasked on a full tile: never written.)
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+    if (ft::bit(full, t)) {
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = tx + TX * j;
-        const int kp = kp_s[c];
-        ok[i][j] = row_ok[i] && kv_s[c] && (!causal || kp <= qp[i]) &&
-                   (window <= 0 || qp[i] - kp < window);
-        any |= ok[i][j];
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[j][e] *= ft::LOG2E;
+          s[j][2 + e] *= ft::LOG2E;
+          mx0 = fmaxf(mx0, s[j][e]);
+          mx1 = fmaxf(mx1, s[j][2 + e]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = j * 8 + t4 * 2 + e;
+          const int kp = kp_s[c];
+          const bool kv = kv_s[c];
+          s[j][e] = (ok0 && ft::pair_ok(qp0, kp, kv, causal, window))
+                        ? s[j][e] * ft::LOG2E : -INFINITY;
+          s[j][2 + e] = (ok1 && ft::pair_ok(qp1, kp, kv, causal, window))
+                            ? s[j][2 + e] * ft::LOG2E : -INFINITY;
+          mx0 = fmaxf(mx0, s[j][e]);
+          mx1 = fmaxf(mx1, s[j][2 + e]);
+        }
       }
     }
-    // A fully masked tile changes nothing (m, l, acc stay as they are).
-    if (!__syncthreads_or(any)) continue;
-
-    for (int i = tid; i < BK * HDP; i += THREADS) {
-      const int c = i / HDP, d = i % HDP, s = k0 + c;
-      float kx = 0.f, vx = 0.f;
-      if (s < Sk && d < hd) {
-        const size_t off = (((size_t)b * Sk + s) * KH + kh) * hd + d;
-        kx = to_f32(k[off]);
-        vx = to_f32(v[off]);
-      }
-      Ks[c * QS + d] = kx;
-      Vs[c * HDP + d] = vx;
+    // a row's 16 columns lie in the 4 lanes of one quad
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      s[j][0] = exp2f(s[j][0] - mn0);
+      s[j][1] = exp2f(s[j][1] - mn0);
+      s[j][2] = exp2f(s[j][2] - mn1);
+      s[j][3] = exp2f(s[j][3] - mn1);
+      rs0 += s[j][0] + s[j][1];
+      rs1 += s[j][2] + s[j][3];
     }
+    l0 = l0 * c0 + rs0;   // this lane's columns; the quad sums at the end
+    l1 = l1 * c1 + rs1;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      acc[j][0] *= c0;
+      acc[j][1] *= c0;
+      acc[j][2] *= c1;
+      acc[j][3] *= c1;
+    }
+
+    ft::cp_async_wait<0>();   // V of tile t has landed
+    __syncthreads();          // (and every warp is done with K's pieces)
+    ft::split_tile<HDP, THREADS>(Ph, Pl, F, BK, 1.f, tid);
     __syncthreads();
-
-    float s_[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s_[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HDP; ++d) {
-      float qv[RPT], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = Qs[(ty * RPT + i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = Ks[(tx + TX * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s_[i][j] = fmaf(qv[i], kv[j], s_[i][j]);
+    const int tn = ft::next_tile(reach, t + 1, nkt);
+    if (tn < nkt) {
+      load(k, tn);
+      fetch_pos(tn);
     }
-
-    // Online softmax. A row's TX threads are 8 neighbouring lanes of one
-    // warp, so xor-shuffles over 4, 2, 1 reduce exactly within the row.
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) mx = fmaxf(mx, ok[i][j] ? s_[i][j] : NEG_INF);
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float p = ok[i][j] ? expf(s_[i][j] - m_new) : 0.f;
-        rs += p;
-        // p is rounded to v's dtype for the PV product; l keeps it in f32
-        Ps[(ty * RPT + i) * PS + tx + TX * j] = to_f32(from_f32<T>(p));
-      }
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= corr;
-    }
-    // Each thread reads back only its own rows of Ps, written by the 8
-    // lanes of its own row group: a warp barrier orders them.
-    __syncwarp();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pv[i] = Ps[(ty * RPT + i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const float vv = Vs[c * HDP + tx + TX * j];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
+    // O += P V: p split in two as the A operands (f32 in value), V by
+    // transposed loads of its pieces
+    ft::mma3_pb<HDP>(acc, s, Ph, Pl, lane);
+    t = tn;
   }
+  ft::cp_async_wait<0>();   // a block with no tile still copied its Q
 
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    if (!row_ok[i]) continue;
-    const int s = q0 + ty * RPT + i;
-    const float den = fmaxf(l[i], 1e-30f);
+  for (int half = 0; half < 2; ++half) {
+    if (!(half ? ok1 : ok0)) continue;
+    const int r = half ? r1 : r0;
+    const float den = half ? d1 : d0;
+    float* orow = o + (((size_t)b * Sq + q0 + r) * H + h) * hd;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int d = tx + TX * j;
-      if (d < hd)
-        o[(((size_t)b * Sq + s) * H + h) * hd + d] = from_f32<T>(acc[i][j] / den);
+    for (int j = 0; j < NO; ++j) {
+      const int c = j * 8 + t4 * 2;
+      const float x0 = acc[j][2 * half] / den, x1 = acc[j][2 * half + 1] / den;
+      if (c + 1 < hd && hd % 2 == 0) {
+        *reinterpret_cast<float2*>(orow + c) = make_float2(x0, x1);
+      } else {
+        if (c < hd) orow[c] = x0;
+        if (c + 1 < hd) orow[c + 1] = x1;
+      }
     }
-    if (tx == 0)
-      lse[((size_t)b * H + h) * Sq + s] = l[i] > 0.f ? m[i] + logf(den) : 0.f;
+    const float l = half ? l1 : l0, m = half ? m1 : m0;
+    if (t4 == 0)
+      lse[((size_t)b * H + h) * Sq + q0 + r] =
+          l > 0.f ? m * ft::LN2 + logf(den) : 0.f;
   }
 }
-
-}  // namespace simt
+}  // namespace pieces
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernel
@@ -868,16 +961,16 @@ cudaError_t allow_smem(K kernel_fn, size_t smem) {
 }
 
 template <int HDP>
-cudaError_t launch_simt(const void* q, const void* k, const void* v,
-                        const void* q_pos, const void* k_pos,
-                        const void* k_valid, void* o, void* lse, int B,
-                        int Sq, int Sk, int H, int KH, int hd, float scale,
-                        int causal, int window, cudaStream_t stream) {
-  const size_t smem = simt::smem_bytes<HDP>();
-  cudaError_t err = allow_smem(simt::fwd_kernel<float, HDP>, smem);
+cudaError_t launch_pieces(const void* q, const void* k, const void* v,
+                          const void* q_pos, const void* k_pos,
+                          const void* k_valid, void* o, void* lse, int B,
+                          int Sq, int Sk, int H, int KH, int hd, float scale,
+                          int causal, int window, cudaStream_t stream) {
+  const size_t smem = pieces::smem_bytes<HDP>(Sk);
+  cudaError_t err = allow_smem(pieces::kernel<HDP>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + simt::BQ - 1) / simt::BQ, H, B);
-  simt::fwd_kernel<float, HDP><<<grid, simt::THREADS, smem, stream>>>(
+  const dim3 grid(H, B, (Sq + pieces::BQ - 1) / pieces::BQ);
+  pieces::kernel<HDP><<<grid, pieces::THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(q_pos),
       static_cast<const int*>(k_pos), static_cast<const uint8_t*>(k_valid),
@@ -934,11 +1027,11 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// The tiled routes. dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
-// cores). Tensors are contiguous: q/o [B,Sq,H,hd], k/v [B,Sk,KH,hd], q_pos
-// [B,Sq] and k_pos [B,Sk] int32, k_valid [B,Sk] bool (one byte each), lse
-// [B,H,Sq] f32. Launches on `stream` without synchronising and returns
-// cudaGetLastError().
+// The tiled routes. dtype: 0 = float32 (the pieces route), 1 = bfloat16
+// (the tc route); both on the tensor cores. Tensors are contiguous: q/o
+// [B,Sq,H,hd], k/v [B,Sk,KH,hd], q_pos [B,Sq] and k_pos [B,Sk] int32,
+// k_valid [B,Sk] bool (one byte each), lse [B,H,Sq] f32. Launches on
+// `stream` without synchronising and returns cudaGetLastError().
 int flash_attention_fwd(int dtype, const void* q, const void* k,
                         const void* v, const void* q_pos, const void* k_pos,
                         const void* k_valid, void* o, void* lse, int B,
@@ -951,11 +1044,13 @@ int flash_attention_fwd(int dtype, const void* q, const void* k,
 #define REPRO_FA_ARGS                                                        \
   q, k, v, q_pos, k_pos, k_valid, o, lse, B, Sq, Sk, H, KH, hd, scale,      \
       causal, window, st
-  if (dtype == 0) {
-    if (hd <= 16) return (int)launch_simt<16>(REPRO_FA_ARGS);
-    if (hd <= 32) return (int)launch_simt<32>(REPRO_FA_ARGS);
-    if (hd <= 64) return (int)launch_simt<64>(REPRO_FA_ARGS);
-    return (int)launch_simt<128>(REPRO_FA_ARGS);
+  if (dtype == 0) {   // query tiles on the grid's z axis
+    if ((Sq + pieces::BQ - 1) / pieces::BQ > 65535)
+      return (int)cudaErrorInvalidValue;
+    if (hd <= 32) return (int)launch_pieces<32>(REPRO_FA_ARGS);
+    if (hd <= 64) return (int)launch_pieces<64>(REPRO_FA_ARGS);
+    if (hd <= 96) return (int)launch_pieces<96>(REPRO_FA_ARGS);
+    return (int)launch_pieces<128>(REPRO_FA_ARGS);
   }
   if (dtype == 1) {
     if (hd <= 32) return (int)launch_tc<32>(REPRO_FA_ARGS);

@@ -1,9 +1,10 @@
-// Building blocks of the flash-attention kernels' tensor-core route
-// (bf16 inputs) on Hopper (sm_90a): warp-level mma.sync.m16n8k16 with
-// bf16 operands and f32 accumulators, fragments loaded from shared memory
-// by ldmatrix, tiles copied into shared memory by cp.async (16 bytes a
-// thread, zero-filled past the ragged edge), and the attention mask by
-// absolute positions. Used by flash_attention_fwd.cu and
+// Building blocks of the flash-attention kernels' tensor-core routes on
+// Hopper (sm_90a): warp-level mma.sync.m16n8k16 with bf16 operands and f32
+// accumulators, fragments loaded from shared memory by ldmatrix, tiles
+// copied into shared memory by cp.async (16 bytes a thread, zero-filled
+// past the ragged edge), the bf16 pieces of f32 tiles and fragments (the
+// f32 route: x = hi + lo, three products a product), and the attention
+// mask by absolute positions. Used by flash_attention_fwd.cu and
 // flash_attention_bwd.cu.
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA), with g = lane / 4 and
@@ -156,6 +157,146 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                             ? src[(size_t)r * stride + c]
                             : __float2bfloat16(0.f);
     }
+  }
+}
+
+// The f32 route's pieces. A value x is hi + lo with hi = rn(x) and lo =
+// rn(x - hi), both bf16: |x - hi - lo| <= 2^-16 |x|, and a product of two
+// split operands is lo.hi + hi.lo + hi.hi (lo.lo, at most 2^-18 |a| |b|,
+// dropped), each exact in f32 and summed in the f32 accumulator.
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // .x = a: low half
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// c += a . b from pieces, the small terms first.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma(c, alo, bh0, bh1);
+  mma(c, ahi, bl0, bl1);
+  mma(c, ahi, bh0, bh1);
+}
+
+// The hi and lo A fragments of one 16-deep step from the f32 C fragments
+// of two neighbouring 8-column tiles (as c_to_a, each value split).
+__device__ __forceinline__ void c_to_a_split(uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4],
+                                             const float (&c0)[4],
+                                             const float (&c1)[4]) {
+  split2(c0[0], c0[1], hi[0], lo[0]);
+  split2(c0[2], c0[3], hi[1], lo[1]);
+  split2(c1[0], c1[1], hi[2], lo[2]);
+  split2(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// c[j] (8-column tile j of this warp's 16 rows) += A . B^T over the
+// HDP-deep padded tiles, from pieces: A's rows r0..r0+15 of the [*][ld]
+// tile pair (ah_t, al_t), B's rows (the output columns) 0..8*NT-1 of the
+// pair (bh_t, bl_t).
+template <int HDP, int NT>
+__device__ __forceinline__ void mma3_abt(float (&c)[NT][4],
+                                         const __nv_bfloat16* ah_t,
+                                         const __nv_bfloat16* al_t,
+                                         const __nv_bfloat16* bh_t,
+                                         const __nv_bfloat16* bl_t, int r0,
+                                         int lane) {
+  constexpr int LD = ld<HDP>();
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    uint32_t ah[4], al[4];
+    load_a(ah, ah_t, LD, r0, kk * 16, lane);
+    load_a(al, al_t, LD, r0, kk * 16, lane);
+#pragma unroll
+    for (int nj = 0; nj < NT / 2; ++nj) {
+      uint32_t bh[4], bl[4];
+      load_b_nk(bh, bh_t, LD, nj * 16, kk * 16, lane);
+      load_b_nk(bl, bl_t, LD, nj * 16, kk * 16, lane);
+      mma3(c[2 * nj], ah, al, bh[0], bh[1], bl[0], bl[1]);
+      mma3(c[2 * nj + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+}
+
+// acc[j] (8-column tile j of the HDP outputs of this warp's 16 rows) +=
+// P . B, from pieces: P is this warp's f32 C fragments p[0..NT-1] (8*NT
+// deep), split in registers into the A operands; B is rows 0..8*NT-1 of
+// the [*][ld] tile pair (bh_t, bl_t), read by transposed loads.
+template <int HDP, int NT>
+__device__ __forceinline__ void mma3_pb(float (&acc)[HDP / 8][4],
+                                        const float (&p)[NT][4],
+                                        const __nv_bfloat16* bh_t,
+                                        const __nv_bfloat16* bl_t,
+                                        int lane) {
+  constexpr int LD = ld<HDP>();
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    uint32_t ah[4], al[4];
+    c_to_a_split(ah, al, p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+    for (int nd = 0; nd < HDP / 16; ++nd) {
+      uint32_t bh[4], bl[4];
+      load_b_kn(bh, bh_t, LD, kk * 16, nd * 16, lane);
+      load_b_kn(bl, bl_t, LD, kk * 16, nd * 16, lane);
+      mma3(acc[2 * nd], ah, al, bh[0], bh[1], bl[0], bl[1]);
+      mma3(acc[2 * nd + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+}
+
+// Copy `rows` rows of a [*, hd] f32 slab into an f32 staging tile
+// [rows][HDP]: row r comes from src + r * stride (elements); rows at or
+// past `valid_rows` and columns at or past hd read as zero. 16-byte
+// cp.async copies where the slab's rows are 16-byte aligned (hd a multiple
+// of 4 and src aligned; the caller commits and waits), else element by
+// element (the caller's barrier publishes the tile).
+template <int HDP, int THREADS>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+                                              size_t stride, int rows,
+                                              int valid_rows, int hd,
+                                              int tid) {
+  constexpr int CH = HDP / 4;  // 16-byte chunks a row
+  if (hd % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int i = tid; i < rows * CH; i += THREADS) {
+      const int r = i / CH, c = (i % CH) * 4;
+      const bool in = r < valid_rows && c < hd;
+      cp_async16(dst + r * HDP + c, in ? src + (size_t)r * stride + c : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < rows * HDP; i += THREADS) {
+      const int r = i / HDP, c = i % HDP;
+      dst[r * HDP + c] =
+          (r < valid_rows && c < hd) ? src[(size_t)r * stride + c] : 0.f;
+    }
+  }
+}
+
+// Split a staged f32 tile [rows][HDP], times `scale`, into its bf16 hi and
+// lo tiles in the padded ldmatrix layout [rows][HDP + 8]: four values a
+// thread a step, 16-byte reads and 8-byte writes.
+template <int HDP, int THREADS>
+__device__ __forceinline__ void split_tile(__nv_bfloat16* hi,
+                                           __nv_bfloat16* lo,
+                                           const float* src, int rows,
+                                           float scale, int tid) {
+  constexpr int CH = HDP / 4;
+  constexpr int LD = ld<HDP>();
+  for (int i = tid; i < rows * CH; i += THREADS) {
+    const int r = i / CH, c = (i % CH) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(src + r * HDP + c);
+    uint2 h, l;
+    // __fmul_rn: the scaled value is rounded to f32 before its split (no
+    // contraction into the residual's subtraction)
+    split2(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale), h.x, l.x);
+    split2(__fmul_rn(x.z, scale), __fmul_rn(x.w, scale), h.y, l.y);
+    *reinterpret_cast<uint2*>(hi + r * LD + c) = h;
+    *reinterpret_cast<uint2*>(lo + r * LD + c) = l;
   }
 }
 

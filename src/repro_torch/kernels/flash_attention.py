@@ -33,7 +33,12 @@ Routes on the card (``csrc/flash_attention_fwd.cu``, ``_bwd.cu``):
   rounded to bf16 before PV, as above. In the backward p and ds are also
   rounded to bf16 before their products, where the TPU kernels keep them
   in f32: that route's one deviation, within bf16's 2e-2 tolerance.
-* f32, tiled: CUDA cores, full f32 (no TF32), the scale applied to q.
+* f32, tiled (``pieces``): every product on the tensor cores from bf16
+  pieces of its f32 operands, three bf16 products summed in f32
+  (``pieces.product``; ``route_products`` counts them), the scale applied
+  to q before its split; p and ds stay f32 in value, split in two.
+  ``flash_attention_fwd_pieces`` and ``flash_attention_bwd_pieces`` are
+  that route in plain PyTorch, for the tests and the card's checks.
 * split-KV (forward, f32 and bf16): taken when a kv head's G q heads x Sq
   queries fit ``SPLIT_MAX_ROWS`` rows (every decode step). The keys are cut
   into ``split_plan`` chunks; one block per (chunk, kv head, batch) reads
@@ -48,7 +53,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, pieces
 from repro_torch.kernels.ref import NEG_INF
 
 MAX_HEAD_DIM = 128
@@ -79,25 +84,54 @@ def pair_mask(q_pos, k_pos, k_valid, causal, window):
     return ok
 
 
+def _pieces_einsum(eq, a, b):
+    """einsum(eq, a, b) as the f32 route forms it: three bf16 products of
+    the operands' pieces, summed in f32 (``pieces.product``)."""
+    return pieces.product(a, b, functools.partial(torch.einsum, eq))
+
+
+def _forward(q, k, v, q_pos, k_pos, k_valid, causal, window, mul):
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qg = (q.float() * hd ** -0.5).reshape(b, sq, kh, g, hd)
+    s = mul("bqkgd,bskd->bkgqs", qg, k.float())
+    ok = pair_mask(q_pos, k_pos, k_valid, causal, int(window))[:, None, None]
+    m = torch.where(ok, s, NEG_INF).amax(dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1)                                       # [b,kh,g,sq]
+    acc = mul("bkgqs,bskd->bkgqd", p.to(v.dtype).float(), v.float())
+    o = acc / l.clamp_min(1e-30)[..., None]
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+    lse = torch.where(l > 0, m[..., 0] + torch.log(l.clamp_min(1e-30)), 0.0)
+    return o, lse.reshape(b, h, sq)
+
+
 def flash_attention_plain(q, k, v, q_pos, k_pos, *, causal=True, window=0,
                           k_valid):
     """The kernel's function in plain PyTorch (materialized scores).
 
     Returns (o [B,Sq,H,hd] in q's dtype, lse [B,H,Sq] f32)."""
-    b, sq, h, hd = q.shape
-    kh = k.shape[2]
-    g = h // kh
-    qg = (q.float() * hd ** -0.5).reshape(b, sq, kh, g, hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
-    ok = pair_mask(q_pos, k_pos, k_valid, causal, int(window))[:, None, None]
-    m = torch.where(ok, s, NEG_INF).amax(dim=-1, keepdim=True)
-    p = torch.where(ok, torch.exp(s - m), 0.0)
-    l = p.sum(dim=-1)                                       # [b,kh,g,sq]
-    acc = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype).float(), v.float())
-    o = acc / l.clamp_min(1e-30)[..., None]
-    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
-    lse = torch.where(l > 0, m[..., 0] + torch.log(l.clamp_min(1e-30)), 0.0)
-    return o, lse.reshape(b, h, sq)
+    return _forward(q, k, v, q_pos, k_pos, k_valid, causal, window,
+                    torch.einsum)
+
+
+def flash_attention_fwd_pieces(q, k, v, q_pos, k_pos, *, causal=True,
+                               window=0, k_valid):
+    """The f32 tiled route in plain PyTorch: s = (q * scale) . k and
+    o = p . v each from bf16 pieces, p masked and kept in f32 before its
+    split. Returns (o, lse) as ``flash_attention_plain``; the kernel's gap
+    to it is summation order and its running max alone."""
+    return _forward(q, k, v, q_pos, k_pos, k_valid, causal, window,
+                    _pieces_einsum)
+
+
+def route_products(dtype) -> tuple:
+    """(forward, backward) bf16 products a tiled call runs on the tensor
+    cores: each of the forward's 2 products (s, o) and the backward's 5 (s,
+    dp, dq, dk, dv) is three in f32 (the pieces route), one in bf16."""
+    n = pieces.n_products(pieces.n_pieces(dtype), pieces.n_pieces(dtype))
+    return 2 * n, 5 * n
 
 
 def uses_split(sq, h, kh) -> bool:
@@ -142,28 +176,44 @@ def attention_delta(o, do):
     return torch.einsum("bqhd,bqhd->bhq", do.float(), o.float()).contiguous()
 
 
-def flash_attention_bwd_plain(q, k, v, q_pos, k_pos, k_valid, o, lse, do, *,
-                              causal=True, window=0):
-    """The backward kernels' function in plain PyTorch (materialized
-    scores). Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+def _backward(q, k, v, q_pos, k_pos, k_valid, o, lse, do, causal, window,
+              mul):
     b, sq, h, hd = q.shape
     kh = k.shape[2]
     g = h // kh
     scale = hd ** -0.5
     qg = (q.float() * scale).reshape(b, sq, kh, g, hd)
     dog = do.float().reshape(b, sq, kh, g, hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    s = mul("bqkgd,bskd->bkgqs", qg, k.float())
     ok = pair_mask(q_pos, k_pos, k_valid, causal, int(window))[:, None, None]
     lse_g = lse.reshape(b, kh, g, sq)[..., None]
     delta = attention_delta(o, do).reshape(b, kh, g, sq)[..., None]
     p = torch.where(ok, torch.exp(s - lse_g), 0.0)
-    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
+    dp = mul("bqkgd,bskd->bkgqs", dog, v.float())
     ds = p * (dp - delta)
-    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
-    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
-    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    dq = mul("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    dk = mul("bkgqs,bqkgd->bskd", ds, qg)
+    dv = mul("bkgqs,bqkgd->bskd", p, dog)
     return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def flash_attention_bwd_plain(q, k, v, q_pos, k_pos, k_valid, o, lse, do, *,
+                              causal=True, window=0):
+    """The backward kernels' function in plain PyTorch (materialized
+    scores). Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    return _backward(q, k, v, q_pos, k_pos, k_valid, o, lse, do, causal,
+                     window, torch.einsum)
+
+
+def flash_attention_bwd_pieces(q, k, v, q_pos, k_pos, k_valid, o, lse, do,
+                               *, causal=True, window=0):
+    """The f32 tiled route of the backward in plain PyTorch: s, dp, dq, dk
+    and dv each from bf16 pieces, p and ds built in f32 and split before
+    their products (delta = rowsum(dO * O) in f32). Returns (dq, dk, dv)
+    as ``flash_attention_bwd_plain``."""
+    return _backward(q, k, v, q_pos, k_pos, k_valid, o, lse, do, causal,
+                     window, _pieces_einsum)
 
 
 def _check(q, k, v, q_pos, k_pos, k_valid):

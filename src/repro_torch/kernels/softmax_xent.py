@@ -17,9 +17,9 @@ labels [T]:
 
 The kernels never hold [T, V] logits; the plain versions materialize them.
 The kernels run every product on the tensor cores from bf16 pieces of the
-f32 operands (``split_bf16``): an f32 x is hi + lo, and a product of two
-split operands is the sum of three bf16 products (lo . lo dropped),
-accumulated in f32. ``softmax_xent_fwd_pieces`` and
+f32 operands (``pieces.split_bf16``): an f32 x is hi + lo, and a product
+of two split operands is the sum of three bf16 products (lo . lo
+dropped), accumulated in f32. ``softmax_xent_fwd_pieces`` and
 ``softmax_xent_bwd_pieces`` are that route in plain PyTorch, for the tests
 and the card's checks; the plain versions stay the oracle.
 """
@@ -30,7 +30,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, pieces
+from repro_torch.kernels.pieces import n_pieces, split_bf16  # noqa: F401
 from repro_torch.kernels.ref import softmax_xent_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,29 +55,8 @@ def softmax_xent_bwd_plain(h, w, labels, lse, g):
 
 
 # ---------------------------------------------------------------------------
-# the split-bf16 route
-
-
-def split_bf16(x):
-    """(hi, lo): bf16 pieces with x ~ hi + lo, each rounded to nearest even
-    (as ``__float2bfloat16_rn`` on the card), so |x - hi - lo| <= 2^-16 |x|
-    for x in f32's normal range. A bf16 x is exact as it stands: (x, None).
-    A |x| that rounds to bf16's inf (within 2^-9 of f32's largest value)
-    gives hi = inf and lo = -inf, so every product it enters is NaN."""
-    if x.dtype == torch.bfloat16:
-        return x, None
-    hi = x.to(torch.bfloat16)
-    return hi, (x - hi.float()).to(torch.bfloat16)
-
-
-def n_pieces(dtype) -> int:
-    """bf16 pieces of an operand of this dtype: 2 for f32, 1 for bf16."""
-    return 2 if dtype == torch.float32 else 1
-
-
-def _n_products(pa: int, pb: int) -> int:
-    # two split operands: hi.hi + hi.lo + lo.hi (lo.lo dropped)
-    return pa * pb - (pa == pb == 2)
+# the split-bf16 route (its pieces in ``pieces.py``, shared with the flash
+# kernels' f32 route)
 
 
 def products(h_dtype, w_dtype) -> tuple:
@@ -84,29 +64,14 @@ def products(h_dtype, w_dtype) -> tuple:
     the logits (h . w), and in the backward the logits again, dh (ds . w^T)
     and dw (h^T . ds), with ds always split in two."""
     nh, nw = n_pieces(h_dtype), n_pieces(w_dtype)
-    fwd = _n_products(nh, nw)
-    return fwd, fwd + _n_products(2, nw) + _n_products(nh, 2)
-
-
-def _product(a, b):
-    """a . b as the kernels form it: the sum of the bf16 pieces' products
-    (lo . lo dropped), the small terms first, each exact in f32 and summed
-    in f32."""
-    pa = [p for p in split_bf16(a) if p is not None]
-    pb = [p for p in split_bf16(b) if p is not None]
-    terms = sorted(((i, j) for i in range(len(pa)) for j in range(len(pb))
-                    if i + j <= 1), key=lambda ij: -sum(ij))
-    out = None
-    for i, j in terms:
-        t = pa[i].float() @ pb[j].float()
-        out = t if out is None else out + t
-    return out
+    fwd = pieces.n_products(nh, nw)
+    return fwd, fwd + pieces.n_products(2, nw) + pieces.n_products(nh, 2)
 
 
 def softmax_xent_fwd_pieces(h, w, labels):
     """The forward's route in plain PyTorch: (loss [T], lse [T]) in f32
     from the split-bf16 logits."""
-    logits = _product(h, w)
+    logits = pieces.product(h, w)
     lse = torch.logsumexp(logits, dim=-1)
     return lse - logits.gather(1, labels.long()[:, None])[:, 0], lse
 
@@ -115,8 +80,9 @@ def softmax_xent_bwd_pieces(h, w, labels, lse, g):
     """The backward's route in plain PyTorch: (dh in h's dtype, dw in w's
     dtype), with the logits, dh and dw each from bf16 pieces and ds split
     in two (it is built in f32, as the TPU kernel keeps it)."""
-    ds = _ds(_product(h, w), labels, lse, g)
-    return (_product(ds, w.T).to(h.dtype), _product(h.T, ds).to(w.dtype))
+    ds = _ds(pieces.product(h, w), labels, lse, g)
+    return (pieces.product(ds, w.T).to(h.dtype),
+            pieces.product(h.T, ds).to(w.dtype))
 
 
 # ---------------------------------------------------------------------------
