@@ -34,6 +34,13 @@
                  last 4 blocks trainable, block remat, int8 links: flash
                  forward and backward, the fused LM-head CE, quant8 (its
                  in-kernel Philox), 3 steps;
+   trainer       the train path again through the train CLI's build, the
+                 prefetcher (depth 2, placement on its producer thread)
+                 and the Trainer, the run log on: each step's launches as
+                 train's, every loss and grad norm bitwise equal to
+                 train's, exactly 2 syncs in Trainer.run (torch's sync
+                 debug mode), the run log's spans once a step and its
+                 link records, wire bytes as core.costs gives them;
    ssm_serve     full-width falcon-mamba-7b (64 Mamba blocks, d_model
                  4096, d_inner 8192, d_state 16, vocab 65024), as serve:
                  the scan forward in every layer's prefill (decode is the
@@ -95,6 +102,14 @@
                  the encoder (the frames' gradient reaches the client
                  adapters through it), self- and cross-attention; CE at D
                  384; quant8 at a 384-wide link;
+   trainer_resume  encdec_train through the Trainer and the prefetcher:
+                 6 steps straight; 3 steps, a checkpoint, everything
+                 deleted, rebuilt, auto-resumed to 6; the fault plan
+                 producer_crash@1,ckpt_fail@3; nan_batch@4 under the
+                 guard; the second and third held bitwise to the first,
+                 the NaN step to the state before it. Beside them the old
+                 CLI loop (batches assembled in series with the step) and
+                 the checkpoint's bytes, save and restore times;
    vlm_serve     qwen2-vl-72b at its published widths (d_model 8192, 64
                  heads on 8 KV heads, hd 128, d_ff 29568, vocab 152064,
                  qkv bias, M-RoPE sections (16, 24, 24)), depth cut to 18
@@ -123,17 +138,24 @@ sides of a comparison is full f32.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
+import gc
 import itertools
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -143,13 +165,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # Imported before anything is printed: without the repo beside it, the
 # script fails here and prints no result.
-from repro_torch import tree  # noqa: E402
+from repro_torch import faults, obs, tree  # noqa: E402
 from repro_torch.configs import (MPSLConfig, RunConfig, SHAPES,  # noqa: E402
                                  get_config)
-from repro_torch.core import (aggregation, baselines, losses,  # noqa: E402
-                              mpsl, split)
-from repro_torch.data import (ClientLoader, SyntheticMultimodal,  # noqa: E402
-                              SyntheticRetrieval, dirichlet_partition)
+from repro_torch.core import (aggregation, baselines, compression,  # noqa: E402
+                              costs, losses, mpsl, split)
+from repro_torch.data import (ClientLoader, PrefetchLoader,  # noqa: E402
+                              SyntheticMultimodal, SyntheticRetrieval,
+                              dirichlet_partition)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quant8 as q8  # noqa: E402
@@ -159,7 +182,12 @@ from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import layers, model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import tokenizers  # noqa: E402
+from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
+from repro_torch.obs import comm, report  # noqa: E402
 from repro_torch.optim import schedules  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
+from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.train.trainer import to_host  # noqa: E402
 
 # Kernel vs plain version on the card. f32: both sum f32 products, in
 # other orders. bf16: p is rounded to bf16 against different running
@@ -241,6 +269,9 @@ VIT = dict(arch="vit-base", n_clients=4, batch_per_client=16,
 PATHS = {
     "serve": SERVE,
     "train": TRAIN,
+    # the train path again through the train CLI's build, the prefetcher
+    # and the Trainer (telemetry on), held bitwise to it
+    "trainer": TRAIN,
     "ssm_serve": dict(SERVE, arch="falcon-mamba-7b"),
     "ssm_train": dict(TRAIN, arch="falcon-mamba-7b"),
     "hybrid_serve": dict(SERVE, arch="hymba-1.5b", prompt_len=1536),
@@ -268,6 +299,10 @@ PATHS = {
                          decode_steps=221),
     "encdec_train": dict(TRAIN, arch="whisper-tiny", batch_per_client=8,
                          seq=448),
+    # restart and chaos through the Trainer at whisper-tiny's full width
+    # and depth (a full minitron-4b train state is ~19.5 GB a checkpoint)
+    "trainer_resume": dict(TRAIN, arch="whisper-tiny", batch_per_client=8,
+                           seq=448),
     "vlm_serve": dict(SERVE, arch="qwen2-vl-72b", layers=18, prompt_len=256,
                       reduced="depth only: f32 weights are 3.51 GB a layer "
                       "beside 9.97 GB of embedding and head; 18 layers "
@@ -1761,7 +1796,8 @@ def phase_train(path, spec):
                                   spec["batch_per_client"], spec["seq"],
                                   spec["seed"])
     steps = spec["steps"]
-    batches = [train.to_device(loader(i), device) for i in range(steps)]
+    batches = [train.to_device(loader.batch(i), device)
+               for i in range(steps)]
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     loss_fn = mpsl.make_lm_loss(cfg, run)               # the kernels
@@ -1859,13 +1895,375 @@ def phase_train_profile(path, step_fn, state, batch, train_rec, top=10,
     busy = sum(times.values())
     wall = train_rec["median_step_ms"]
     ranked = sorted(times.items(), key=lambda kv: -kv[1])[:top]
-    emit({"phase": "train_profile", "path": path, "per": per,
-          "device_busy_ms": busy,
-          "host_ms_unprofiled": wall,
-          "device_idle_share": max(0.0, 1 - busy / wall),
-          "device_kernels": launched,
-          "host_us_per_kernel": wall * 1e3 / max(launched, 1),
-          "top_kernels_ms": [[k[:90], v] for k, v in ranked]})
+    rec = {"phase": "train_profile", "path": path, "per": per,
+           "device_busy_ms": busy,
+           "host_ms_unprofiled": wall,
+           "device_idle_share": max(0.0, 1 - busy / wall),
+           "device_kernels": launched,
+           "host_us_per_kernel": wall * 1e3 / max(launched, 1),
+           "top_kernels_ms": [[k[:90], v] for k, v in ranked]}
+    emit(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the trainer path: launch/train.py's build, the prefetcher and the Trainer
+
+
+@contextlib.contextmanager
+def _count_syncs():
+    """Each synchronizing CUDA call made inside (torch's sync debug mode
+    "warn"), on any thread, with the Python stack that made it."""
+    seen = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" in str(message):
+            seen.append({"message": str(message)[:160],
+                         "stack": [ln.strip() for ln in
+                                   traceback.format_stack(limit=7)[:-1]]})
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield seen
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def _cli_args(spec, *extra):
+    """The train CLI's arguments for a path's spec, parsed by its own
+    parser (full width, int8 links, prefetch depth 2)."""
+    argv = ["--arch", spec["arch"], "--full",
+            "--n-clients", str(spec["n_clients"]),
+            "--batch-per-client", str(spec["batch_per_client"]),
+            "--seq", str(spec["seq"]),
+            "--trainable-blocks", str(spec["trainable_blocks"]),
+            "--steps", str(spec["steps"]), "--lr", str(spec["lr"]),
+            "--seed", str(spec["seed"]), "--compress", "--prefetch", "2",
+            *extra]
+    return train.parser().parse_args(argv)
+
+
+def _build_trainer(args, device, tc, fault_plan=None, per_step=None):
+    """(trainer, prefetcher, cfg, run) wired as ``train.main`` wires them;
+    with `per_step`, each step's launches are appended to it."""
+    cfg, run, state, step_fn, inner = train.build(
+        args, device, guard_nonfinite=fault_plan is not None)
+    if per_step is not None:
+        plain_step = step_fn
+
+        def step_fn(state, batch):
+            before = read_counts()
+            out = plain_step(state, batch)
+            after = read_counts()
+            per_step.append({k: after[k] - before[k] for k in after})
+            return out
+    loader = PrefetchLoader(
+        inner, depth=args.prefetch,
+        place_fn=functools.partial(sharding.place_batch, device=device))
+    trainer = Trainer(step_fn, state, loader, tc, log_fn=lambda s: None)
+    return trainer, loader, cfg, run
+
+
+def _state_bytes(state) -> int:
+    return sum(t.numel() * t.element_size() for t in tree.leaves(state)
+               if torch.is_tensor(t))
+
+
+def _snapshot_state(state):
+    """Device copies of the params and AdamW state, to compare bitwise."""
+    return {"params": tree.map_(lambda t: t.detach().clone(),
+                                state["params"]),
+            "opt": tree.map_(lambda t: t.clone(), state["opt"])}
+
+
+def _bitwise(path, what, got, want) -> None:
+    """Every leaf of got's params and AdamW state equals want's, bit for
+    bit (NaN-free f32 and int tensors: torch.equal is bitwise)."""
+    names = [f"params.{n}" for n in _leaf_names(want["params"])] + \
+        [f"opt.{n}" for n in _leaf_names(want["opt"])]
+    leaves = zip(names, tree.leaves(got["params"]) + tree.leaves(got["opt"]),
+                 tree.leaves(want["params"]) + tree.leaves(want["opt"]))
+    bad = [n for n, a, b in leaves if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"{path}: {what} differs from the straight run "
+                             f"in {len(bad)} leaves, first {bad[:3]}")
+
+
+def phase_trainer(path, spec, train_rec):
+    """The `train` path again, through the train CLI's build, the
+    prefetcher (depth 2, ``sharding.place_batch`` on its producer thread)
+    and the Trainer, with the recorder writing a run log: each step
+    launches exactly what a train step launches, every loss and grad norm
+    equals the `train` path's kernel run bitwise, ``Trainer.run`` syncs
+    exactly twice (the first step's log and the final readback), and the
+    run log holds the pipeline's spans and the links' records, the wire
+    bytes those of ``core.costs``. Then the Trainer's host time a step
+    against the plain loop's, and a profile of two more steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    device = serve.resolve_device("cuda")
+    steps = spec["steps"]
+    args = _cli_args(spec)
+    logdir = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    log_path = os.path.join(logdir, "run.jsonl")
+    comm.reset()
+    obs.configure(log_path, meta={"script": "chip_smoke", "path": path})
+    try:
+        per_step = []
+        tc = TrainerConfig(total_steps=steps, log_every=steps + 1)
+        trainer, loader, cfg, run = _build_trainer(args, device, tc,
+                                                   per_step=per_step)
+        state_bytes = _state_bytes(trainer.state)
+        torch.cuda.synchronize()
+        reset_counts()
+        with _count_syncs() as syncs:
+            t0 = time.perf_counter()
+            result = trainer.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = read_counts()
+        launched = list(per_step)
+        loader.close()
+    finally:
+        obs.shutdown()
+    records = report.load_records(log_path)
+    text = report.render(records)
+    shutil.rmtree(logdir, ignore_errors=True)
+    got = [to_host(m) for _, m in trainer.ring.entries_after(0)]
+    # two steps more, profiled: device time a step
+    loader = PrefetchLoader(
+        loader.inner, depth=2,
+        place_fn=functools.partial(sharding.place_batch, device=device))
+    trainer.loader = loader
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.run(steps + 2)
+        torch.cuda.synchronize()
+    loader.close()
+    busy = sum(_device_time_by_kernel(prof).values()) / 2
+    links = {r["name"]: r for r in records if r.get("kind") == "link"}
+    spans = dict(collections.Counter(r["name"] for r in records
+                                     if r.get("kind") == "span"))
+    bn, seq = spec["batch_per_client"], spec["seq"]
+    analytic = costs.mpsl_lm_client_cost(
+        cfg, run.mpsl, dataclasses.replace(SHAPES["train_4k"], seq_len=seq),
+        compressed=True).comm_mb_per_epoch * 1e6
+    wire = {k: links[k]["wire_bytes_per_client"] if k in links else None
+            for k in ("uplink.activations", "downlink.gradients")}
+    host_ms = wall / steps * 1e3
+    rec = {"phase": path, "arch": spec["arch"], "steps": steps,
+           "prefetch": args.prefetch, "state_bytes": state_bytes,
+           "losses": [float(m["loss"]) for m in got],
+           "grad_norms": [float(m["grad_norm"]) for m in got],
+           "train_losses": train_rec["losses"],
+           "train_grad_norms": train_rec["grad_norms"],
+           "launches_per_step": launched,
+           "expected_per_step": train_launches_per_step(cfg),
+           "syncs": len(syncs), "syncs_expected": 2,
+           "host_ms_per_step": host_ms,
+           "train_plain_loop_step_ms": train_rec["step_ms"],
+           "train_plain_loop_median_step_ms": train_rec["median_step_ms"],
+           "steps_per_sec": result["steps_per_sec"],
+           "host_stall_frac": result["host_stall_frac"],
+           "device_busy_ms_per_step": busy,
+           "device_idle_share": max(0.0, 1 - busy / host_ms),
+           "spans": spans, "link_wire_bytes_per_client": wire,
+           "costs_bytes_per_sample": analytic,
+           "scale_bytes_per_sample": 2 * seq * compression.SCALE_BYTES,
+           "quantized_in_trace": {k: links.get(k, {}).get(
+               "quantized_in_trace") for k in wire},
+           "report_lines": len(text.splitlines())}
+    if len(syncs) != 2:
+        rec["sync_stacks"] = syncs[:6]
+    emit(rec)
+    _hold_steps(path, rec)
+    if (rec["losses"], rec["grad_norms"]) != (train_rec["losses"],
+                                              train_rec["grad_norms"]):
+        raise AssertionError(f"{path}: losses / grad norms differ from the "
+                             f"train path's bitwise")
+    if len(syncs) != 2:
+        raise AssertionError(f"{path}: Trainer.run synced {len(syncs)} "
+                             f"times, expected 2")
+    want = {"step/dispatch": steps, "step/get_batch": steps,
+            "metrics/readback": 2}
+    if any(spans.get(k) != v for k, v in want.items()) or any(
+            spans.get(k, 0) < steps for k in ("host/assemble",
+                                              "h2d/place_batch")):
+        raise AssertionError(f"{path}: run log spans {spans}")
+    if None in wire.values() or not all(rec["quantized_in_trace"].values()):
+        raise AssertionError(f"{path}: link records {links}")
+    per_sample = sum(wire.values()) / bn
+    if per_sample != round(analytic) + rec["scale_bytes_per_sample"]:
+        raise AssertionError(f"{path}: wire bytes a sample {per_sample}, "
+                             f"core.costs {analytic} + scales "
+                             f"{rec['scale_bytes_per_sample']}")
+    del trainer, loader
+    return counts
+
+
+def _run_leg(args, device, tc, steps, fault_plan=None, per_step=None):
+    """Build a trainer (auto-resuming from tc.ckpt_dir), run it to `steps`
+    and close its prefetcher. Returns (trainer, cfg, the run's seconds,
+    ending in a sync, its host_stall_frac)."""
+    trainer, loader, cfg, _ = _build_trainer(args, device, tc, fault_plan,
+                                             per_step)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    result = trainer.run(steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    loader.close()
+    return trainer, cfg, run_s, result["host_stall_frac"]
+
+
+def _ckpt_bytes(directory, step) -> int:
+    d = os.path.join(directory, f"step_{step:08d}")
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def phase_trainer_resume(path, spec, encdec_rec, encdec_profile):
+    """Restart and chaos at full width and depth (whisper-tiny, the
+    `encdec_train` spec), through the Trainer and the prefetcher:
+    (i) 6 steps straight; (ii) 3 steps, ``checkpoint_now`` and ``wait``,
+    everything deleted, rebuilt, auto-resumed and run to 6; (iii) the
+    plan producer_crash@1,ckpt_fail@3 with a checkpoint every 3 steps;
+    (iv) nan_batch@4 under the guard, run to 4, then to 5. (ii) and (iii)
+    must end on (i)'s params and AdamW state bit for bit, (iv)'s step 4
+    must leave them as they were. Records the checkpoint's bytes, the ms
+    a save blocks the main thread and the ms of its background write, the
+    restore ms, and the Trainer's host ms a step against the plain loop's
+    of `encdec_train`."""
+    device = serve.resolve_device("cuda")
+    steps = 6
+    args = _cli_args(dict(spec, steps=steps))
+    root = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    rec = {"phase": path, "arch": spec["arch"], "steps": steps,
+           "prefetch": args.prefetch}
+    try:
+        # the old CLI's loop: each batch assembled and copied in series
+        # with the step, one sync a step
+        _, _, state, step_fn, loader = train.build(args, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serial = []
+        for i in range(steps):
+            batch = train.to_device(loader.batch(i), device)
+            state, met = step_fn(state, batch)
+            serial.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        rec["serial_loop_ms_per_step"] = (time.perf_counter() - t0) / \
+            steps * 1e3
+        del state, step_fn, loader, batch, met
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (i) straight, every launch counter set to 0 just before
+        per_step = []
+        tc = TrainerConfig(total_steps=steps, log_every=steps + 1)
+        torch.cuda.synchronize()
+        reset_counts()
+        t, cfg, run_s, stall = _run_leg(args, device, tc, steps,
+                                        per_step=per_step)
+        counts = read_counts()
+        got = [to_host(m) for _, m in t.ring.entries_after(0)]
+        straight = _snapshot_state(t.state)
+        host_ms = run_s / steps * 1e3
+        busy = encdec_profile["device_busy_ms"]
+        rec.update(state_bytes=_state_bytes(t.state),
+                   launches_per_step=per_step,
+                   expected_per_step=train_launches_per_step(cfg),
+                   losses=[float(m["loss"]) for m in got],
+                   grad_norms=[float(m["grad_norm"]) for m in got],
+                   host_ms_per_step=host_ms, host_stall_frac=stall,
+                   encdec_train_plain_loop_step_ms=encdec_rec["step_ms"],
+                   encdec_train_plain_loop_median_step_ms=encdec_rec[
+                       "median_step_ms"],
+                   encdec_train_device_busy_ms=busy,
+                   device_idle_share=max(0.0, 1 - busy / host_ms))
+        del t
+        _hold_steps(path, rec)
+        if serial != rec["losses"]:
+            raise AssertionError(f"{path}: the serial loop's losses "
+                                 f"{serial} differ from the Trainer's")
+
+        # (ii) 3 steps, checkpoint, delete everything, rebuild, resume
+        ck = os.path.join(root, "ii")
+        tc = TrainerConfig(total_steps=steps, ckpt_every=100, ckpt_dir=ck,
+                           log_every=steps + 1)
+        t, _, _, _ = _run_leg(args, device, tc, 3)
+        t0 = time.perf_counter()
+        t.checkpoint_now()
+        blocked = time.perf_counter() - t0
+        t.ckpt.wait()
+        write = time.perf_counter() - t0 - blocked
+        rec.update(ckpt_bytes=_ckpt_bytes(ck, 3),
+                   ckpt_save_blocked_ms=blocked * 1e3,
+                   ckpt_write_ms=write * 1e3)
+        del t
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer, loader, _, _ = _build_trainer(args, device, tc)
+        if trainer.state["step"] != 3:
+            raise AssertionError(f"{path}: (ii) resumed at "
+                                 f"{trainer.state['step']}, not 3")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_checkpoint(ck, trainer.state)
+        torch.cuda.synchronize()
+        rec["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        trainer.run(steps)
+        loader.close()
+        _bitwise(path, "(ii) the resumed run", trainer.state, straight)
+        del trainer, loader
+
+        # (iii) recovered faults are invisible
+        plan = faults.FaultPlan.from_spec("producer_crash@1,ckpt_fail@3")
+        tc = TrainerConfig(total_steps=steps, ckpt_every=3,
+                           ckpt_dir=os.path.join(root, "iii"),
+                           log_every=steps + 1)
+        with faults.injected(plan) as inj:
+            t, _, _, _ = _run_leg(args, device, tc, steps, fault_plan=plan)
+        rec["iii_fired"] = sorted(e.kind for e in inj.fired_events)
+        rec["iii_skipped_steps"] = list(t.skipped_steps)
+        if rec["iii_fired"] != ["ckpt_fail", "producer_crash"] or \
+                t.skipped_steps:
+            raise AssertionError(f"{path}: (iii) fired {rec['iii_fired']}, "
+                                 f"skipped {t.skipped_steps}")
+        _bitwise(path, "(iii) the run under recovered faults", t.state,
+                 straight)
+        del t
+
+        # (iv) a guarded NaN step leaves the state as it was
+        plan = faults.FaultPlan.from_spec("nan_batch@4")
+        tc = TrainerConfig(total_steps=steps, log_every=steps + 1)
+        with faults.injected(plan):
+            trainer, loader, _, _ = _build_trainer(args, device, tc, plan)
+            trainer.run(4)
+            before = _snapshot_state(trainer.state)
+            trainer.run(5)
+            loader.close()
+        rec["iv_skipped_steps"] = list(trainer.skipped_steps)
+        rec["iv_step"] = trainer.state["step"]
+        if trainer.skipped_steps != [4] or trainer.state["step"] != 5:
+            raise AssertionError(f"{path}: (iv) skipped "
+                                 f"{trainer.skipped_steps}, at step "
+                                 f"{trainer.state['step']}")
+        _bitwise(path, "(iv) the state after the NaN step", trainer.state,
+                 before)
+        del trainer, loader, before, straight
+        rec["bitwise"] = ["ii", "iii", "iv"]
+    except BaseException as e:
+        rec["failed"] = repr(e)[:300]
+        raise
+    finally:
+        emit(rec)
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2272,11 +2670,17 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels()
     phase_moe_layer()
-    counts = {}
+    counts, recs = {}, {}
     for path, spec in PATHS.items():
+        driven = None
         if "serve" in path:
             counts[path], driven = phase_serve(path, spec)
             phase_profile(*driven)
+        elif path == "trainer":
+            counts[path] = phase_trainer(path, spec, recs["train"][0])
+        elif path == "trainer_resume":
+            counts[path] = phase_trainer_resume(path, spec,
+                                                *recs["encdec_train"])
         elif path == "vit_fedavg":
             counts[path], driven = phase_vit_fedavg(path, spec)
             phase_train_profile(*driven, per="round")
@@ -2285,7 +2689,7 @@ def main() -> int:
             phase_train_profile(*driven)
         else:
             counts[path], driven = phase_train(path, spec)
-            phase_train_profile(*driven)
+            recs[path] = (driven[-1], phase_train_profile(*driven))
         del driven
         torch.cuda.empty_cache()
     for name, entry in kernels.items():

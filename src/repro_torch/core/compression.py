@@ -22,12 +22,20 @@ import math
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import comm as obs_comm
 
 # scale payload: one f32 per token row (per-row symmetric quantization)
 SCALE_BYTES = 4
 
 
+def _note_quant(x, bits: int = 8):
+    # accounting hook: marks the matching compressed link(s) as actually
+    # quantized in the executed step (vs merely configured); host-side
+    obs_comm.note_quant(x.shape, bits=bits, impl="kernel")
+
+
 def compress_activations(x, rng):
+    _note_quant(x)
     return kops.quant_dequant(x, rng)          # straight-through
 
 
@@ -43,6 +51,7 @@ class _CompressGradients(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        _note_quant(g)
         return kops.quant_dequant_value(g.contiguous(), ctx.rng), None
 
 

@@ -37,6 +37,7 @@ import torch
 from repro_torch import tree
 from repro_torch.core import compression, fusion, losses, split
 from repro_torch.models import layers, model as M, tokenizers as tok
+from repro_torch.obs import comm as obs_comm
 from repro_torch.optim import (adamw_init, adamw_update, apply_updates,
                                clip_by_global_norm)
 
@@ -52,6 +53,28 @@ def _client_weights(mask, n):
     """w_n = |B_n| / |B| over participating clients (uniform B_n here)."""
     m = mask.float()
     return m / torch.clamp(m.sum(), min=1.0)
+
+
+def _account_links(h, mpsl, suffix: str = ""):
+    """Per-link byte accounting of the client/server exchange.
+
+    ``h`` is the stacked [N, Bn, ...] smashed data at the cut layer — its
+    shape/dtype IS the uplink payload, and (by the symmetry of the cut)
+    the cut-layer-gradient downlink moves the same geometry. Reads the
+    shape on the host: no launch, no sync (``obs.comm`` sends a record
+    only when one is new or changed)."""
+    wire = (compression.compressed_bytes(h.shape[1:])
+            if mpsl.compress_uplink else None)
+    obs_comm.record_link("uplink.activations" + suffix, h.shape, h.dtype,
+                         direction="uplink",
+                         compressed=mpsl.compress_uplink,
+                         wire_bytes_per_client=wire)
+    wire = (compression.compressed_bytes(h.shape[1:])
+            if mpsl.compress_downlink else None)
+    obs_comm.record_link("downlink.gradients" + suffix, h.shape, h.dtype,
+                         direction="downlink",
+                         compressed=mpsl.compress_downlink,
+                         wire_bytes_per_client=wire)
 
 
 def fold_in(seed: int, data: int) -> int:
@@ -145,6 +168,7 @@ def make_lm_loss(cfg, run, impls=None):
         s = h.shape[2]
 
         # ---- 2. uplink (smashed data) ----
+        _account_links(h, mpsl)
         if mpsl.compress_uplink:
             h = compression.compress_activations(
                 h, _link_rng(rng, "uplink", 1, dev))
@@ -251,6 +275,7 @@ def make_vit_loss(cfg, run, modalities=("vision", "text"),
         bn = tokenized[modalities[0]].shape[1]
 
         def uplink(a, link):
+            _account_links(a, mpsl, suffix="/" + link)
             if mpsl.compress_uplink:
                 a = compression.compress_activations(
                     a, _vit_link_rng(rng, link, "uplink", dev))
@@ -426,6 +451,21 @@ def make_train_step(loss_fn, run, sched, backward_mode: str = "aggregated",
         return state, metrics
 
     return step
+
+
+def undonated(step):
+    """``step`` with the reference's undonated semantics: the step updates
+    params and AdamW moments in place (the port's donation); this copy
+    first clones both, so the caller's state stays valid and unchanged,
+    at twice the param and optimizer memory (``--no-donate``)."""
+    def clone(t):
+        return t.detach().clone().requires_grad_(t.requires_grad)
+
+    def fresh_step(state, batch):
+        return step(dict(state, params=tree.map_(clone, state["params"]),
+                         opt=tree.map_(clone, state["opt"])), batch)
+
+    return fresh_step
 
 
 def init_state(params, frozen, seed: int = 0):

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.models import layers, model as M, tokenizers as tok
+from repro_torch.obs import comm as obs_comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +168,10 @@ def init_mpsl_lm(generator, cfg, run, device=None):
     _cast_in_place(frozen, getattr(torch, run.frozen_dtype))
     client = {"adapter": init_client_adapters(generator, cfg, run.mpsl,
                                               device)}
+    # one-time link: each client ships its head for the post-training
+    # FedAvg (paper Sec. 3.3) — accounted per client from the real tree
+    obs_comm.record_param_link("aggregation.client_head", client,
+                               direction="uplink", per_step=False)
     return {"client": client, "server": server}, frozen, plan
 
 
@@ -199,6 +204,8 @@ def init_mpsl_vit(generator, cfg, run, modalities=("vision", "text"),
             "b": torch.zeros((n_classes,), device=device)}
     client = {"tokenizers": init_client_tokenizers(generator, cfg, run.mpsl,
                                                    modalities, device)}
+    obs_comm.record_param_link("aggregation.client_head", client,
+                               direction="uplink", per_step=False)
     return {"client": client, "server": server}, frozen, plan
 
 

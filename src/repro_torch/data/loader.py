@@ -4,16 +4,24 @@
 Produces MPSL batches {modality: [N, Bn, ...], labels, mask} for a given
 global step. Sampling within each client's Dirichlet shard is a pure
 function of (seed, step): a restarted job at step k sees exactly the
-batch the failed job would have seen. The JAX loader's fault-injection
-and participation-telemetry hooks come with the port's faults and obs
-slices; with no fault plan active they change nothing, so the batches
-here are the JAX loader's bit for bit.
+batch the failed job would have seen.
+
+Elastic participation: after the static Bernoulli dropout mask is drawn,
+the ambient fault injector (``repro_torch.faults``) applies RUNTIME
+straggler cutoffs, client drops, and batch poisoning for the step; with
+no plan active the hook is a no-op and the batches are the JAX loader's
+bit for bit (under a plan too, the same plan giving the same batch). The
+final per-step participation is reported to ``obs.comm`` so link
+accounting can weight per-step wire bytes by who actually transmitted.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 import numpy as np
+
+from repro_torch import faults
+from repro_torch.obs import comm as obs_comm
 
 
 class ClientLoader:
@@ -43,4 +51,9 @@ class ClientLoader:
         if not mask.any():
             mask[int(rmask.integers(0, self.n_clients))] = True
         out["mask"] = mask.astype(np.float32)
+        out = faults.get().batch_hook(step, out)
+        m = np.asarray(out["mask"])
+        # a NaN-poisoned client counts as non-participating on the wire
+        obs_comm.note_participation(
+            step, float(m[np.isfinite(m)].sum()), int(m.shape[0]))
         return out

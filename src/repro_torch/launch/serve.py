@@ -23,17 +23,14 @@ versions run); without a card it raises rather than carry on on the CPU.
 from __future__ import annotations
 
 import argparse
-import json
-import logging
 import time
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import layers, model as M
-
-log = logging.getLogger("repro_torch.serve")
 
 
 def resolve_device(name) -> torch.device:
@@ -56,7 +53,8 @@ def stub_embeds(cfg, lead, rng) -> dict:
     if key is None:
         return {}
     x = rng.standard_normal((*lead, n, cfg.d_model), dtype=np.float32)
-    return {key: x * np.float32(0.02)}
+    x *= np.float32(0.02)       # in place: no second buffer of the frames
+    return {key: x}
 
 
 def stub_inputs(cfg, batch: int, seed: int, device) -> dict:
@@ -234,11 +232,19 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     p.add_argument("--obs-log", default=None,
-                   help="append the run's summary as one JSON line here")
+                   help="write a JSONL telemetry run log to this path "
+                        "(render with `python -m repro_torch.obs.report`)")
     args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
 
     device = resolve_device(args.device)
+    log = obs.get_logger("serve")
+    if args.obs_log:
+        obs.configure(args.obs_log,
+                      meta={"driver": "serve", "arch": args.arch,
+                            "batch": args.batch,
+                            "prompt_len": args.prompt_len,
+                            "decode_steps": args.decode_steps,
+                            "device": str(device)})
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -253,20 +259,17 @@ def main(argv=None):
                    **stub_inputs(cfg, args.batch, args.seed, device))
 
     t_prefill, t_decode = out["prefill_s"], out["decode_s"]
-    summary = {"arch": cfg.name, "device": str(device), "batch": args.batch,
-               "prompt_len": args.prompt_len,
-               "decode_steps": args.decode_steps,
-               "prefill_ms": t_prefill * 1e3, "decode_ms": t_decode * 1e3,
-               "ms_per_tok": t_decode / max(1, args.decode_steps) * 1e3}
+    ms_per_tok = t_decode / max(1, args.decode_steps) * 1e3
     log.info(f"batch={args.batch} prefill({args.prompt_len} tok)="
              f"{t_prefill*1e3:.1f}ms decode={args.decode_steps} steps in "
-             f"{t_decode*1e3:.1f}ms ({summary['ms_per_tok']:.1f} ms/tok) "
-             f"on {device}")
+             f"{t_decode*1e3:.1f}ms ({ms_per_tok:.1f} ms/tok) on {device}",
+             prefill_ms=round(t_prefill * 1e3, 2),
+             decode_ms=round(t_decode * 1e3, 2),
+             ms_per_tok=round(ms_per_tok, 2))
     log.info(f"sample generations (token ids): "
              f"{out['tokens'][:2, 1:].tolist()}")
     if args.obs_log:
-        with open(args.obs_log, "a") as f:
-            f.write(json.dumps(summary) + "\n")
+        obs.shutdown()
     return 0
 
 

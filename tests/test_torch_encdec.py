@@ -736,7 +736,7 @@ def test_loader_adds_seeded_stub_embeddings(arch):
     step)."""
     cfg = treduced(tget_config(arch))
     loader = train.make_lm_loader(cfg, 2, 3, 24, seed=1)
-    b, again, other = loader(0), loader(0), loader(1)
+    b, again, other = loader.batch(0), loader.batch(0), loader.batch(1)
     if arch == "whisper-tiny":
         key, shape, n_text = "frame_embeds", (2, 3, 16, 64), 24
     else:

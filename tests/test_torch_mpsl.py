@@ -275,7 +275,7 @@ def test_loader_batches_bitwise_equal_to_jax():
     want = jtrain.make_lm_loader(cfg, 4, 2, 24, seed=3, drop_prob=0.3)
     got = train.make_lm_loader(cfg, 4, 2, 24, seed=3, drop_prob=0.3)
     for step in range(3):
-        a, b = got(step), want.batch(step)
+        a, b = got.batch(step), want.batch(step)
         assert sorted(a) == sorted(b)
         for k in a:
             assert a[k].dtype == b[k].dtype
