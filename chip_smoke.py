@@ -123,11 +123,50 @@
                  trainable (two would need ~75 GB with the AdamW state and
                  the plain path's gradients); CE at D 8192, quant8 at an
                  8192-wide f32 link (the widest row held in registers).
+   cell_train_4k  the JAX package's train_4k cell through launch.steps
+                 (default_run, build_train) on the host mesh, bf16 compute:
+                 full-width minitron-4b at seq 4096, 4 clients x 2, the
+                 last 4 blocks trainable, int8 links, mu = 2 microbatches
+                 (choose_microbatches), 2 steps: the tensor-core flash
+                 forward and backward at S 4096, CE over a microbatch's
+                 16380 tokens (bf16 h, f32 head), quant8; held against
+                 default_run's own impls (blockwise attention, the plain
+                 CE) through _grad_agg's microbatches;
+   cell_prefill_32k  prefill_32k through build_prefill: minitron-4b,
+                 batch 1, 32768 tokens, bf16 weights: the flash forward at
+                 S 32768 in every layer against blockwise attention (last
+                 logits and every layer's cache K/V);
+   cell_decode_32k  decode_32k through build_decode: minitron-4b, batch
+                 4, 32768-slot caches filled to 32760 from the seed, 8
+                 greedy steps: the split-KV route over 32768 slots against
+                 naive (auto's decode choice), the plain path fed the same
+                 tokens (logits in relative L2, each greedy token up to a
+                 near tie: DECODE_CELL_TOL);
+   cell_long_500k  long_500k: hymba-1.5b, batch 1, 524288-slot global
+                 caches, 1024-slot rings and SSM states from the seed, 8
+                 steps: the split route over 524288 slots and the window
+                 ring against naive;
+   cell_moe_prefill_32k  prefill_32k of qwen3-moe-235b-a22b at its
+                 published widths (64 heads on 4 KV heads: G 16; 128
+                 experts top 8), 2 of 94 layers: the flash forward at G 16
+                 and the ep dispatch (capacity 2.0, the 1 x 1 host mesh)
+                 against blockwise and the ragged dispatch (replaying the
+                 kernel run's expert choices); its dropped (token, k)
+                 slots recorded, and only rows no drop reached held.
    Each path's serve or train is followed by its profile: device time by
    kernel (torch.profiler) and the device's busy share. The MoE paths'
    plain versions (dense dispatch, naive attention) replay the kernel
    path's expert choices (``moe.routing_tape``), and the flips it counts
    must stay under ROUTING_FLIP_LIMIT of the routing decisions.
+
+6. examples: the port's three examples (``python -m
+   repro_torch.examples.<name>``) on the card at their defaults, each a
+   process of its own, each exiting 0.
+7. dryrun:  ``launch.dryrun.run_cell`` on the host mesh for the five cells
+   at their cut sizes (in a CPU-only process started with the build,
+   beside the card's phases): argument and temp bytes and flops, the
+   predicted peak beside each cell's max_memory_allocated (the ratio is
+   recorded, not held).
 
 One JSON line per phase; then the {"kernels": [...]} line and the card's
 ``nvidia-smi`` line; the last line is {"ok": true, "device": {...}}. Any
@@ -167,7 +206,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # script fails here and prints no result.
 from repro_torch import faults, obs, tree  # noqa: E402
 from repro_torch.configs import (MPSLConfig, RunConfig, SHAPES,  # noqa: E402
-                                 get_config)
+                                 ShapeConfig, get_config)
 from repro_torch.core import (aggregation, baselines, compression,  # noqa: E402
                               costs, losses, mpsl, split)
 from repro_torch.data import (ClientLoader, PrefetchLoader,  # noqa: E402
@@ -178,8 +217,10 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quant8 as q8  # noqa: E402
 from repro_torch.kernels import selective_scan as ss  # noqa: E402
 from repro_torch.kernels import softmax_xent as sx  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import dryrun, serve, steps, train  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import layers, model as M  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import tokenizers  # noqa: E402
 from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
@@ -220,6 +261,27 @@ TRAIN_GRAD_TOL = 1e-3
 # path's autograd rounds dP and dS to bf16 in its own places).
 TRAIN_LOSS_TOL_BF16 = 1e-2
 TRAIN_GRAD_TOL_BF16 = 5e-2
+# The decode cells (32k and 512k seeded caches, bf16): each step's logits,
+# kernel path vs plain path, in relative L2. The split kernel's o is
+# within one bf16 ulp of its plain version, but 32 layers of random bf16
+# weights carry each residual element that the two attentions round to
+# neighbouring values to the logits: the gap was 2.2-2.5 % (decode_32k)
+# and 3.3-3.9 % (long_500k) in relative L2 on the card over three seeds,
+# elementwise up to 2.6 % and 4.4 % of the largest |logit|. A plain path
+# whose softmax weights stay f32 gave the same L2 gaps (elementwise up to
+# 5.2 %), and its greedy token at long_500k's last step differed from the
+# kernel path's: at batch 1 over 256000 random logits the top two often
+# lie closer than that noise (at seeds 1 and 2 decode_32k's tokens
+# differed from the plain path's in 2 and 6 of 32 (row, step), each a
+# near tie within 1.2 % of the largest |logit|). serve_bf16's 512-token
+# prompt already sits at 1.7 % of the 2 % serve limit. So the bf16 limit
+# for a quantity carried through the stack, 5e-2 relative L2, as for the
+# train paths' gradients; and each greedy token must be the plain path's
+# top or a near tie: one whose plain logit lies within 2 x DECODE_CELL_TOL
+# of the largest |logit| below the plain top (each of the two logits may
+# move by the limit). A row whose plain top-2 margin exceeds that must so
+# agree exactly.
+DECODE_CELL_TOL = 5e-2
 # A FedAvg round, kernel vs naive attention, f32: each averaged leaf's
 # update (from the clients' mean start) in relative L2. AdamW's steps are
 # ~lr * sign(g), so an element whose gradient lies within the two paths'
@@ -315,10 +377,45 @@ PATHS = {
                       "card; at 4 layers the trainable block's f32 weights, "
                       "AdamW moments and both gradient sets, with the bf16 "
                       "frozen tree and remat activations, peak near 58 GB"),
+    # the JAX package's production cells (configs.SHAPES), each driven
+    # through launch.steps' default_run and build_* on the host mesh at
+    # bf16 compute, its cuts in `reduced`
+    "cell_train_4k": dict(
+        arch="minitron-4b", shape=("train_4k", 4096, 8, "train"),
+        n_clients=4, batch_per_client=2, trainable_blocks=4, steps=2,
+        lr=3e-4, seed=0,
+        reduced="global batch 256 -> 8 (4 clients x 2, default_run's "
+        "n_clients override: one card's mesh gives 1 client); "
+        "trainable_blocks 16 -> 4 (two AdamW states of 16 blocks do not "
+        "fit beside the plain path); 2 steps"),
+    "cell_prefill_32k": dict(
+        arch="minitron-4b", shape=("prefill_32k", 32768, 1, "prefill"),
+        seed=0, reduced="batch 32 -> 1"),
+    "cell_decode_32k": dict(
+        arch="minitron-4b", shape=("decode_32k", 32768, 4, "decode"),
+        filled=32760, decode_steps=8, seed=0,
+        reduced="batch 128 -> 4 (two 32768-slot caches, the kernel "
+        "path's and the plain path's, beside 8.4 GB of weights); the "
+        "first 32760 slots drawn from the seed instead of a prefill; 8 "
+        "greedy steps"),
+    "cell_long_500k": dict(
+        arch="hymba-1.5b", shape=("long_500k", 524288, 1, "decode"),
+        filled=524280, decode_steps=8, seed=0,
+        reduced="the caches (524280 of the global layers' 524288 slots, "
+        "the local layers' 1024-slot rings, the SSM states) drawn from "
+        "the seed instead of a prefill; 8 greedy steps"),
+    "cell_moe_prefill_32k": dict(
+        arch="qwen3-moe-235b-a22b", layers=2,
+        shape=("prefill_32k", 32768, 1, "prefill"), seed=0,
+        reduced="batch 32 -> 1; depth 94 -> 2 layers (235 B params exceed "
+        "one card)"),
 }
 # every path's plain version: naive attention, the plain scan, chunked CE,
 # the dense expert dispatch
 PLAIN_IMPLS = {"attn": "naive", "ssm": "plain", "ce": "plain", "moe": "dense"}
+# a cell's kernel run: default_run's RunConfig with the kernels asked for
+# by the JAX package's names (the port translates them)
+KERNEL_RUN = {"attn_impl": "pallas", "ce_impl": "pallas", "ssm_impl": "pallas"}
 
 
 # The launch counter of every kernel wrapper: each adds one where it
@@ -610,6 +707,27 @@ def _attn_cases():
                   dict(q_pos=vp, k_pos=vp,
                        k_valid=torch.ones(8, 512, dtype=torch.bool),
                        causal=True, window=0), True))
+    # the production cells (bf16): minitron-4b's 32k prefill (G 3) and a
+    # train_4k microbatch (4 x 4096), qwen3-moe's 32k prefill (64 heads on
+    # 4 KV heads: G 16), decode over 32760 of 32768 slots, hymba-1.5b's
+    # global layers over 524280 of 524288, and a qwen3 decode row: G x Sq
+    # = 16, exactly SPLIT_MAX_ROWS (no path decodes qwen3)
+    for name, bb, ss, hh, kk in (("cell_prefill", 1, 32768, 24, 8),
+                                 ("cell_train", 4, 4096, 24, 8),
+                                 ("cell_moe_prefill", 1, 32768, 64, 4)):
+        cp = torch.arange(ss, dtype=torch.int32)[None].expand(bb, ss)
+        cases.append((name, dict(b=bb, sq=ss, sk=ss, h=hh, kh=kk, hd=hd), dict(
+            q_pos=cp, k_pos=cp, k_valid=torch.ones(bb, ss, dtype=torch.bool),
+            causal=True, window=0), True))
+    for name, bb, sk, filled, hh, kk, d, main in (
+            ("cell_decode", 4, 32768, 32760, 24, 8, hd, True),
+            ("cell_long_decode", 1, 524288, 524280, 25, 5, 64, True),
+            ("qwen3_decode", 4, 32768, 32760, 64, 4, hd, False)):
+        kp = torch.full((bb, sk), -1, dtype=torch.int32)
+        kp[:, :filled] = torch.arange(filled, dtype=torch.int32)
+        cases.append((name, dict(b=bb, sq=1, sk=sk, h=hh, kh=kk, hd=d), dict(
+            q_pos=torch.full((bb, 1), filled, dtype=torch.int32), k_pos=kp,
+            k_valid=kp >= 0, causal=True, window=0), main))
     return cases
 
 
@@ -621,6 +739,11 @@ VIT_ATTN = {"vit_early": (64, 274), "vit_vision": (64, 197),
             "vit_fedavg": (8, 274)}
 
 
+# the production cells' cases: bf16 only, as the cells compute
+CELL_ATTN = ("cell_prefill", "cell_train", "cell_moe_prefill", "cell_decode",
+             "cell_long_decode", "qwen3_decode")
+
+
 # the cases where every query sees every key (no mask for SDPA)
 ENCDEC_ATTN = ("encdec_enc", "encdec_cross", "encdec_cross_decode")
 FULL_ATTN = (*VIT_ATTN, *ENCDEC_ATTN)
@@ -629,6 +752,8 @@ F32_ONLY = (*(n for n in FULL_ATTN if n != "vit_early"), "vlm_train")
 
 
 def _attn_dtypes(name):
+    if name in CELL_ATTN:
+        return (torch.bfloat16,)
     return (torch.float32,) if name in F32_ONLY else (torch.float32,
                                                       torch.bfloat16)
 
@@ -687,7 +812,47 @@ def _bound(q, k, q_pos, k_pos, k_valid, causal, window, dtype):
 
 # the cases whose positions are 0..S-1 on both sides under a plain causal
 # mask: SDPA takes them with is_causal; the vit cases attend every key
-PLAIN_CAUSAL = ("prefill", "train", "moe_prefill", "moe_train")
+PLAIN_CAUSAL = ("prefill", "train", "moe_prefill", "moe_train",
+                "cell_prefill", "cell_train", "cell_moe_prefill")
+# a plain version's [heads x queries x keys] f32 scores stay under this
+# many bytes a query chunk (a 32k prefill's would be 103-275 GB at once)
+PLAIN_CHUNK_BYTES = 2 ** 31
+
+
+def _q_chunks(q, k):
+    """Query slices whose plain scores fit PLAIN_CHUNK_BYTES."""
+    b, sq, h, _ = q.shape
+    n = max(1, PLAIN_CHUNK_BYTES // (4 * b * h * k.shape[1]))
+    return [slice(i, min(i + n, sq)) for i in range(0, sq, n)]
+
+
+def _plain_fwd(q, k, v, qp, kp, k_valid, **kw):
+    """``fa.flash_attention_plain`` over query chunks (each query row is
+    its own softmax, so the chunks' o and lse join)."""
+    parts = [fa.flash_attention_plain(q[:, sl], k, v, qp[:, sl], kp,
+                                      k_valid=k_valid, **kw)
+             for sl in _q_chunks(q, k)]
+    return (torch.cat([o for o, _ in parts], dim=1),
+            torch.cat([lse for _, lse in parts], dim=2))
+
+
+def _plain_bwd(q, k, v, qp, kp, kv, o, lse, do, **kw):
+    """``fa.flash_attention_bwd_plain`` over query chunks: dq of each
+    chunk joined, dk and dv summed in f32 over the chunks."""
+    dq, dk, dv = [], None, None
+    for sl in _q_chunks(q, k):
+        a, b, c = fa.flash_attention_bwd_plain(
+            q[:, sl], k, v, qp[:, sl], kp, kv, o[:, sl], lse[:, :, sl],
+            do[:, sl], **kw)
+        dq.append(a)
+        dk = b.float() if dk is None else dk + b.float()
+        dv = c.float() if dv is None else dv + c.float()
+    return torch.cat(dq, dim=1), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _iters(q, k):
+    """Timed calls of a case: fewer for the cells' long sequences."""
+    return 3 if q.shape[1] * k.shape[1] > 2 ** 26 else 20
 
 
 def _sdpa_inputs(q, k, v, q_pos, k_pos, k_valid, causal, window, name):
@@ -745,8 +910,7 @@ def kernels_flash_fwd():
             o, lse = fa.flash_attention_fwd(q, k, v, qp, kp, k_valid=kv,
                                             return_lse=True, **kw)
             torch.cuda.synchronize()
-            o_ref, lse_ref = fa.flash_attention_plain(q, k, v, qp, kp,
-                                                      k_valid=kv, **kw)
+            o_ref, lse_ref = _plain_fwd(q, k, v, qp, kp, kv, **kw)
             tol = TOL[dtype]
             err_o = (o.float() - o_ref.float()).abs().max().item()
             err_lse = (lse - lse_ref).abs().max().item()
@@ -775,17 +939,19 @@ def kernels_flash_fwd():
 
             def run_plain():
                 q, k, v, qp, kp, kv = pick()
-                fa.flash_attention_plain(q, k, v, qp, kp, k_valid=kv, **kw)
+                _plain_fwd(q, k, v, qp, kp, kv, **kw)
 
-            rec["ms"] = device_ms(run_kernel)
-            rec["wall_ms"] = time_ms(run_kernel)
-            rec["plain_ms"] = device_ms(run_plain)
+            it = _iters(q, k)
+            rec["ms"] = device_ms(run_kernel, iters=it)
+            rec["wall_ms"] = time_ms(run_kernel, iters=it)
+            rec["plain_ms"] = device_ms(run_plain, iters=min(it, 5),
+                                        warmup=1)
             lib = _library_call(q, k, v, qp, kp, kv, m, name)
             rows = fa.pair_mask(qp, kp, kv, m["causal"], m["window"]).any(-1)
             rec["library_max_abs_err_o"] = _hold_yardstick(
                 "flash_attention_fwd", name, dtype, lib(), o_ref, rows, tol)
-            rec["library_ms"] = device_ms(lib)
-            rec["library_wall_ms"] = time_ms(lib)
+            rec["library_ms"] = device_ms(lib, iters=it)
+            rec["library_wall_ms"] = time_ms(lib, iters=it)
             (rec["bound_ms"], rec["bound_by"], rec["bound_products"],
              rec["bound_f32_cuda_core_ms"]) = _bound(
                 q, k, qp, kp, kv, m["causal"], m["window"], dtype)
@@ -871,7 +1037,7 @@ def kernels_flash_bwd():
             args = (q, k, v, qp, kp, kv, o, lse, do)
             got = fa.flash_attention_bwd(*args, **kw)
             torch.cuda.synchronize()
-            want = fa.flash_attention_bwd_plain(*args, **kw)
+            want = _plain_bwd(*args, **kw)
             rec = {"case": name, "dtype": str(dtype).split(".")[-1],
                    "shape": shp, "main_path": main_path,
                    "route": "pieces" if dtype == torch.float32 else "tc",
@@ -891,8 +1057,9 @@ def kernels_flash_bwd():
                 re.sub(r"^void |\(anonymous namespace\)::|\(.*", "", n): ms
                 for n, ms in by.items()}
             rec["ms"] = sum(by.values())
-            rec["plain_ms"] = device_ms(
-                lambda: fa.flash_attention_bwd_plain(*args, **kw), iters=5)
+            rec["plain_ms"] = device_ms(lambda: _plain_bwd(*args, **kw),
+                                        iters=min(_iters(q, k), 5),
+                                        warmup=1)
             # the backward of SDPA (a yardstick only), held to the plain
             # version first
             qt, kt, vt, skw = _sdpa_inputs(q, k, v, qp, kp, kv, m["causal"],
@@ -990,6 +1157,8 @@ def kernels_softmax_xent():
              ("moe_train", 4088, 2048, 151936, f32, f32, True),
              ("encdec_train", 14304, 384, 51865, f32, f32, True),
              ("vlm_train", 2040, 8192, 152064, f32, f32, True),
+             # cell_train_4k: a microbatch's 4 x 4095 tokens, bf16 h
+             ("cell_train_4k", 16380, 3072, 256000, bf16, f32, True),
              ("ragged", 1000, 200, 10007, f32, f32, False),
              ("ragged", 1000, 200, 10007, bf16, bf16, False),
              ("ragged", 1000, 200, 10007, bf16, f32, False)]
@@ -1009,21 +1178,28 @@ def kernels_softmax_xent():
         lt = torch.promote_types(h_dtype, w_dtype)
         hl, wl = h.to(lt), w.to(lt)
 
+        # the plain version and the pieces model in token chunks past
+        # CE_CHUNK tokens ([T, V] f32 logits of a 4k-token microbatch are
+        # 16.8 GB a tensor)
+        plain_fwd = _ce_chunked(sx.softmax_xent_fwd_plain, t)
+        pieces_fwd = _ce_chunked(sx.softmax_xent_fwd_pieces, t)
+        plain_bwd = _ce_chunked(sx.softmax_xent_bwd_plain, t, backward=True)
+        pieces_bwd = _ce_chunked(sx.softmax_xent_bwd_pieces, t,
+                                 backward=True)
         loss, lse = sx.softmax_xent_fwd(h, w, lab)
         torch.cuda.synchronize()
-        want = sx.softmax_xent_fwd_plain(h, w, lab)
+        want = plain_fwd(h, w, lab)
         rec = dict(base, tol=TOL[torch.float32])
         _check_close("softmax_xent_fwd", name, dtype,
                      zip(("loss", "lse"), (loss, lse), want),
                      TOL[torch.float32], rec)
         del want
         _rel_gaps(rec, zip(("loss", "lse"), (loss, lse),
-                           sx.softmax_xent_fwd_pieces(h, w, lab)))
+                           pieces_fwd(h, w, lab)))
         rec["ms"] = device_ms(lambda: sx.softmax_xent_fwd(h, w, lab),
                               iters=iters, warmup=1)
-        rec["plain_ms"] = device_ms(
-            lambda: sx.softmax_xent_fwd_plain(h, w, lab), iters=iters,
-            warmup=1)
+        rec["plain_ms"] = device_ms(lambda: plain_fwd(h, w, lab),
+                                    iters=iters, warmup=1)
         rec["library_ms"] = device_ms(lambda: F.cross_entropy(
             hl @ wl, lab.long(), reduction="none"), iters=iters, warmup=1)
         rec["bound_ms"], rec["bound_by"], rec["bound_f32_cuda_core_ms"] = \
@@ -1034,7 +1210,7 @@ def kernels_softmax_xent():
 
         dh, dw = sx.softmax_xent_bwd(h, w, lab, lse, gg)
         torch.cuda.synchronize()
-        want_dh, want_dw = sx.softmax_xent_bwd_plain(h, w, lab, lse, gg)
+        want_dh, want_dw = plain_bwd(h, w, lab, lse, gg)
         # each output in its own dtype's tolerance
         rec = dict(base, tol_dh=GRAD_TOL[h_dtype], tol_dw=GRAD_TOL[w_dtype])
         _check_close("softmax_xent_bwd", name, dtype,
@@ -1043,13 +1219,12 @@ def kernels_softmax_xent():
                      [("dw", dw, want_dw)], GRAD_TOL[w_dtype], rec)
         del want_dh, want_dw
         _rel_gaps(rec, zip(("dh", "dw"), (dh, dw),
-                           sx.softmax_xent_bwd_pieces(h, w, lab, lse, gg)))
+                           pieces_bwd(h, w, lab, lse, gg)))
         del dh, dw
         rec["ms"] = device_ms(lambda: sx.softmax_xent_bwd(h, w, lab, lse, gg),
                               iters=iters, warmup=1)
         rec["plain_ms"] = device_ms(
-            lambda: sx.softmax_xent_bwd_plain(h, w, lab, lse, gg),
-            iters=iters, warmup=1)
+            lambda: plain_bwd(h, w, lab, lse, gg), iters=iters, warmup=1)
         hg, wg = hl.clone().requires_grad_(), wl.clone().requires_grad_()
         lib = F.cross_entropy(hg @ wg, lab.long(), reduction="none")
         rec["library_ms"] = device_ms(lambda: torch.autograd.grad(
@@ -1067,6 +1242,32 @@ def kernels_softmax_xent():
                       res[0])
             for kname, line, res in (("softmax_xent_fwd", 131, fwd_res),
                                      ("softmax_xent_bwd", 170, bwd_res))]
+
+
+CE_CHUNK = 4096
+
+
+def _ce_chunked(fn, t, backward=False):
+    """`fn` (a CE plain version or pieces model) over token chunks of
+    CE_CHUNK where T exceeds it: the forward's per-token outputs and dh
+    joined, dw summed in f32. Its own function where T fits one chunk."""
+    if t <= CE_CHUNK:
+        return fn
+    parts = [slice(i, min(i + CE_CHUNK, t)) for i in range(0, t, CE_CHUNK)]
+    if not backward:
+        def fwd(h, w, lab):
+            outs = [fn(h[sl], w, lab[sl]) for sl in parts]
+            return tuple(torch.cat(x) for x in zip(*outs))
+        return fwd
+
+    def bwd(h, w, lab, lse, g):
+        dh, dw = [], None
+        for sl in parts:
+            a, b = fn(h[sl], w, lab[sl], lse[sl], g[sl])
+            dh.append(a)
+            dw = b.float() if dw is None else dw + b.float()
+        return torch.cat(dh), dw.to(w.dtype)
+    return bwd
 
 
 def _hold_to_bound(kernel, rec):
@@ -1088,6 +1289,8 @@ def _hold_to_bound(kernel, rec):
 # fills no whole block), and the two-read route in bf16 vectors and f32
 # scalars. route: "vector" or "scalar", as the wrapper must pick it.
 QUANT8_CASES = [
+    # cell_train_4k's link: a microbatch of 4 clients x 1 x 4096 tokens
+    ("cell_train_4k", 16384, 3072, torch.bfloat16, "vector", 0),
     ("hybrid_train", 4096, 1600, torch.float32, "vector", 0),
     ("moe_train", 4096, 2048, torch.float32, "vector", 0),
     ("train", 4096, 3072, torch.float32, "vector", 0),
@@ -1116,7 +1319,8 @@ QUANT8_CASES = [
     ("vlm_train", 4096, 8192, torch.float32, "vector", 0),
 ]
 # distinct buffers a timed ring holds (x, u, y): 4 x the H100's 50 MB L2
-RING_BYTES = 200e6
+L2_BYTES = 50e6
+RING_BYTES = 4 * L2_BYTES
 
 
 def _quant8_input(g, rows, d, dtype, offset):
@@ -1207,8 +1411,14 @@ def kernels_quant8():
     50 MB L2), so no call finds its input in L2. The kernel's time is its
     own kernels' device time (named ``quant8::kernel``); the Philox
     route's whole call adds the seed's ``torch.randint`` kernel
-    (``ms_call``). Each route is held to its own bytes bound: nearest and
-    Philox x in, y out; streamed u in as well."""
+    (``ms_call``). Each route's bytes bound: nearest and Philox x in, y
+    out; streamed u in as well. The guard holds the same durations to
+    that bound less an L2 write-back allowance (``guard_bound_ms_*``):
+    up to L2_BYTES of y may still sit in L2 when the kernel ends and
+    drain after it, so only the rest of y must have reached HBM (the
+    durations came in up to 1.7 % under the full bound on 300-600 MB
+    streams). ``share_of_bound_rate`` may so exceed 1 by at most that
+    allowance."""
     g = torch.Generator(device="cuda").manual_seed(3)
     results = []
     for name, rows, d, dtype, route, offset in QUANT8_CASES:
@@ -1242,10 +1452,12 @@ def kernels_quant8():
         io = 2 * xb / PEAK_BYTES * 1e3              # x in, y out
         rec["bound_ms_nearest"] = rec["bound_ms_philox"] = io
         rec["bound_ms_streamed"] = io + rows * d * 4 / PEAK_BYTES * 1e3
+        drain = min(xb, L2_BYTES) / PEAK_BYTES * 1e3  # y left in L2
         for r in rngs:
+            rec[f"guard_bound_ms_{r}"] = rec[f"bound_ms_{r}"] - drain
             _hold_to_bound("quant_dequant", {
                 "case": f"{name} ({r})", "dtype": rec["dtype"],
-                "ms": rec[f"ms_{r}"], "bound_ms": rec[f"bound_ms_{r}"]})
+                "ms": rec[f"ms_{r}"], "bound_ms": rec[f"guard_bound_ms_{r}"]})
         # the train paths' route: the in-kernel Philox
         rec["ms"], rec["plain_ms"] = rec["ms_philox"], rec["plain_ms_philox"]
         rec["bound_ms"], rec["bound_by"] = io, "bytes"
@@ -1800,7 +2012,7 @@ def phase_train(path, spec):
                for i in range(steps)]
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    loss_fn = mpsl.make_lm_loss(cfg, run)               # the kernels
+    loss_fn = mpsl.make_lm_loss(cfg, run, impls=mpsl.KERNEL_IMPLS)
     step_fn = mpsl.make_train_step(
         loss_fn, run, schedules.warmup_cosine(spec["lr"], 10, steps))
 
@@ -1853,7 +2065,8 @@ def phase_train(path, spec):
         # attention (the CE kernels and every other bf16 rounding kept)
         # against the plain path; what is left of the kernel path's gap
         # beyond this is the bf16 flash backward's rounding of p and ds
-        naive_fn = mpsl.make_lm_loss(cfg, run, impls={"attn": "naive"})
+        naive_fn = mpsl.make_lm_loss(
+            cfg, run, impls={**mpsl.KERNEL_IMPLS, "attn": "naive"})
         _, _, g_n = mpsl.value_and_grad(naive_fn, params, frozen, b0, rng)
         errs_n = _grad_gaps(names, g_n, g_p)
         worst_n = max(errs_n, key=errs_n.get)
@@ -2410,7 +2623,7 @@ def phase_vit_train(path, spec):
     init_s = time.perf_counter() - t0
     kw = dict(modalities=mods, task=spec["task"],
               n_classes=spec["n_classes"])
-    loss_fn = mpsl.make_vit_loss(cfg, run, **kw)          # the kernels
+    loss_fn = mpsl.make_vit_loss(cfg, run, impls=mpsl.KERNEL_IMPLS, **kw)
     step_fn = mpsl.make_train_step(
         loss_fn, run, schedules.warmup_cosine(spec["lr"], 10, spec["steps"]))
 
@@ -2659,6 +2872,484 @@ def phase_moe_layer():
     del p
     torch.cuda.empty_cache()
 
+# ---------------------------------------------------------------------------
+# the JAX package's production cells on one card (launch/steps.py)
+
+
+def _cell_shape(spec):
+    return ShapeConfig(*spec["shape"])
+
+
+def _cell_run(cfg, spec, mesh, **over):
+    """(plain run, kernel run) of a cell: ``steps.default_run`` on the
+    host mesh with the path's overrides (its impls: blockwise / auto
+    attention, the plain CE and scan, the dense or ep dispatch), and the
+    same run with the kernels asked for by the JAX package's names."""
+    with sharding.use_mesh(mesh):
+        run = steps.default_run(cfg, _cell_shape(spec), mesh,
+                                seed=spec["seed"], **over)
+    return run, dataclasses.replace(run, **KERNEL_RUN)
+
+
+def _cell_record(path, spec, cfg, depth, run, mesh):
+    return {"phase": path, **depth, "arch": cfg.name,
+            "shape": dict(zip(("name", "seq_len", "global_batch", "kind"),
+                              spec["shape"])),
+            "reduced": spec["reduced"], "mesh": mesh.name,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "compute_dtype": run.compute_dtype,
+            "plain_impls": {"attn": run.attn_impl, "ce": run.ce_impl,
+                            "ssm": run.ssm_impl, "moe": run.moe_impl},
+            "kernel_impls": KERNEL_RUN}
+
+
+def _serving_params(cfg, device, seed, dtype):
+    """M.init_lm's params from `seed`, cast in place to the serving dtype
+    (the JAX cells serve bf16 weights: ``steps.abstract_serve_params``)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = M.init_lm(cfg, gen, device)
+    split._cast_in_place(params, dtype)
+    return params, gen
+
+
+def _rel_max(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return _max_err(got, want) / max(want.float().abs().max().item(), 1e-30)
+
+
+def phase_cell_train(path, spec):
+    """train_4k on one card: the MPSL step through steps.build_train with
+    mu > 1 microbatches, the kernels' run against default_run's own
+    (blockwise attention, the plain CE) on the same params, batch and
+    seed."""
+    cfg, depth = _config(spec)
+    device = serve.resolve_device("cuda")
+    mesh = mesh_lib.make_host_mesh()
+    shape = _cell_shape(spec)
+    n, bpc = spec["n_clients"], spec["batch_per_client"]
+    mu = steps.choose_microbatches(cfg, shape, steps.n_data_shards(mesh), bpc)
+    run, krun = _cell_run(cfg, spec, mesh, n_clients=n,
+                          trainable_blocks=spec["trainable_blocks"],
+                          compress_uplink=True, compress_downlink=True,
+                          microbatches=mu, learning_rate=spec["lr"])
+    t0 = time.perf_counter()
+    step_fn, a_state, a_batch, _ = steps.build_train(cfg, krun, mesh)
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
+    params, frozen, _ = split.init_mpsl_lm(gen, cfg, run, device)
+    state = mpsl.init_state(params, frozen, spec["seed"])
+    loader = train.make_lm_loader(cfg, n, bpc, shape.seq_len, spec["seed"])
+    batches = [train.to_device(loader.batch(i), device)
+               for i in range(spec["steps"])]
+    if {k: tuple(v.shape) for k, v in batches[0].items()} != \
+            {k: tuple(v.shape) for k, v in a_batch.items()}:
+        raise AssertionError(f"{path}: the loader's batch is not "
+                             f"steps.train_batch_specs'")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    per_step = {k: mu * c for k, c in train_launches_per_step(cfg).items()}
+    with sharding.use_mesh(mesh):
+        counts, steps_rec = _run_steps(step_fn, state, batches, per_step)
+    rec = {**_cell_record(path, spec, cfg, depth, run, mesh),
+           "n_clients": n, "batch_per_client": bpc, "microbatches": mu,
+           "trainable_blocks": spec["trainable_blocks"], "compress": True,
+           "ce_tokens_per_microbatch": n * bpc // mu * (shape.seq_len - 1),
+           "init_s": init_s, **steps_rec}
+    emit(rec)
+    if mu < 2:
+        raise AssertionError(f"{path}: {mu} microbatch, expected more")
+    _hold_steps(path, rec)
+
+    # the kernels against default_run's impls, through _grad_agg's mu
+    # microbatches: same params, batch and seed
+    b0, rng = batches[0], mpsl.fold_in(spec["seed"], 0)
+    params = state["params"]
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    l_k, _, g_k = mpsl._grad_agg(mpsl.make_lm_loss(cfg, krun), params,
+                                 frozen, b0, rng, mu)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t
+    t = time.perf_counter()
+    l_p, _, g_p = mpsl._grad_agg(mpsl.make_lm_loss(cfg, run), params,
+                                 frozen, b0, rng, mu)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    errs = _grad_gaps(_leaf_names(params), g_k, g_p)
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    _hold_vs_plain(path, (l_k, kernel_s), (l_p, plain_s), errs,
+                   run.compute_dtype == "float32", microbatches=mu)
+    return counts, (path, step_fn, state, batches[-1], rec)
+
+
+def phase_cell_prefill(path, spec):
+    """prefill_32k on one card through steps.build_prefill: the flash
+    forward (and, for the MoE arch, the ep dispatch) against default_run's
+    blockwise attention (and the ragged dispatch, replaying the kernel
+    run's expert choices). ep drops (token, k) slots past its capacity:
+    a layer's cache rows are held only where no earlier layer dropped a
+    slot of that token, and the last logits only when nothing dropped."""
+    cfg, depth = _config(spec)
+    device = serve.resolve_device("cuda")
+    mesh = mesh_lib.make_host_mesh()
+    run, krun = _cell_run(cfg, spec, mesh)
+    cdt = getattr(torch, run.compute_dtype)
+    fn_k, (_, a_batch), _ = steps.build_prefill(cfg, krun, mesh)
+    plain_run = (dataclasses.replace(run, moe_impl="ragged") if cfg.moe
+                 else run)
+    fn_p = steps.build_prefill(cfg, plain_run, mesh)[0]
+    t0 = time.perf_counter()
+    params, gen = _serving_params(cfg, device, spec["seed"], cdt)
+    b, s = a_batch["tokens"].shape
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=device)}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    with sharding.use_mesh(mesh):
+        fn_k(params, batch)                           # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with _tape(cfg) as tape:
+            t = time.perf_counter()
+            logits, cache = fn_k(params, batch)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        with _tape(cfg, None if tape is None else tape.idx) as ptape:
+            t = time.perf_counter()
+            ref_logits, ref_cache = fn_p(params, batch)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash_attention_fwd"] = _layers(cfg)[0]
+    rec = {**_cell_record(path, spec, cfg, depth, plain_run, mesh),
+           "batch": b, "prompt_len": s, "init_s": init_s,
+           "launches": counts, "expected_launches": want,
+           "prefill_ms": prefill_s * 1e3, "plain_prefill_ms": plain_s * 1e3,
+           "peak_mem_bytes": peak, **_flips(ptape)}
+    # which tokens an earlier layer's ep dispatch dropped a slot of
+    dropped = torch.zeros(b * s, dtype=torch.bool, device=device)
+    before = []
+    if tape is not None:
+        rec["ep_capacity"] = run.moe_capacity
+        rec["ep_dropped_slots_by_layer"] = []
+        for idx in tape.idx:
+            before.append(dropped.clone())
+            drop = MOE.ep_drop_mask(idx, cfg.moe.num_experts,
+                                    run.moe_capacity,
+                                    steps.n_data_shards(mesh))
+            rec["ep_dropped_slots_by_layer"].append(int(drop.sum()))
+            dropped |= drop.any(-1)
+        rec["ep_slots"] = b * s * cfg.moe.top_k * len(tape.idx)
+        rec["tokens_with_a_drop"] = int(dropped.sum())
+    # each layer's cache K/V on the rows no drop reached: held in relative
+    # L2 (the elementwise largest gap, over 8M-34M elements a layer after
+    # up to 31 layers of bf16 rounding on both paths, is recorded)
+    errs, elem = {}, {}
+    for i, (lk, lp) in enumerate(zip(
+            (x for seg in cache for x in seg),
+            (x for seg in ref_cache for x in seg))):
+        keep = (~before[i] if i < len(before) else
+                torch.ones(b * s, dtype=torch.bool, device=device))
+        keep = keep.reshape(b, s)
+        for name in ("k", "v"):
+            a, r = lk[name][keep], lp[name][keep]
+            errs[f"layer{i}.{name}"] = _rel_l2(a, r)
+            elem[f"layer{i}.{name}"] = _rel_max(a, r)
+    worst = max(errs, key=errs.get)
+    worst_elem = max(elem, key=elem.get)
+    rec.update(cache_rel_l2_max=errs[worst], cache_rel_l2_worst=worst,
+               cache_elem_rel_err_max=elem[worst_elem],
+               cache_elem_rel_err_worst=worst_elem,
+               last_logits_rel_err=_rel_max(logits, ref_logits),
+               max_abs_logit=logits.float().abs().max().item(),
+               tol=SERVE_TOL_BF16,
+               tol_is="last logits: of the plain path's largest |logit|; "
+                      "cache K/V: relative L2 a layer")
+    hold_logits = not rec.get("tokens_with_a_drop")
+    rec["last_logits_held"] = hold_logits
+    emit(rec)
+    if counts != want:
+        raise AssertionError(f"{path}: launches {counts}, expected {want}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{path}: non-finite logits")
+    if not (errs[worst] <= SERVE_TOL_BF16 and (
+            not hold_logits
+            or rec["last_logits_rel_err"] <= SERVE_TOL_BF16)):
+        raise AssertionError(f"{path}: the kernel path differs from the "
+                             f"plain path: cache {worst} {errs[worst]}, "
+                             f"logits {rec['last_logits_rel_err']}")
+    # (expert-choice flips are recorded, not held: at bf16 compute the
+    # router's inputs on the two paths differ by bf16 noise, and the plain
+    # path replays the kernel path's choices)
+    del cache, ref_cache
+    return counts, (path, fn_k, (params, batch), rec["prefill_ms"], rec)
+
+
+def _seed_cache(cache, filled, gen):
+    """Fill a body cache as if `filled` tokens had been decoded: K/V of
+    N(0, 1), positions 0..filled-1 (a window layer's ring holds the last
+    of them at slot position % length), index = filled; SSM states and
+    conv histories of 0.1 x N(0, 1)."""
+    for seg in cache:
+        for layer in seg:
+            for c in ((layer["kv"], layer["ssm"]) if "kv" in layer
+                      else (layer,)):
+                if "k" in c:
+                    n = c["k"].shape[1]
+                    for name in ("k", "v"):
+                        c[name].copy_(torch.randn(
+                            c[name].shape, generator=gen,
+                            device=c[name].device))
+                    pos = torch.arange(max(0, filled - n), filled,
+                                       dtype=torch.int32,
+                                       device=c["pos"].device)
+                    c["pos"].fill_(-1)
+                    c["pos"][:, (pos % n).long()] = pos
+                    c["index"] = filled
+                else:
+                    for name in ("h", "conv"):
+                        c[name].copy_(0.1 * torch.randn(
+                            c[name].shape, generator=gen,
+                            device=c[name].device))
+
+
+def _clone_cache(cache):
+    return tree.map_(lambda x: x.clone() if torch.is_tensor(x) else x, cache)
+
+
+def _rewind(cache, n):
+    """Step a seeded cache's write index back by n (the slots are written
+    again by the same steps)."""
+    for seg in cache:
+        for layer in seg:
+            for c in ((layer["kv"],) if "kv" in layer else (layer,)):
+                if "index" in c:
+                    c["index"] -= n
+
+
+def _token_deficit(ref, tok):
+    """(the largest over rows of (plain top - plain logit of tok), the
+    rows whose plain top-2 margin exceeds 2 x DECODE_CELL_TOL, so that tok
+    must be the plain top) of one decode step's [B, V] plain logits and
+    [B] tokens, on the scale of each row's largest |plain logit|."""
+    r = ref.float()
+    scale = r.abs().amax(-1)
+    top2 = r.topk(2, dim=-1).values
+    deficit = (top2[:, 0] - r.gather(-1, tok[:, None])[:, 0]) / scale
+    margin = (top2[:, 0] - top2[:, 1]) / scale
+    return (deficit.max().item(),
+            int((margin > 2 * DECODE_CELL_TOL).sum().item()))
+
+
+def phase_cell_decode(path, spec):
+    """decode_32k / long_500k on one card: greedy steps through
+    steps.build_decode over a cache seeded as filled, the flash kernel's
+    split-KV route against default_run's (auto: naive at one query) on a
+    second copy of the cache fed the same tokens. Each step's logits stay
+    within DECODE_CELL_TOL in relative L2 (the elementwise gap is
+    recorded), and each greedy token is the plain path's top or a near
+    tie (``_token_deficit``)."""
+    cfg, depth = _config(spec)
+    device = serve.resolve_device("cuda")
+    mesh = mesh_lib.make_host_mesh()
+    run, krun = _cell_run(cfg, spec, mesh)
+    cdt = getattr(torch, run.compute_dtype)
+    fn_k, args, _, _ = steps.build_decode(cfg, krun, mesh)
+    fn_p = steps.build_decode(cfg, run, mesh)[0]
+    b, cache_len = run.shape.global_batch, run.shape.seq_len
+    n_steps, filled = spec["decode_steps"], spec["filled"]
+    t0 = time.perf_counter()
+    params, gen = _serving_params(cfg, device, spec["seed"], cdt)
+    cache = M.init_body_cache(cfg, b, cache_len, cdt, device)
+    _seed_cache(cache, filled, gen)
+    ref_cache = _clone_cache(cache)
+    serve.check_cache_room(cfg, cache, n_steps)
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                        device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def positions(i):
+        p = torch.full((b, 1), filled + i, dtype=torch.int32, device=device)
+        return p[:, None].expand(b, 3, 1) if cfg.pos_embed == "mrope" else p
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, outs, toks = [], [], [tok]
+    with sharding.use_mesh(mesh):
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = fn_k(params, cache, args[2], toks[-1],
+                                 positions(i))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            outs.append(logits)
+            toks.append(logits[:, -1].argmax(-1)[:, None])
+        counts = read_counts()
+        # the plain path, fed the kernel path's tokens
+        errs, elem, agree, deficit, held = [], [], [], [], []
+        for i, logits in enumerate(outs):
+            ref, ref_cache = fn_p(params, ref_cache, args[2], toks[i],
+                                  positions(i))
+            errs.append(_rel_l2(logits, ref))
+            elem.append(_rel_max(logits, ref))
+            agree.append((toks[i + 1][:, 0] == ref[:, -1].argmax(-1))
+                         .float().mean().item())
+            d, n = _token_deficit(ref[:, -1], toks[i + 1][:, 0])
+            deficit.append(d)
+            held.append(n)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash_attention_fwd"] = _layers(cfg)[0] * n_steps
+    rec = {**_cell_record(path, spec, cfg, depth, run, mesh),
+           "plain_attn_at_one_query": attention.resolve_impl(
+               run.attn_impl, 1, cache_len),
+           "batch": b, "cache_slots": cache_len, "filled": filled,
+           "decode_steps": n_steps, "init_s": init_s,
+           "launches": counts, "expected_launches": want,
+           "decode_ms_per_token": statistics.median(times) * 1e3,
+           "step_ms": [x * 1e3 for x in times], "peak_mem_bytes": peak,
+           "logits_rel_l2_by_step": errs,
+           "logits_elem_rel_err_by_step": elem,
+           "greedy_token_agreement_by_step": agree,
+           "token_deficit_by_step": deficit,
+           "rows_held_exactly_by_step": held,
+           "greedy_tokens": torch.cat(toks, 1)[:2].tolist(),
+           "tol": DECODE_CELL_TOL,
+           "tol_is": "each step's logits in relative L2; each greedy "
+                     "token's plain logit within 2 x tol of the largest "
+                     "|logit| below the plain top (the elementwise gap, "
+                     "over the plain path's largest |logit|, is recorded)"}
+    emit(rec)
+    if counts != want:
+        raise AssertionError(f"{path}: launches {counts}, expected {want}")
+    if not (all(math.isfinite(e) and e <= DECODE_CELL_TOL for e in errs)
+            and max(deficit) <= 2 * DECODE_CELL_TOL):
+        raise AssertionError(f"{path}: the kernel path differs from the "
+                             f"plain path: logits {errs}, token deficits "
+                             f"{deficit}")
+    del ref_cache
+    torch.cuda.empty_cache()
+    _rewind(cache, 1)
+    return counts, (path, fn_k, params, cache, args[2], toks[-2], positions,
+                    filled, rec)
+
+
+def phase_cell_profile(path, fn, args, host_ms, rec, top=8, part="prefill"):
+    """Where a cell's prefill (or a decode step) goes: device time by
+    kernel over one call (torch.profiler) beside its unprofiled host
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mesh = mesh_lib.make_host_mesh()
+    with sharding.use_mesh(mesh), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    times = _device_time_by_kernel(prof)
+    busy = sum(times.values())
+    ranked = sorted(times.items(), key=lambda kv: -kv[1])[:top]
+    emit({"phase": "profile", "path": path, "part": part,
+          "per": "call" if part == "prefill" else "token",
+          "device_busy_ms": busy, "host_ms_unprofiled": host_ms,
+          "device_idle_share": max(0.0, 1 - busy / host_ms),
+          "peak_mem_bytes": rec["peak_mem_bytes"],
+          "top_kernels_ms": [[k[:90], v] for k, v in ranked]})
+
+
+def phase_cell_decode_profile(path, fn, params, cache, ckv, tok, positions,
+                              filled, rec):
+    """The last decode step again (its cache rewound one step, so the
+    step writes the slot it wrote before) under the profiler."""
+    phase_cell_profile(path, fn, (params, cache, ckv, tok,
+                                  positions(rec["decode_steps"] - 1)),
+                       rec["decode_ms_per_token"], rec, part="decode")
+
+
+def dryrun_cells() -> list:
+    """``dryrun.run_cell`` on the host mesh for each cell path, at its cut
+    size: argument and temp bytes, flops (no card touched)."""
+    out = []
+    mesh = mesh_lib.make_host_mesh()
+    for path, spec in PATHS.items():
+        if not path.startswith("cell_"):
+            continue
+        cfg, _ = _config(spec)
+        over = {}
+        if "n_clients" in spec:
+            over = dict(n_clients=spec["n_clients"],
+                        trainable_blocks=spec["trainable_blocks"],
+                        compress_uplink=True, compress_downlink=True,
+                        microbatches=steps.choose_microbatches(
+                            cfg, _cell_shape(spec), steps.n_data_shards(mesh),
+                            spec["batch_per_client"]))
+        rec = dryrun.run_cell(spec["arch"], spec["shape"][0], host_mesh=True,
+                              cfg=cfg, shape=_cell_shape(spec),
+                              overrides=dict(over, seed=spec["seed"]),
+                              verbose=False)
+        out.append(dict(rec, path=path))
+    return out
+
+
+def start_dryrun(out_path):
+    """The dry run of the cells in a process of its own (CPU only), beside
+    the card's phases."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[2]); "
+            "import chip_smoke; "
+            "json.dump(chip_smoke.dryrun_cells(), open(sys.argv[1], 'w'))")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", code, out_path, ROOT],
+                            env=env, cwd=ROOT)
+
+
+def phase_dryrun(proc, out_path, peaks, timeout=900):
+    """The dry run's predicted bytes beside each cell's measured peak
+    (``torch.cuda.max_memory_allocated``); the ratio is recorded, not
+    held."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc:
+        raise AssertionError(f"the cells' dry run exited {rc}")
+    with open(out_path) as f:
+        recs = json.load(f)
+    for r in recs:
+        if r.get("status") != "ok":
+            raise AssertionError(f"dry run {r['path']}: {r.get('status')}")
+        mem = r["memory"]
+        predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        peak = peaks.get(r["path"])
+        emit({"phase": "dryrun", **r, "predicted_peak_bytes": predicted,
+              "measured_peak_bytes": peak,
+              "measured_over_predicted": (None if not peak
+                                          else peak / predicted)})
+
+
+def phase_examples():
+    """The port's three examples on the card at their defaults, each in a
+    process of its own; each must exit 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    for name in ("quickstart", "train_lm_mpsl", "serve_batched"):
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m",
+                               f"repro_torch.examples.{name}"], env=env,
+                              cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        tail = (proc.stdout + proc.stderr).strip().splitlines()[-3:]
+        emit({"phase": "examples", "example": name, "rc": proc.returncode,
+              "s": time.perf_counter() - t, "tail": tail})
+        if proc.returncode:
+            raise AssertionError(f"example {name} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2667,13 +3358,38 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_card()
+    dry_out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"),
+                           "cells.json")
+    dry = start_dryrun(dry_out)
+    try:
+        return _main(smi, dry, dry_out)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        shutil.rmtree(os.path.dirname(dry_out), ignore_errors=True)
+
+
+def _main(smi, dry, dry_out) -> int:
     phase_build()
     kernels = phase_kernels()
     phase_moe_layer()
-    counts, recs = {}, {}
+    counts, recs, peaks = {}, {}, {}
     for path, spec in PATHS.items():
         driven = None
-        if "serve" in path:
+        if path == "cell_train_4k":
+            counts[path], driven = phase_cell_train(path, spec)
+            peaks[path] = driven[-1]["peak_mem_bytes"]
+            phase_train_profile(*driven)
+        elif path.startswith("cell_") and "prefill" in path:
+            counts[path], driven = phase_cell_prefill(path, spec)
+            peaks[path] = driven[-1]["peak_mem_bytes"]
+            phase_cell_profile(*driven)
+        elif path.startswith("cell_"):
+            counts[path], driven = phase_cell_decode(path, spec)
+            peaks[path] = driven[-1]["peak_mem_bytes"]
+            phase_cell_decode_profile(*driven)
+        elif "serve" in path:
             counts[path], driven = phase_serve(path, spec)
             phase_profile(*driven)
         elif path == "trainer":
@@ -2697,6 +3413,8 @@ def main() -> int:
         entry["launches"] = sum(entry["launches_by_path"].values())
         if not entry["launches"]:
             raise AssertionError(f"{name} never launched on a main path")
+    phase_examples()
+    phase_dryrun(dry, dry_out, peaks)
     emit({"kernels": list(kernels.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

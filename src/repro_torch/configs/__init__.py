@@ -13,6 +13,7 @@ from repro_torch.configs.base import (
     SHAPES,
     SSMConfig,
     cell_supported,
+    port_impls,
     reduced,
 )
 
@@ -64,5 +65,6 @@ def list_archs():
 __all__ = [
     "ARCHS", "ASSIGNED_ARCHS", "PAPER_ARCHS", "SHAPES",
     "ModelConfig", "MoEConfig", "MPSLConfig", "RunConfig", "ShapeConfig",
-    "SSMConfig", "cell_supported", "get_config", "list_archs", "reduced",
+    "SSMConfig", "cell_supported", "get_config", "list_archs", "port_impls",
+    "reduced",
 ]

@@ -175,32 +175,33 @@ class RunConfig:
     microbatches: int = 1               # grad accumulation
     remat: str = "block"                # none | block | full
     seed: int = 0
-    # implementation selection (perf knobs)
-    attn_impl: str = "auto"             # auto | naive | blockwise | pallas
+    # implementation selection. The fields take the JAX package's names
+    # or the port's own; ``port_impls`` translates the first into the
+    # second (pallas -> kernel, jnp -> plain), and make_lm_loss /
+    # make_vit_loss read them through it.
+    attn_impl: str = "auto"             # auto | naive | blockwise | pallas (kernel)
     attn_block: int = 1024              # blockwise attention KV block
     moe_impl: str = "dense"             # dense | ragged | ep
-    moe_capacity: float = 2.0           # EP per-expert capacity slack
-    ssm_impl: str = "jnp"               # jnp | pallas
+    moe_capacity: float = 2.0           # ep per-expert capacity slack
+    ssm_impl: str = "jnp"               # jnp (plain) | pallas (kernel)
     ssm_chunk: int = 256                # selective-scan chunk length
-    # selective-scan backward lowering (pallas path only): 'fused' runs the
-    # checkpointed-recompute adjoint kernel; 'recompute' falls back to
-    # jax.vjp through the jnp reference (the pre-fusion oracle path)
+    # selective-scan backward (kernel path only): 'fused' runs the
+    # checkpointed-recompute adjoint kernel; 'recompute' differentiates
+    # through the plain scan instead
     ssm_bwd_impl: str = "fused"
-    ce_impl: str = "jnp"                # jnp | pallas (fused LM-head CE)
+    ce_impl: str = "jnp"                # jnp (plain) | pallas (kernel): the LM-head CE
     ce_chunk: int = 512                 # chunked-CE token block
-    # sequence-parallel residual activations (Korthikanti-style SP): the
-    # per-layer scan carry is sharded on seq over the TP axis, cutting the
-    # remat stash by the TP width; matmul regions re-gather.
+    # sequence-parallel residual activations (the JAX package shards the
+    # per-layer carry on seq over the TP axis); on one card a no-op, kept
+    # so that a cell's RunConfig equals the JAX package's
     seq_shard_acts: bool = False
-    # fully unroll layer scans (roofline probes only — makes HLO cost
-    # analysis see every layer)
+    # the JAX package's roofline probes unroll its layer scans; the port
+    # runs layers in a Python loop, so this changes nothing here
     unroll_layers: bool = False
-    # sequence-parallel attention math (beyond-paper): shard the query seq
-    # over the TP axis when the head count doesn't divide it
+    # sequence-parallel attention math across the TP axis: multi-GPU only
     attn_seq_shard: bool = False
-    # serving: keep weights FSDP-sharded over data (True) or replicate
-    # over data, TP-only (False — kills the per-token weight all-gathers
-    # when the TP-sharded weights fit HBM)
+    # serving: weights FSDP-sharded over data (True) or replicated over it
+    # (False); read by launch.steps' shardings
     serve_weights_fsdp: bool = True
 
     @property
@@ -216,6 +217,22 @@ class RunConfig:
                 "act_dims": (("batch", "seq_model", None)
                              if self.seq_shard_acts
                              else ("batch", None, None))}
+
+
+# The JAX package's impl names, by the port's: a name not listed passes
+# through (naive, blockwise, auto, kernel, plain, dense, ragged, ep, and
+# the non-name knobs). "auto" stays "auto": apply_attention resolves it by
+# the JAX rule at each call, blockwise where Sk > 2048 and Sq > 1, else
+# naive.
+_PORT_NAMES = {"attn": {"pallas": "kernel"},
+               "ssm": {"pallas": "kernel", "jnp": "plain"},
+               "ce": {"pallas": "kernel", "jnp": "plain"}}
+
+
+def port_impls(impls) -> dict:
+    """An impls dict with the JAX package's names translated into the
+    port's (the one place that does it)."""
+    return {k: _PORT_NAMES.get(k, {}).get(v, v) for k, v in impls.items()}
 
 
 def reduced(model: ModelConfig, **overrides) -> ModelConfig:

@@ -35,14 +35,24 @@ from __future__ import annotations
 import torch
 
 from repro_torch import tree
+from repro_torch.configs import port_impls
 from repro_torch.core import compression, fusion, losses, split
 from repro_torch.models import layers, model as M, tokenizers as tok
 from repro_torch.obs import comm as obs_comm
 from repro_torch.optim import (adamw_init, adamw_update, apply_updates,
                                clip_by_global_norm)
 
-DEFAULT_IMPLS = {"attn": "kernel", "ce": "kernel", "ssm": "kernel",
-                 "moe": "ragged"}
+# the kernels and the ragged dispatch, by name: what the entry points
+# (the train CLI, the Trainer's builds, chip_smoke.py) ask for
+KERNEL_IMPLS = {"attn": "kernel", "ce": "kernel", "ssm": "kernel",
+                "moe": "ragged"}
+
+
+def run_impls(run, impls=None) -> dict:
+    """The impls a loss runs: ``run.impls`` (RunConfig's impl fields, as
+    the JAX package's losses read them), overridden by `impls`, with the
+    JAX names translated (``configs.port_impls``)."""
+    return port_impls({**run.impls, **(impls or {})})
 
 
 # ---------------------------------------------------------------------------
@@ -126,10 +136,12 @@ def make_lm_loss(cfg, run, impls=None):
     whose encoding every decoder block cross-attends. As in the JAX
     package the frames cross the uplink uncompressed: only the text (and
     patch) activations take the links' quant8.
-    impls: {"attn": "kernel" | "naive", "ce": "kernel" | "plain", "ssm":
-    "kernel" | "plain", "ssm_chunk": int, "ssm_bwd": "fused" |
-    "recompute", "moe": "ragged" | "dense"}; the kernels and the ragged
-    dispatch by default, the chunk and the scan's backward from ``run``.
+    impls: {"attn": "kernel" | "naive" | "blockwise" | "auto", "ce":
+    "kernel" | "plain", "ssm": "kernel" | "plain", "ssm_chunk": int,
+    "ssm_bwd": "fused" | "recompute", "moe": "ragged" | "dense" | "ep"};
+    each key given overrides ``run.impls`` (``run_impls``: RunConfig's
+    impl fields, the JAX names translated), as the JAX package's loss
+    reads them. ``KERNEL_IMPLS`` asks for the kernels.
 
     L_S = sum_n w_n L_n + aux, the router's load-balance loss of the MoE
     blocks, as in the JAX package. aux is taken over every client's tokens
@@ -142,8 +154,7 @@ def make_lm_loss(cfg, run, impls=None):
         raise ValueError(f"unknown family {cfg.family!r}")
     mpsl = run.mpsl
     cdt = getattr(torch, run.compute_dtype)
-    impls = {**DEFAULT_IMPLS, "ssm_chunk": run.ssm_chunk,
-             "ssm_bwd": run.ssm_bwd_impl, **(impls or {})}
+    impls = run_impls(run, impls)
     remat = run.remat != "none"
 
     def loss_fn(trainable, frozen, batch, rng):
@@ -253,7 +264,7 @@ def make_vit_loss(cfg, run, modalities=("vision", "text"),
         raise ValueError(f"unknown task {task!r}")
     mpsl = run.mpsl
     cdt = getattr(torch, run.compute_dtype)
-    impls = {**DEFAULT_IMPLS, **(impls or {})}
+    impls = run_impls(run, impls)
     remat = run.remat != "none"
 
     def encode(frozen, server, h):

@@ -112,7 +112,7 @@ def build(args, device, guard_nonfinite: bool = False):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params, frozen, _ = split.init_mpsl_lm(gen, cfg, run, device)
     state = mpsl.init_state(params, frozen, args.seed)
-    loss_fn = mpsl.make_lm_loss(cfg, run)
+    loss_fn = mpsl.make_lm_loss(cfg, run, impls=mpsl.KERNEL_IMPLS)
     sched = schedules.warmup_cosine(args.lr, 10, args.steps)
     step_fn = mpsl.make_train_step(loss_fn, run, sched,
                                    guard_nonfinite=guard_nonfinite)

@@ -1,22 +1,33 @@
 """Self-attention: GQA with RoPE, optional qkv bias and qk-norm, causal /
 full / sliding-window masks by absolute positions, and a KV cache.
 
-Two interchangeable implementations of the core softmax(QK^T)V:
-  * naive  — materializes scores; the oracle and the plain path.
-  * kernel — ``kernels.ops.flash_attention``: the hand-written CUDA kernel
-             on a CUDA tensor, its plain version on a CPU tensor. Like the
-             JAX package's ``pallas``, it serves prefill AND decode.
+Interchangeable implementations of the core softmax(QK^T)V:
+  * naive     — materializes scores; the oracle and the plain path.
+  * blockwise — an online-softmax loop over KV blocks of ``block`` keys,
+                each step under ``torch.utils.checkpoint`` (its scores
+                are recomputed in the backward, never stashed): memory
+                O(Sq * block). The plain path at long sequences.
+  * auto      — the JAX package's rule: blockwise where Sk > 2048 and
+                Sq > 1, else naive.
+  * kernel    — ``kernels.ops.flash_attention``: the hand-written CUDA
+                kernel on a CUDA tensor, its plain version on a CPU
+                tensor. Like the JAX package's ``pallas``, it serves
+                prefill AND decode.
+A decode step (Sq 1) asked for blockwise takes naive, as in the JAX
+package: its scores are [B, H, 1, Sk].
 
 Positions are [B, S], or [B, 3, S] under M-RoPE (Qwen2-VL), whose row 0
 is the flat position the masks, the kernel and the KV cache use.
 Cross-attention (the whisper decoder) takes its keys and values from the
 encoder's output (``kv_x``) or, at decode, precomputed once per layer
-(``compute_cross_kv``); it rotates neither queries nor keys. The
-blockwise path and sequence sharding come with later slices of the port.
+(``compute_cross_kv``); it rotates neither queries nor keys. Sequence
+sharding across devices comes with the multi-GPU work (ROADMAP.md).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
@@ -93,6 +104,74 @@ def _naive_attention(q, k, v, bias):
     return o.reshape(b, sq, h, hd)
 
 
+def _block_step(qg, kc, vc, q_pos, pc, vm, acc, m, l, causal, window):
+    """One KV block of the online softmax: scores and the PV product in
+    f32 from the operands' values (the JAX package's
+    ``preferred_element_type=f32``; qg comes upcast), p cast to V's dtype
+    before its product."""
+    s = torch.einsum("bqkgd,bskd->bqkgs", qg, kc.float())
+    s = s + _mask_bias(q_pos, pc, causal, window, vm)[:, :, None, None, :]
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bqkgs,bskd->bqkgd", p.to(vc.dtype).float(), vc.float())
+    return acc, m_new, l
+
+
+def _blockwise_attention(q, k, v, q_pos, k_pos, causal, window,
+                         k_valid=None, block: int = 1024):
+    """Online-softmax loop over KV blocks. Memory O(Sq * block).
+
+    Sk is padded to whole blocks with keys at position -1 that are not
+    valid. Each block step runs under ``torch.utils.checkpoint``, as the
+    JAX package's runs under ``jax.checkpoint(nothing_saveable)``: the
+    backward keeps each step's inputs (the running acc, m, l) and
+    recomputes its [Sq, block] scores, which are never stashed."""
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    sk = k.shape[1]
+    nb = -(-sk // block)
+    pad = nb * block - sk
+    valid = (k_valid if k_valid is not None
+             else torch.ones((b, sk), dtype=torch.bool, device=q.device))
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=-1)
+        valid = F.pad(valid, (0, pad), value=False)
+    # the scaled q in q's dtype, as the JAX package rounds it, upcast once
+    qg = (q * hd ** -0.5).reshape(b, sq, kh, g, hd).float()
+    acc = torch.zeros((b, sq, kh, g, hd), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((b, sq, kh, g), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, sq, kh, g), dtype=torch.float32, device=q.device)
+    for i in range(nb):
+        blk = slice(i * block, (i + 1) * block)
+        args = (qg, k[:, blk], v[:, blk], q_pos, k_pos[:, blk], valid[:, blk],
+                acc, m, l, causal, window)
+        if torch.is_grad_enabled():
+            acc, m, l = torch.utils.checkpoint.checkpoint(
+                _block_step, *args, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            acc, m, l = _block_step(*args)
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def resolve_impl(impl: str, sq: int, sk: int) -> str:
+    """The impl a call runs: ``auto`` by the JAX package's rule (blockwise
+    where Sk > 2048 and Sq > 1, else naive), and a decode step (Sq 1)
+    asked for blockwise takes naive."""
+    if impl == "auto" or (sq == 1 and impl == "blockwise"):
+        return "blockwise" if sk > 2048 and sq > 1 else "naive"
+    return impl
+
+
 # ---------------------------------------------------------------------------
 # Cache
 
@@ -158,7 +237,8 @@ def _kv(params, src, cfg):
 
 
 def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
-                    cache=None, impl="naive", kv_x=None, precomputed_kv=None):
+                    cache=None, impl="naive", block=1024, kv_x=None,
+                    precomputed_kv=None):
     """x [B, S, D] -> (out [B, S, D], cache).
 
     positions: [B, S] int32 absolute positions, or [B, 3, S] for M-RoPE.
@@ -168,6 +248,7 @@ def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
       encoder, at positions 0..Sk-1).
     precomputed_kv: {"k", "v", "pos"} of ``compute_cross_kv``: decode-time
       cross-attention, every key valid.
+    impl: naive | blockwise | auto | kernel; block: blockwise's KV block.
     Self-attention rotates q and k by the config's rope / mrope;
     attention over outside keys (``kv_x`` or ``precomputed_kv``) rotates
     neither."""
@@ -215,15 +296,20 @@ def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
     else:
         k_all, v_all, k_pos, k_valid = k, v, flat_pos, None
 
+    impl = resolve_impl(impl, q.shape[1], k_all.shape[1])
     if impl == "naive":
         bias = _mask_bias(flat_pos, k_pos, causal, window, k_valid)
         out = _naive_attention(q, k_all, v_all, bias)
+    elif impl == "blockwise":
+        out = _blockwise_attention(q, k_all, v_all, flat_pos, k_pos, causal,
+                                   window, k_valid, block=block)
     elif impl == "kernel":
         out = kops.flash_attention(q, k_all, v_all, flat_pos, k_pos,
                                    causal=causal, window=window,
                                    k_valid=k_valid)
     else:
-        raise ValueError(f"unknown attention impl {impl!r} (naive | kernel)")
+        raise ValueError(f"unknown attention impl {impl!r} "
+                         f"(naive | blockwise | auto | kernel)")
 
     b, s, h, _ = out.shape
     wo = params["wo"]

@@ -37,7 +37,7 @@ def init_hybrid_cache(cfg, batch: int, cache_len: int, is_global: bool,
 
 
 def apply_hybrid(params, x, cfg, *, positions, is_global, cache=None,
-                 impl="kernel", ssm_impl="kernel", ssm_chunk=256,
+                 impl="kernel", block=1024, ssm_impl="kernel", ssm_chunk=256,
                  ssm_bwd="fused"):
     """x [B, S, D] -> (y, cache); a given cache {"kv", "ssm"} is updated
     in place."""
@@ -45,7 +45,7 @@ def apply_hybrid(params, x, cfg, *, positions, is_global, cache=None,
     a_out, kv = attention.apply_attention(
         params["attn"], x, cfg, positions=positions, causal=True,
         window=window, cache=None if cache is None else cache["kv"],
-        impl=impl)
+        impl=impl, block=block)
     s_out, ssm = mamba.apply_mamba(
         params["ssm"], x, cfg, cache=None if cache is None else cache["ssm"],
         impl=ssm_impl, chunk=ssm_chunk, bwd_impl=ssm_bwd)

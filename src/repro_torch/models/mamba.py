@@ -103,6 +103,44 @@ def chunked_selective_scan(x, dt, b_in, c_in, a_log, h0=None, chunk=256):
     return y.to(x.dtype), h
 
 
+def assoc_selective_scan(x, dt, b_in, c_in, a_log, h0=None, chunk=256):
+    """``chunked_selective_scan``'s function in the JAX package's own
+    form: within each chunk the recurrence is combined by a log-depth
+    associative scan ((a1, b1) . (a2, b2) = (a1 a2, a2 b1 + b2), doubling
+    the reach each level) instead of stepped, so a chunk is ~6 log2(chunk)
+    ops rather than ~3 a step. The dry run traces it: a stepped trace of a
+    32k-token prefill over 64 layers is millions of fake-tensor ops. Each
+    level keeps its [B, chunk, di, ds] operands for the backward, so the
+    plain path keeps the stepped form."""
+    bsz, s, di = x.shape
+    ds = b_in.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    if pad:
+        x, dt, b_in, c_in = (F.pad(t, (0, 0, 0, pad))
+                             for t in (x, dt, b_in, c_in))
+    a_neg = -torch.exp(a_log.float())
+    h = (torch.zeros((bsz, di, ds), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for ci in range(nc):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        xc, dtc, bc, cc = (t[:, sl].float() for t in (x, dt, b_in, c_in))
+        a = torch.exp(dtc[..., None] * a_neg)               # [B, c, di, ds]
+        b = (dtc * xc)[..., None] * bc[:, :, None, :]       # [B, c, di, ds]
+        reach = 1
+        while reach < chunk:
+            a_prev = F.pad(a[:, :-reach], (0, 0, 0, 0, reach, 0), value=1.0)
+            b_prev = F.pad(b[:, :-reach], (0, 0, 0, 0, reach, 0))
+            a, b = a * a_prev, a * b_prev + b
+            reach *= 2
+        h_all = a * h[:, None] + b
+        ys.append(torch.einsum("bcns,bcs->bcn", h_all, cc))
+        h = h_all[:, -1]
+    y = torch.cat(ys, dim=1)[:, :s]
+    return y.to(x.dtype), h
+
+
 def selective_scan_step(x, dt, b_in, c_in, a_log, h):
     """One decode step. x, dt [B, di]; b_in, c_in [B, ds]; h [B, di, ds].
     Returns (y [B, di] in x's dtype, h_new f32)."""
@@ -150,7 +188,8 @@ def apply_mamba(params, x, cfg, cache=None, impl="kernel", chunk=256,
     """x [B, S, D] -> (y [B, S, D], cache). A given cache is updated in
     place and returned.
 
-    impl: "kernel" | "plain" (the scan of the prefill / train path);
+    impl: "kernel" | "plain" | "assoc" (the scan of the prefill / train
+    path; ``assoc_selective_scan`` is the dry run's);
     bwd_impl: the kernel path's backward, "fused" | "recompute"."""
     di, ds = cfg.d_inner, cfg.ssm.d_state
     dtr = params["dt_proj"].shape[0]
@@ -190,8 +229,13 @@ def apply_mamba(params, x, cfg, cache=None, impl="kernel", chunk=256,
             y, h_new = chunked_selective_scan(xc, dt, b_in, c_in,
                                               params["A_log"], h0=h0,
                                               chunk=chunk)
+        elif impl == "assoc":
+            y, h_new = assoc_selective_scan(xc, dt, b_in, c_in,
+                                            params["A_log"], h0=h0,
+                                            chunk=chunk)
         else:
-            raise ValueError(f"unknown ssm impl {impl!r} (kernel | plain)")
+            raise ValueError(f"unknown ssm impl {impl!r} "
+                             f"(kernel | plain | assoc)")
     else:
         y1, h_new = selective_scan_step(xc[:, 0], dt[:, 0], b_in[:, 0],
                                         c_in[:, 0], params["A_log"],

@@ -22,10 +22,11 @@ A block, a segment and the body return the router's load-balance loss
 beside the hidden states, as in the JAX package: a 0-d f32 tensor summed
 over the MoE blocks, or 0.0 where there is none.
 
-``impls``: {"attn": "kernel" | "naive", "ssm": "kernel" | "plain",
+``impls``: {"attn": "kernel" | "naive" | "blockwise" | "auto",
+"attn_block": the blockwise KV block (1024), "ssm": "kernel" | "plain",
 "ssm_chunk": the scan's chunk (256), "ssm_bwd": "fused" | "recompute",
-"moe": "ragged" | "dense"}; the kernels and the ragged dispatch by
-default.
+"moe": "ragged" | "dense" | "ep", "moe_capacity": ep's slack (2.0)}; the
+kernels and the ragged dispatch by default.
 """
 from __future__ import annotations
 
@@ -135,24 +136,28 @@ def apply_block(params, x, cfg, kind: BlockKind, *, positions, cache=None,
         out, cache = hybrid.apply_hybrid(
             params["mix"], h, cfg, positions=positions,
             is_global=kind.is_global, cache=cache,
-            impl=impls.get("attn", "kernel"), **ssm_kw)
+            impl=impls.get("attn", "kernel"),
+            block=impls.get("attn_block", 1024), **ssm_kw)
     else:
         window = 0 if kind.is_global else cfg.sliding_window
         out, cache = attention.apply_attention(
             params["attn"], h, cfg, positions=positions, causal=kind.causal,
-            window=window, cache=cache, impl=impls.get("attn", "kernel"))
+            window=window, cache=cache, impl=impls.get("attn", "kernel"),
+            block=impls.get("attn_block", 1024))
     x = x + out
     if kind.cross:
         h = layers.apply_norm(x, params["norm_cross"], cfg.norm)
         out, _ = attention.apply_attention(
             params["cross"], h, cfg, positions=positions, causal=False,
             kv_x=enc_out, precomputed_kv=cross_kv,
-            impl=impls.get("attn", "kernel"))
+            impl=impls.get("attn", "kernel"),
+            block=impls.get("attn_block", 1024))
         x = x + out
     h = layers.apply_norm(x, params["norm2"], cfg.norm)
     if "moe" in params:
         out, aux = moe.apply_moe(params["moe"], h, cfg,
-                                 impl=impls.get("moe", "ragged"))
+                                 impl=impls.get("moe", "ragged"),
+                                 capacity=impls.get("moe_capacity", 2.0))
         return x + out, cache, aux
     return x + mlp.apply_mlp(params["mlp"], h, cfg.activation), cache, 0.0
 

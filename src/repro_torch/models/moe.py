@@ -1,8 +1,8 @@
 """Mixture-of-Experts FFN (Qwen-MoE family): routed top-k experts with an
 optional always-on shared expert, plus a load-balance auxiliary loss.
 
-Counterpart of the JAX package's ``models/moe.py``. Two dispatches, the
-same function:
+Counterpart of the JAX package's ``models/moe.py``. Three dispatches,
+the same function up to ep's capacity:
 
   * dense  — every expert processes every token; the combine weights
              (zero off the top k) scale each expert's activations before
@@ -18,7 +18,17 @@ same function:
              [T, k, D] and adds the k choices in order: no scatter-add,
              whose CUDA atomics would change the bits from run to run.
 
-``impl="ep"`` (expert parallel) comes with the multi-GPU slice.
+  * ep     — the JAX package's expert-parallel dispatch under the active
+             mesh (``parallel.sharding.use_mesh``). With no mesh, or
+             experts not divisible by the model axis, it is ragged, as
+             there. With a model axis of 1 (one card) it is the JAX
+             ``local`` function on each data shard's tokens: a stable
+             sort of the (token, k) slots by expert, each expert's first
+             ``cap_e = max(1, int(capacity * T * k / E))`` slots kept and
+             the rest dropped (``ep_drop_mask`` says which), three
+             grouped products over [E, cap_e] padded rows, a scatter-add
+             back to the tokens. Static shapes: no host readback. A model
+             axis above 1 is the multi-GPU work of ROADMAP.md.
 
 ``routing_tape`` is a check-only tool: a comparison of the kernel path
 with the plain path records the kernel path's expert choices and replays
@@ -29,6 +39,7 @@ counts those flips. Nothing enters it unless a caller opens one.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
@@ -189,8 +200,95 @@ def _apply_ragged(params, x, cfg, weights, idx):
     return out
 
 
-def apply_moe(params, x, cfg, impl: str = "ragged"):
-    """x [B, S, D] -> (y [B, S, D], aux f32 scalar)."""
+def _ep_capacity(t: int, k: int, e: int, capacity: float) -> int:
+    return max(1, int(capacity * t * k / e))
+
+
+def _data_shards(mesh) -> int:
+    return math.prod(int(mesh.shape[a]) for a in ("pod", "data")
+                     if a in mesh.axis_names)
+
+
+def _ep_local(params, x, cfg, weights, idx, capacity: float):
+    """The JAX ``_apply_ep``'s per-device ``local`` on one (data, model)
+    device holding every expert: x [T, D] -> [T, D]."""
+    t, d = x.shape
+    k = idx.shape[1]
+    e = cfg.moe.num_experts
+    cap_e = _ep_capacity(t, k, e, capacity)
+    act = layers.act_fn(cfg.activation)
+    flat_e = idx.reshape(-1)                                 # [T*k]
+    order = torch.argsort(flat_e, stable=True)
+    # hits per expert, with a static shape (bincount would read its
+    # length back to the host)
+    gs = torch.zeros(e, dtype=torch.long, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(gs, 0) - gs
+    slot = torch.arange(cap_e, device=x.device)
+    pos = (starts[:, None] + slot[None, :]).clamp(0, t * k - 1)
+    rows = order[pos]                                        # [E, cap_e]
+    valid = slot[None, :] < gs.clamp(max=cap_e)[:, None]
+    toks = rows // k
+    xs = x[toks] * valid[..., None].to(x.dtype)
+    h = torch.einsum("ecd,edf->ecf", xs, params["wi"].to(x.dtype))
+    if "wg" in params:
+        g = torch.einsum("ecd,edf->ecf", xs, params["wg"].to(x.dtype))
+        h = act(g) * h
+    else:
+        h = act(h)
+    y = torch.einsum("ecf,efd->ecd", h, params["wo"].to(x.dtype))
+    wsel = weights.reshape(-1)[rows] * valid.to(weights.dtype)
+    y = y * wsel[..., None].to(y.dtype)
+    return torch.zeros_like(x).index_add(0, toks.reshape(-1),
+                                         y.reshape(-1, d))
+
+
+def _apply_ep(params, x, cfg, weights, idx, capacity: float = 2.0):
+    from repro_torch.parallel import sharding
+
+    mesh = sharding.current_mesh()
+    e = cfg.moe.num_experts
+    if mesh is None or "model" not in mesh.axis_names \
+            or e % int(mesh.shape["model"]) != 0:
+        return _apply_ragged(params, x, cfg, weights, idx)
+    if int(mesh.shape["model"]) > 1:
+        raise NotImplementedError(
+            "ep with a model axis above 1 places experts across GPUs: the "
+            "multi-GPU work of ROADMAP.md")
+    shards = _data_shards(mesh)
+    if shards == 1:
+        return _ep_local(params, x, cfg, weights, idx, capacity)
+    return torch.cat([_ep_local(params, xs, cfg, ws, js, capacity)
+                      for xs, ws, js in zip(x.chunk(shards), weights.chunk(
+                          shards), idx.chunk(shards))])
+
+
+def ep_drop_mask(idx, num_experts: int, capacity: float = 2.0,
+                 shards: int = 1):
+    """[T, k] bool: the (token, k) slots of routing choices idx [T, k]
+    that ep drops past capacity over `shards` data shards (each expert
+    keeps its first cap_e slots in token order, as the stable sort
+    does)."""
+    out = []
+    for js in idx.chunk(shards):
+        t, k = js.shape
+        flat = js.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        gs = torch.zeros(num_experts, dtype=torch.long,
+                         device=js.device).scatter_add_(
+            0, flat, torch.ones_like(flat))
+        starts = torch.cumsum(gs, 0) - gs
+        rank = torch.empty_like(flat)
+        rank[order] = torch.arange(flat.numel(), device=js.device) \
+            - starts[flat[order]]
+        out.append((rank >= _ep_capacity(t, k, num_experts, capacity))
+                   .reshape(t, k))
+    return torch.cat(out)
+
+
+def apply_moe(params, x, cfg, impl: str = "ragged", capacity: float = 2.0):
+    """x [B, S, D] -> (y [B, S, D], aux f32 scalar); `capacity` is ep's
+    per-expert slack."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     weights, idx, aux = _routing(params, xt, cfg)
@@ -199,11 +297,9 @@ def apply_moe(params, x, cfg, impl: str = "ragged"):
     elif impl == "ragged":
         y = _apply_ragged(params, xt, cfg, weights, idx)
     elif impl == "ep":
-        raise NotImplementedError(
-            "expert-parallel dispatch comes with the multi-GPU slice (8) of "
-            "the port (ROADMAP.md)")
+        y = _apply_ep(params, xt, cfg, weights, idx, capacity)
     else:
-        raise ValueError(f"unknown moe impl {impl!r} (dense | ragged)")
+        raise ValueError(f"unknown moe impl {impl!r} (dense | ragged | ep)")
     if "shared" in params:
         ys = mlp.apply_mlp(params["shared"], xt, cfg.activation)
         gate = torch.sigmoid(xt.float() @ params["shared_gate"].float())

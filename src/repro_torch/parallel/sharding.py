@@ -1,8 +1,32 @@
-"""Host batch placement for the step pipeline.
+"""Sharding rules (logical axes -> mesh axes) and host batch placement.
 
-The JAX package's ``parallel/sharding.py`` holds its mesh rules and its
-``place_batch``; the port runs on one device, so this module holds only
-the placement. ``place_batch`` runs on the prefetch producer thread
+Counterpart of the JAX package's ``parallel/sharding.py``. The rule table
+is the same: every tensor dim has a chain of logical candidates, and the
+first whose mesh-axis product divides the dim wins, else the dim is
+unsharded. Logical axes resolve against whatever axes the active mesh
+(``launch.mesh.Mesh``) has:
+
+  batch, client -> (pod, data)   activations' batch / the MPSL client axis
+  fsdp          -> (data,)       weight sharding within a pod
+  model         -> (model,)      tensor parallelism (heads / ff / vocab /
+                                 experts)
+  dboth         -> (data, model) fully-sharded fallback for a contraction
+  pod           -> (pod,)
+  seq_model     -> (model,)      sequence parallelism
+
+A spec is a tuple with one entry a dim: None, a mesh axis name, or a
+tuple of them (the JAX package's ``PartitionSpec`` entries).
+``shard_shape`` gives a leaf's per-device shape under a spec, as
+``NamedSharding.shard_shape`` does; the dry run counts bytes with it.
+The port keeps per-layer lists where the JAX package stacks [L, ...]
+segments (``bridge.py``), so a segment leaf's spec is the JAX spec
+without its leading layer entry, and so is a per-layer cache's.
+
+Nothing partitions a tensor yet: one card runs everything, so
+``shard_act`` is the identity at any mesh. Placing tensors by these specs
+across GPUs (DTensor) is the multi-GPU work of ROADMAP.md.
+
+``place_batch`` runs on the prefetch producer thread
 (``data.PrefetchLoader(place_fn=place_batch)``); ``take_batch`` runs on
 the consumer, just before the step reads the batch.
 
@@ -17,10 +41,264 @@ read it. On the CPU a placement makes plain copies.
 """
 from __future__ import annotations
 
+import contextlib
+import math
+import threading
+from typing import Any, Optional, Sequence, Tuple
+
 import numpy as np
 import torch
 
 from repro_torch import obs
+
+LOGICAL = {
+    "batch": ("pod", "data"),
+    "client": ("pod", "data"),
+    "fsdp": ("data",),
+    "model": ("model",),
+    "dboth": ("data", "model"),
+    "pod": ("pod",),
+    "seq_model": ("model",),
+}
+
+_state = threading.local()
+
+
+def current_mesh():
+    return getattr(_state, "mesh", None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Set the active mesh for ``shard_act`` and the rules (per thread)."""
+    prev = current_mesh()
+    _state.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _state.mesh = prev
+
+
+def _axes_in_mesh(mesh, logical: str) -> Tuple[str, ...]:
+    return tuple(a for a in LOGICAL[logical] if a in mesh.axis_names)
+
+
+def _axes_size(mesh, axes: Tuple[str, ...]) -> int:
+    return math.prod(int(mesh.shape[a]) for a in axes)
+
+
+def resolve_dim(mesh, dim: int, candidates) -> Optional[Any]:
+    """candidates: None | str | sequence of str (a fallback chain)."""
+    if candidates is None:
+        return None
+    if isinstance(candidates, str):
+        candidates = (candidates,)
+    for logical in candidates:
+        axes = _axes_in_mesh(mesh, logical)
+        size = _axes_size(mesh, axes)
+        if axes and size > 1 and dim % size == 0:
+            return axes if len(axes) > 1 else axes[0]
+    return None
+
+
+def resolve_spec(mesh, shape: Sequence[int], dims) -> tuple:
+    if len(dims) != len(shape):
+        raise ValueError(f"dims {dims} do not match shape {tuple(shape)}")
+    return tuple(resolve_dim(mesh, d, c) for d, c in zip(shape, dims))
+
+
+def shard_shape(shape: Sequence[int], spec, mesh) -> tuple:
+    """The per-device shape of a `shape` laid out by `spec` on `mesh`
+    (``NamedSharding.shard_shape``): each dim divided by the product of
+    its entry's axis sizes, rounded up."""
+    out = []
+    for i, d in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        out.append(-(-int(d) // _axes_size(mesh, axes)))
+    return tuple(out)
+
+
+def shard_act(x, dims):
+    """The JAX package's ``with_sharding_constraint`` against the active
+    mesh. No partitioner runs on one card: the identity at any mesh."""
+    return x
+
+
+def _map_with_path(fn, tree_, path=()):
+    """A tree of fn(path, leaf), shaped as `tree_` (dicts and lists; the
+    path holds dict keys and list indices as str)."""
+    if isinstance(tree_, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),))
+                for k, v in tree_.items()}
+    if isinstance(tree_, (list, tuple)):
+        return type(tree_)(_map_with_path(fn, v, path + (str(i),))
+                           for i, v in enumerate(tree_))
+    return fn(path, tree_)
+
+
+def _shape(leaf) -> tuple:
+    return tuple(getattr(leaf, "shape", np.shape(leaf)))
+
+
+def batch_specs(batch, mesh):
+    """Per-leaf specs of an MPSL host batch: the leading axis of every
+    array is the client axis, sharded over the mesh data axes when
+    divisible; everything else replicated."""
+    def rule(_path, leaf):
+        shape = _shape(leaf)
+        return resolve_spec(mesh, shape, ("client",) + (None,) * (len(shape) - 1))
+    return _map_with_path(rule, batch)
+
+
+# ---------------------------------------------------------------------------
+# Parameter rules (path-based)
+
+
+def _param_dims(path: Tuple[str, ...], shape: Tuple[int, ...]):
+    """Rule table: (parent..., leaf) names + shape -> per-dim candidates.
+    A segment leaf is one layer's (the port's per-layer lists): the JAX
+    package's rule past its stacked layer dim."""
+    if "adapter" in path or "tokenizers" in path:
+        return ("client",) + (None,) * (len(shape) - 1)
+    return _param_dims_base(path, shape)
+
+
+def _param_dims_base(path: Tuple[str, ...], shape: Tuple[int, ...]):
+    leaf = path[-1]
+    parent = path[-2] if len(path) > 1 else ""
+
+    # embeddings / heads
+    if leaf == "table":                       # [V, D]
+        return ("fsdp", "model")
+    if leaf == "lm_head":                     # [D, V]
+        return ("fsdp", "model")
+    if leaf == "pos":                         # [S, D]
+        return (None, "model")
+
+    # attention
+    if leaf in ("wq", "wk", "wv"):            # [D, H|K, hd]
+        if shape[1] % _model_size() == 0:     # TP over heads, FSDP over D
+            return ("fsdp", "model", None)
+        return (("dboth", "model"), None, None)
+    if leaf == "wo" and len(shape) == 3 and parent != "moe":
+        # attention output [H, hd, D]
+        if shape[0] % _model_size() == 0:
+            return ("model", None, "fsdp")
+        return (None, None, ("dboth", "model"))
+    if leaf in ("bq", "bk", "bv"):            # [H|K, hd]
+        if shape[0] % _model_size() == 0:
+            return ("model", None)
+        return (None, None)
+
+    # MoE (expert-stacked weights)
+    if len(shape) == 3 and leaf in ("wi", "wg"):      # [E, D, F]
+        if shape[0] % _model_size() == 0:             # expert parallelism
+            return ("model", "fsdp", None)
+        return (None, "fsdp", "model")
+    if len(shape) == 3 and leaf == "wo":              # [E, F, D]
+        if shape[0] % _model_size() == 0:
+            return ("model", None, "fsdp")
+        return (None, "model", "fsdp")
+    if leaf == "router":                      # [D, E]
+        return ("fsdp", None)
+    if leaf == "shared_gate":                 # [D, 1]
+        return ("fsdp", None)
+
+    # dense MLP
+    if leaf in ("wi", "wg") and len(shape) == 2:   # [D, F]
+        return ("fsdp", "model")
+    if leaf == "wo" and len(shape) == 2:           # [F, D]
+        return ("model", "fsdp")
+
+    # Mamba
+    if leaf == "in_proj":                     # [D, 2*di]
+        return ("fsdp", "model")
+    if leaf == "conv_w":                      # [dc, di]
+        return (None, "model")
+    if leaf in ("conv_b", "dt_bias", "D"):    # [di]
+        return ("model",)
+    if leaf == "x_proj":                      # [di, dtr+2ds]
+        return ("model", None)
+    if leaf == "dt_proj":                     # [dtr, di]
+        return (None, "model")
+    if leaf == "A_log":                       # [di, ds]
+        return ("model", None)
+    if leaf == "out_proj":                    # [di, D]
+        return ("model", "fsdp")
+
+    # tokenizers / misc
+    if leaf == "embed" and len(shape) == 2:   # text tokenizer table [V, D]
+        return ("fsdp", "model")
+    if leaf == "proj" and len(shape) == 2:    # patch proj [p*p*c, D]
+        return (None, "model")
+
+    # norms, biases, scalars, cls, betas: replicated
+    return tuple(None for _ in shape)
+
+
+def _model_size() -> int:
+    mesh = current_mesh()
+    return int(mesh.shape["model"]) if mesh is not None \
+        and "model" in mesh.axis_names else 1
+
+
+def param_specs(params, mesh):
+    """A tree of specs mirroring `params` (tensors, meta tensors or
+    anything with a ``.shape``)."""
+    def rule(path, leaf):
+        shape = _shape(leaf)
+        with use_mesh(mesh):
+            return resolve_spec(mesh, shape, _param_dims(path, shape))
+    return _map_with_path(rule, params)
+
+
+# ---------------------------------------------------------------------------
+# Cache rules
+
+
+def cache_dims(shape: Tuple[int, ...], leaf: str, stacked: bool,
+               kv_heads: Optional[int] = None):
+    """KV cache [L?, B, S, K, hd] / pos [L?, B, S] / SSM h [L?, B, di, ds]
+    / conv [L?, B, dc-1, di]; the port's per-layer caches are unstacked.
+
+    When the KV heads don't divide the TP axis, the cache's SEQ dim is
+    sharded over `model` instead, and `pos` follows the same seq sharding
+    so decode masks stay local."""
+    lead = ("__layer__",) if stacked else ()
+    n = len(shape) - len(lead)
+    if leaf in ("k", "v") and n == 4:
+        _, _, k_heads, _ = shape[-4:]
+        kv = "model" if k_heads % _model_size() == 0 else None
+        seq = None if kv else "model"
+        return (None,) * len(lead) + ("batch", seq, kv, None)
+    if leaf == "pos" and n == 2:
+        seq = None if (kv_heads is not None
+                       and kv_heads % _model_size() == 0) else "model"
+        return (None,) * len(lead) + ("batch", seq)
+    if leaf == "index":
+        return (None,) * len(shape)
+    if leaf == "h" and n == 3:                # [B, di, ds]
+        return (None,) * len(lead) + ("batch", "model", None)
+    if leaf == "conv" and n == 3:             # [B, dc-1, di]
+        return (None,) * len(lead) + ("batch", None, "model")
+    return tuple(None for _ in shape)
+
+
+def cache_specs(cache, mesh, stacked: bool = False, kv_heads=None):
+    """A tree of specs mirroring `cache` (the port's per-layer caches:
+    ``stacked=False``; an int ``index`` gets the spec ())."""
+    def rule(path, leaf):
+        shape = _shape(leaf)
+        with use_mesh(mesh):
+            return resolve_spec(mesh, shape, cache_dims(
+                shape, path[-1], stacked, kv_heads=kv_heads))
+    return _map_with_path(rule, cache)
+
+
+# ---------------------------------------------------------------------------
+# Host batch placement
 
 # integer fields the step uses as indices: int64 on the device
 INDEX_KEYS = ("tokens", "labels")

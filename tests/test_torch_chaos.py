@@ -241,7 +241,8 @@ def _chaos_setup(ckpt_dir, steps=30, prefetch=True):
     cfg = reduced(get_config("minitron-4b"))
     mp = MPSLConfig(n_clients=4, trainable_blocks=1, head_adapter_rank=4)
     run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mpsl=mp,
-                    compute_dtype="float32", learning_rate=1e-3)
+                    compute_dtype="float32", learning_rate=1e-3,
+                    attn_impl="kernel", ce_impl="kernel")
     params, frozen, _ = split.init_mpsl_lm(
         torch.Generator().manual_seed(0), cfg, run)
     state = mpsl.init_state(params, frozen)

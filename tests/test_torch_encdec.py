@@ -437,7 +437,8 @@ def _port_run(arch, compress):
     mp = TMPSLConfig(n_clients=N, trainable_blocks=1, head_adapter_rank=4,
                      compress_uplink=compress, compress_downlink=compress)
     return cfg, TRunConfig(model=cfg, shape=None, mpsl=mp,
-                           compute_dtype="float32")
+                           compute_dtype="float32", attn_impl="kernel",
+                           ce_impl="kernel")
 
 
 def _np_batch(cfg, seed, bn=BN, mask=None):

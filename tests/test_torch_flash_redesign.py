@@ -409,7 +409,8 @@ def test_bf16_mpsl_loss_and_grads_match_jax():
     trun = TRunConfig(model=tcfg, shape=None,
                       mpsl=TMPSLConfig(n_clients=n, trainable_blocks=1,
                                        head_adapter_rank=4),
-                      compute_dtype="bfloat16")
+                      compute_dtype="bfloat16", attn_impl="kernel",
+                      ce_impl="kernel")
     tparams, tfrozen = bridge.from_repro(params), bridge.from_repro(frozen)
     leaves = tree.leaves(tparams)
     for p in leaves:

@@ -287,12 +287,20 @@ def test_new_families_forward_shapes_and_finite(arch):
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "qwen2-moe-a2.7b"])
 def test_moe_archs_init_and_name_the_ep_slice(arch):
     """The MoE family is ported: a reduced model initialises with an MoE
-    FFN in every block; only the expert-parallel dispatch is left, to the
-    multi-GPU slice."""
+    FFN in every block. The ep dispatch is ragged with no mesh, as in the
+    JAX package; experts placed across a model axis above 1 are left to
+    the multi-GPU work."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.parallel import sharding as TSH
     cfg = t_reduced(t_get_config(arch))
     params = TM.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
     layer = params["segments"][0][0]
     assert "moe" in layer and "mlp" not in layer
-    x = torch.zeros((1, 3, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        TMOE.apply_moe(layer["moe"], x, cfg, impl="ep")
+    x = torch.randn((1, 3, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    y_ep, _ = TMOE.apply_moe(layer["moe"], x, cfg, impl="ep")
+    y_ragged, _ = TMOE.apply_moe(layer["moe"], x, cfg, impl="ragged")
+    assert torch.equal(y_ep, y_ragged)
+    with TSH.use_mesh(mesh_lib.Mesh(("data", "model"), (1, 2))):
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
+            TMOE.apply_moe(layer["moe"], x, cfg, impl="ep")

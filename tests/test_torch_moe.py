@@ -280,7 +280,8 @@ def _port_run(compress, remat="block", coef=None):
     mp = TMPSLConfig(n_clients=N, trainable_blocks=1, head_adapter_rank=4,
                      compress_uplink=compress, compress_downlink=compress)
     return cfg, TRunConfig(model=cfg, shape=None, mpsl=mp,
-                           compute_dtype="float32", remat=remat)
+                           compute_dtype="float32", attn_impl="kernel",
+                           ce_impl="kernel", moe_impl="ragged", remat=remat)
 
 
 def _np_batch(cfg, seed, mask=None, bn=BN):

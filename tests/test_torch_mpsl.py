@@ -68,7 +68,8 @@ def _port_run(compress, arch="minitron-4b", **kw):
     mp = TMPSLConfig(n_clients=N, trainable_blocks=1, head_adapter_rank=4,
                      compress_uplink=compress, compress_downlink=compress)
     return cfg, TRunConfig(model=cfg, shape=None, mpsl=mp,
-                           compute_dtype="float32", **kw)
+                           compute_dtype="float32", attn_impl="kernel",
+                           ce_impl="kernel", **kw)
 
 
 def _np_batch(cfg, seed, n=N, bn=BN, s=S, mask=None):

@@ -261,7 +261,8 @@ def _port_lm_links(compressed: bool, n=2, bn=2, seq=32,
                     compress_uplink=compressed,
                     compress_downlink=compressed)
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=seq)
-    run = RunConfig(model=cfg, shape=shape, mpsl=mp, compute_dtype=dtype)
+    run = RunConfig(model=cfg, shape=shape, mpsl=mp, compute_dtype=dtype,
+                    attn_impl="kernel", ce_impl="kernel")
     params, frozen, _ = split.init_mpsl_lm(
         torch.Generator().manual_seed(0), cfg, run)
     state = mpsl.init_state(params, frozen)
@@ -357,7 +358,8 @@ def test_link_records_reach_the_recorder_once_a_change(monkeypatch):
     mp = MPSLConfig(n_clients=2, trainable_blocks=1, head_adapter_rank=4,
                     compress_uplink=True, compress_downlink=True)
     run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mpsl=mp,
-                    compute_dtype="float32")
+                    compute_dtype="float32", attn_impl="kernel",
+                    ce_impl="kernel")
     params, frozen, _ = split.init_mpsl_lm(
         torch.Generator().manual_seed(0), cfg, run)
     state = mpsl.init_state(params, frozen)
@@ -439,7 +441,8 @@ def test_trainer_obs_end_to_end(tmp_path, monkeypatch):
         mp = MPSLConfig(n_clients=2, trainable_blocks=1,
                         head_adapter_rank=4)
         run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mpsl=mp,
-                        compute_dtype="float32", learning_rate=1e-3)
+                        compute_dtype="float32", learning_rate=1e-3,
+                        attn_impl="kernel", ce_impl="kernel")
         params, frozen, _ = split.init_mpsl_lm(
             torch.Generator().manual_seed(0), cfg, run)
         state = mpsl.init_state(params, frozen)

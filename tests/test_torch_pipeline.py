@@ -149,7 +149,8 @@ def _tiny_train(donate, n=2, bn=2, seq=24):
     cfg = reduced(get_config("minitron-4b"))
     mp = MPSLConfig(n_clients=n, trainable_blocks=1, head_adapter_rank=4)
     run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mpsl=mp,
-                    compute_dtype="float32", learning_rate=1e-3)
+                    compute_dtype="float32", learning_rate=1e-3,
+                    attn_impl="kernel", ce_impl="kernel")
     params, frozen, _ = split.init_mpsl_lm(
         torch.Generator().manual_seed(0), cfg, run)
     state = mpsl.init_state(params, frozen)
@@ -286,7 +287,8 @@ def test_obs_on_and_off_give_the_same_ops_launches_and_bits(tmp_path):
     mp = MPSLConfig(n_clients=2, trainable_blocks=1, head_adapter_rank=4,
                     compress_uplink=True, compress_downlink=True)
     run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mpsl=mp,
-                    compute_dtype="float32", learning_rate=1e-3)
+                    compute_dtype="float32", learning_rate=1e-3,
+                    attn_impl="kernel", ce_impl="kernel")
     batch = make_lm_loader(cfg, 2, 2, 24, seed=0).batch(0)
 
     def one_step():
@@ -319,7 +321,8 @@ def _trainer_setup(ckpt_dir=None, drop_prob=0.0, n=4, steps=6,
     cfg = reduced(get_config("minitron-4b"))
     mp = MPSLConfig(n_clients=n, trainable_blocks=1, head_adapter_rank=4)
     run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mpsl=mp,
-                    compute_dtype="float32", learning_rate=1e-3)
+                    compute_dtype="float32", learning_rate=1e-3,
+                    attn_impl="kernel", ce_impl="kernel")
     params, frozen, _ = split.init_mpsl_lm(
         torch.Generator().manual_seed(0), cfg, run)
     state = mpsl.init_state(params, frozen)
@@ -491,7 +494,8 @@ def test_trainer_losses_match_jax_trainer():
     cfg = reduced(get_config("minitron-4b"))
     mp = MPSLConfig(n_clients=n, trainable_blocks=1, head_adapter_rank=4)
     run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mpsl=mp,
-                    compute_dtype="float32", learning_rate=1e-3)
+                    compute_dtype="float32", learning_rate=1e-3,
+                    attn_impl="kernel", ce_impl="kernel")
     state = mpsl.init_state(bridge.from_repro(params),
                             bridge.from_repro(frozen))
     step = mpsl.make_train_step(mpsl.make_lm_loss(cfg, run), run,

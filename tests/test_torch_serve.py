@@ -120,6 +120,11 @@ PAPER_MODE = ("models/tokenizers.py", "core/fusion.py", "core/aggregation.py",
               "core/baselines.py", "core/costs.py", "core/losses.py",
               "core/mpsl.py", "core/split.py", "data/synthetic.py",
               "bridge.py")
+# the production cells' layer and the examples
+CELLS = ("optim/accum.py", "launch/mesh.py", "launch/steps.py",
+         "launch/dryrun.py", "parallel/sharding.py",
+         "examples/quickstart.py", "examples/train_lm_mpsl.py",
+         "examples/serve_batched.py")
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
@@ -127,6 +132,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     scanned = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
                for p in files}
     assert set(PAPER_MODE) <= scanned, set(PAPER_MODE) - scanned
+    assert set(CELLS) <= scanned, set(CELLS) - scanned
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     for path in files:

@@ -314,7 +314,8 @@ def _runs(arch, compress):
                      mpsl=MPSLConfig(**mp), compute_dtype="float32",
                      attn_impl="pallas", ce_impl="pallas", ssm_impl="pallas")
     trun = TRunConfig(model=tcfg, shape=None, mpsl=TMPSLConfig(**mp),
-                      compute_dtype="float32")
+                      compute_dtype="float32", attn_impl="kernel",
+                      ce_impl="kernel", ssm_impl="kernel")
     return jcfg, jrun, tcfg, trun
 
 

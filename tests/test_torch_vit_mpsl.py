@@ -78,7 +78,8 @@ def _port_run(fusion="early", compress=False, n=N):
     mp = TMPSLConfig(n_clients=n, trainable_blocks=1, fusion=fusion,
                      compress_uplink=compress, compress_downlink=compress)
     return TRunConfig(model=TCFG, shape=None, mpsl=mp,
-                      compute_dtype="float32")
+                      compute_dtype="float32", attn_impl="kernel",
+                      ce_impl="kernel")
 
 
 def _jax_trees(case, seed=0):
