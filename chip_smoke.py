@@ -45,8 +45,9 @@
                  4096, d_inner 8192, d_state 16, vocab 65024), as serve:
                  the scan forward in every layer's prefill (decode is the
                  recurrence step, outside any kernel);
-   ssm_train     falcon-mamba-7b, as train: the scan forward (block and
-                 remat recompute) and backward in every block, 3 steps;
+   ssm_train     falcon-mamba-7b at 32 of its 64 layers (`reduced` says
+                 why), as train: the scan forward (block and remat
+                 recompute) and backward in every block, 3 steps;
    hybrid_serve  full-width hymba-1.5b (32 hybrid blocks: parallel
                  attention, 25 heads / 5 KV heads, hd 64, window 1024 on
                  local layers, and Mamba heads), prompt 1536 (past the
@@ -153,6 +154,32 @@
                  against blockwise and the ragged dispatch (replaying the
                  kernel run's expert choices); its dropped (token, k)
                  slots recorded, and only rows no drop reached held.
+   mesh_train    the SPMD program (``parallel.collectives``) as 4 rank
+                 processes sharing the card over gloo
+                 (``launch.spmd.spawn``), mesh (data 2, model 2): train's
+                 spec with client 1 masked out, each rank 2 clients, 12
+                 of 24 heads on 4 of 8 KV heads, d_ff 4608 and 128000
+                 vocab columns (the vocab-parallel CE kernel on its
+                 shard, labels outside it included), every weight's D
+                 gathered at use; 3 steps against the one-rank train path
+                 run first on the card (each loss, the first step's
+                 gradients from each rank's shards, the masked client's
+                 adapter gradient exactly 0);
+   mesh_serve    serve's spec on (2, 2), the TP-only layout (batch 2 a
+                 data rank), teacher-forced with the one-rank serve path's
+                 tokens: logits, greedy tokens (argmax over the vocab
+                 shards) up to a near tie;
+   mesh_ep       qwen3-moe-235b-a22b (2 of 94 layers, bf16) prefill of 1 x
+                 4096 tokens through ``steps.build_prefill`` on (1, 4): 32
+                 of 128 experts, 16 of 64 heads on 1 of 4 KV heads a
+                 rank, ep at capacity 2.0, replaying the one-rank ep
+                 path's expert choices: every rank's dropped slots joined
+                 bitwise the one-rank ``ep_drop_mask``, last logits and
+                 cache K/V against it.
+   Each mesh path requires every rank's launches and collectives (by op
+   and axis) exactly as derived from the code (``mesh_*_collectives``),
+   and the ranks' peaks to sum under 80 GB; the collectives' times on
+   this transport are not recorded as speed.
    Each path's serve or train is followed by its profile: device time by
    kernel (torch.profiler) and the device's busy share. The MoE paths'
    plain versions (dense dispatch, naive attention) replay the kernel
@@ -197,6 +224,7 @@ import traceback
 import warnings
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -217,7 +245,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quant8 as q8  # noqa: E402
 from repro_torch.kernels import selective_scan as ss  # noqa: E402
 from repro_torch.kernels import softmax_xent as sx  # noqa: E402
-from repro_torch.launch import dryrun, serve, steps, train  # noqa: E402
+from repro_torch.launch import dryrun, serve, spmd, steps, train  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import layers, model as M  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
@@ -226,7 +254,7 @@ from repro_torch.models import tokenizers  # noqa: E402
 from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
 from repro_torch.obs import comm, report  # noqa: E402
 from repro_torch.optim import schedules  # noqa: E402
-from repro_torch.parallel import sharding  # noqa: E402
+from repro_torch.parallel import collectives, sharding  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.train.trainer import to_host  # noqa: E402
 
@@ -335,7 +363,11 @@ PATHS = {
     # and the Trainer (telemetry on), held bitwise to it
     "trainer": TRAIN,
     "ssm_serve": dict(SERVE, arch="falcon-mamba-7b"),
-    "ssm_train": dict(TRAIN, arch="falcon-mamba-7b"),
+    "ssm_train": dict(TRAIN, arch="falcon-mamba-7b", layers=32,
+                      reduced="depth 64 -> 32 layers: the plain "
+                      "path's Python-stepped scan took 108 s of the run at "
+                      "64, and the mesh paths needed the time; every "
+                      "kernel shape is the full width's"),
     "hybrid_serve": dict(SERVE, arch="hymba-1.5b", prompt_len=1536),
     "hybrid_train": dict(TRAIN, arch="hymba-1.5b", steps=2),
     "serve_bf16": dict(SERVE, compute_dtype="bfloat16"),
@@ -409,6 +441,16 @@ PATHS = {
         shape=("prefill_32k", 32768, 1, "prefill"), seed=0,
         reduced="batch 32 -> 1; depth 94 -> 2 layers (235 B params exceed "
         "one card)"),
+    # the SPMD program (parallel.collectives): 4 ranks sharing the card
+    # over gloo, each holding its shards of the rule table's layout,
+    # against the one-rank path; the new paths at full width
+    "mesh_train": dict(TRAIN, mesh=(2, 2), masked_client=1),
+    "mesh_serve": dict(SERVE, mesh=(2, 2)),
+    "mesh_ep": dict(
+        arch="qwen3-moe-235b-a22b", layers=2, mesh=(1, 4),
+        shape=("prefill_4k", 4096, 1, "prefill"), seed=0,
+        reduced="depth 94 -> 2 layers (235 B params exceed one card); "
+        "batch 1 x 4096 tokens"),
 }
 # every path's plain version: naive attention, the plain scan, chunked CE,
 # the dense expert dispatch
@@ -719,6 +761,15 @@ def _attn_cases():
         cases.append((name, dict(b=bb, sq=ss, sk=ss, h=hh, kh=kk, hd=hd), dict(
             q_pos=cp, k_pos=cp, k_valid=torch.ones(bb, ss, dtype=torch.bool),
             causal=True, window=0), True))
+    # the mesh paths' local head counts: mesh_train's rank (2 clients x 2
+    # sequences, 12 of 24 heads on 4 of 8 KV heads, f32) and mesh_ep's
+    # (16 of 64 heads on 1 of 4 KV heads: G 16, 4096 tokens, bf16)
+    for name, bb, ss, hh, kk in (("mesh_train", 4, 512, 12, 4),
+                                 ("mesh_ep_prefill", 1, 4096, 16, 1)):
+        cp = torch.arange(ss, dtype=torch.int32)[None].expand(bb, ss)
+        cases.append((name, dict(b=bb, sq=ss, sk=ss, h=hh, kh=kk, hd=hd), dict(
+            q_pos=cp, k_pos=cp, k_valid=torch.ones(bb, ss, dtype=torch.bool),
+            causal=True, window=0), True))
     for name, bb, sk, filled, hh, kk, d, main in (
             ("cell_decode", 4, 32768, 32760, 24, 8, hd, True),
             ("cell_long_decode", 1, 524288, 524280, 25, 5, 64, True),
@@ -739,16 +790,17 @@ VIT_ATTN = {"vit_early": (64, 274), "vit_vision": (64, 197),
             "vit_fedavg": (8, 274)}
 
 
-# the production cells' cases: bf16 only, as the cells compute
+# the production cells' cases and mesh_ep's: bf16 only, as they compute
 CELL_ATTN = ("cell_prefill", "cell_train", "cell_moe_prefill", "cell_decode",
-             "cell_long_decode", "qwen3_decode")
+             "cell_long_decode", "qwen3_decode", "mesh_ep_prefill")
 
 
 # the cases where every query sees every key (no mask for SDPA)
 ENCDEC_ATTN = ("encdec_enc", "encdec_cross", "encdec_cross_decode")
 FULL_ATTN = (*VIT_ATTN, *ENCDEC_ATTN)
 # the cases no bf16 path runs
-F32_ONLY = (*(n for n in FULL_ATTN if n != "vit_early"), "vlm_train")
+F32_ONLY = (*(n for n in FULL_ATTN if n != "vit_early"), "vlm_train",
+            "mesh_train")
 
 
 def _attn_dtypes(name):
@@ -813,7 +865,8 @@ def _bound(q, k, q_pos, k_pos, k_valid, causal, window, dtype):
 # the cases whose positions are 0..S-1 on both sides under a plain causal
 # mask: SDPA takes them with is_causal; the vit cases attend every key
 PLAIN_CAUSAL = ("prefill", "train", "moe_prefill", "moe_train",
-                "cell_prefill", "cell_train", "cell_moe_prefill")
+                "cell_prefill", "cell_train", "cell_moe_prefill",
+                "mesh_train", "mesh_ep_prefill")
 # a plain version's [heads x queries x keys] f32 scores stay under this
 # many bytes a query chunk (a 32k prefill's would be 103-275 GB at once)
 PLAIN_CHUNK_BYTES = 2 ** 31
@@ -1161,18 +1214,29 @@ def kernels_softmax_xent():
              ("cell_train_4k", 16380, 3072, 256000, bf16, f32, True),
              ("ragged", 1000, 200, 10007, f32, f32, False),
              ("ragged", 1000, 200, 10007, bf16, bf16, False),
-             ("ragged", 1000, 200, 10007, bf16, f32, False)]
+             ("ragged", 1000, 200, 10007, bf16, f32, False),
+             # mesh_train's rank: its 2 clients' 2044 tokens on the second
+             # half of the vocab (V/2 columns from 128000), labels drawn
+             # over the whole 256000 and shifted: about half lie outside
+             # the shard (no gold logit, no one-hot)
+             ("mesh_train", 2044, 3072, 128000, f32, f32, True, 256000,
+              128000)]
     fwd_res, bwd_res = [], []
-    for name, t, d, v, h_dtype, w_dtype, main_path in cases:
+    for name, t, d, v, h_dtype, w_dtype, main_path, *shard in cases:
+        v_all, v0 = shard or (v, 0)
         h = (torch.randn((t, d), generator=g, device="cuda")).to(h_dtype)
         w = (torch.randn((d, v), generator=g, device="cuda")
              * d ** -0.5).to(w_dtype)
-        lab = torch.randint(0, v, (t,), generator=g, device="cuda",
-                            dtype=torch.int32)
+        lab = torch.randint(0, v_all, (t,), generator=g, device="cuda",
+                            dtype=torch.int32) - v0
         gg = torch.randn((t,), generator=g, device="cuda") / t
         dtype = f"{str(h_dtype)[6:]}/{str(w_dtype)[6:]}"
         base = {"case": name, "dtype": dtype,
                 "shape": dict(t=t, d=d, v=v), "main_path": main_path}
+        if shard:
+            base.update(vocab_shard_first_column=v0,
+                        labels_outside_shard=int(((lab < 0) | (lab >= v))
+                                                 .sum().item()))
         iters = 3 if main_path else 10
         # the library call on the same function: one dtype for both
         lt = torch.promote_types(h_dtype, w_dtype)
@@ -1200,8 +1264,11 @@ def kernels_softmax_xent():
                               iters=iters, warmup=1)
         rec["plain_ms"] = device_ms(lambda: plain_fwd(h, w, lab),
                                     iters=iters, warmup=1)
-        rec["library_ms"] = device_ms(lambda: F.cross_entropy(
-            hl @ wl, lab.long(), reduction="none"), iters=iters, warmup=1)
+        # (no single PyTorch call computes a vocab shard's CE: its labels
+        # outside the shard have no gold logit)
+        rec["library_ms"] = None if shard else device_ms(
+            lambda: F.cross_entropy(hl @ wl, lab.long(), reduction="none"),
+            iters=iters, warmup=1)
         rec["bound_ms"], rec["bound_by"], rec["bound_f32_cuda_core_ms"] = \
             _ce_bound(t, d, v, h_dtype, w_dtype, backward=False)
         _hold_to_bound("softmax_xent_fwd", rec)
@@ -1225,11 +1292,14 @@ def kernels_softmax_xent():
                               iters=iters, warmup=1)
         rec["plain_ms"] = device_ms(
             lambda: plain_bwd(h, w, lab, lse, gg), iters=iters, warmup=1)
-        hg, wg = hl.clone().requires_grad_(), wl.clone().requires_grad_()
-        lib = F.cross_entropy(hg @ wg, lab.long(), reduction="none")
-        rec["library_ms"] = device_ms(lambda: torch.autograd.grad(
-            lib, (hg, wg), gg, retain_graph=True), iters=iters, warmup=1)
-        del lib, hg, wg
+        rec["library_ms"] = None
+        if not shard:
+            hg = hl.clone().requires_grad_()
+            wg = wl.clone().requires_grad_()
+            lib = F.cross_entropy(hg @ wg, lab.long(), reduction="none")
+            rec["library_ms"] = device_ms(lambda: torch.autograd.grad(
+                lib, (hg, wg), gg, retain_graph=True), iters=iters, warmup=1)
+            del lib, hg, wg
         rec["bound_ms"], rec["bound_by"], rec["bound_f32_cuda_core_ms"] = \
             _ce_bound(t, d, v, h_dtype, w_dtype, backward=True)
         _hold_to_bound("softmax_xent_bwd", rec)
@@ -1294,6 +1364,9 @@ QUANT8_CASES = [
     ("hybrid_train", 4096, 1600, torch.float32, "vector", 0),
     ("moe_train", 4096, 2048, torch.float32, "vector", 0),
     ("train", 4096, 3072, torch.float32, "vector", 0),
+    # mesh_train's data rank: its 2 clients' 2 x 2 x 512 rows (row0 2048
+    # on the second)
+    ("mesh_train", 2048, 3072, torch.float32, "vector", 0),
     ("ssm_train", 4096, 4096, torch.float32, "vector", 0),
     ("train_bf16", 4096, 3072, torch.bfloat16, "vector", 0),
     *[("wide", 4096, d, dt, "vector", 0) for d in (6144, 12288)
@@ -1348,11 +1421,24 @@ def _hold_quant8_bits(rec, x, u):
     ga = torch.Generator(device="cuda").manual_seed(41)
     gb = torch.Generator(device="cuda").manual_seed(41)
     routes["philox"] = (q8.quant_dequant(x, ga), q8.quant_dequant_plain(x, gb))
+    # row0: the rows in two calls, the second at row0 = its first row,
+    # each from a generator in the first one's state, are the one call's
+    # bits (a data rank quantising its own clients' rows), in the kernel
+    # and in the plain version
+    half = x.shape[0] // 2
+    whole = routes["philox"][0]
+    parts = [q8.quant_dequant(x[sl], torch.Generator(
+                 device="cuda").manual_seed(41), row0=sl.start)
+             for sl in (slice(0, half), slice(half, x.shape[0]))]
+    plain = q8.quant_dequant_plain(x[half:], torch.Generator(
+        device="cuda").manual_seed(41), row0=half)
+    routes["row0"] = (torch.cat(parts), whole)
+    routes["row0_plain"] = (plain, parts[1])
     bits = torch.int32 if x.dtype == torch.float32 else torch.int16
     for route, (got, want) in routes.items():
         rec[f"max_abs_err_{route}"] = _max_err(got, want)
         rec[f"bitwise_{route}"] = torch.equal(got.view(bits), want.view(bits))
-    del routes
+    del routes, parts, plain, whole
     gen = torch.Generator(device="cuda").manual_seed(4)
     scale = x.float().abs().amax(-1, keepdim=True) / 127
     # one draw lands on one of the two levels around x, less than a level
@@ -1369,8 +1455,8 @@ def _hold_quant8_bits(rec, x, u):
         mean += y / 64
     torch.cuda.synchronize()
     rec["philox_in_range"] = in_range
-    ok = in_range and all(rec[f"bitwise_{r}"]
-                          for r in ("nearest", "streamed", "philox"))
+    ok = in_range and all(rec[f"bitwise_{r}"] for r in (
+        "nearest", "streamed", "philox", "row0", "row0_plain"))
     if x.dtype == torch.float32:
         # a draw errs by less than a level and on average by nothing: the
         # mean of 64 draws spreads by at most 1/16 of a level
@@ -3270,6 +3356,578 @@ def phase_cell_decode_profile(path, fn, params, cache, ckv, tok, positions,
                        rec["decode_ms_per_token"], rec, part="decode")
 
 
+# ---------------------------------------------------------------------------
+# the mesh paths: the SPMD program as 4 ranks sharing the one card
+#
+# Each mesh path first runs its one-rank path on the card (the reference),
+# moves what it compares to the host (a file the ranks read) and frees the
+# card; then ``launch.spmd.spawn`` starts 4 rank processes on it (gloo:
+# NCCL will not put two ranks on one device; each collective staged
+# through pinned host memory). Every rank builds the whole tree from the
+# seed in turn (``_rank_init``: one rank's whole tree on the card at a
+# time), keeps its shards, and runs the path with every launch and
+# collective counter set to 0 just before. The collectives' times on this
+# transport are host copies and loopback TCP, not a fabric: their counts
+# and bytes are recorded, not their speed.
+
+MESH_TIMEOUT = 900
+
+
+def _rank_init(make):
+    """make() on each rank in turn (every rank waits at a barrier after
+    each), its whole tree freed before the next rank starts."""
+    prog = collectives.active()
+    out = None
+    for r in range(prog.world):
+        if r == prog.rank:
+            out = make()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _spawn(path, fn, mesh, *args):
+    """fn(*args) on every rank of `mesh` on the card; each rank's record."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    res = spmd.spawn(fn, mesh, "cuda", MESH_TIMEOUT, args=args)
+    return res, time.perf_counter() - t
+
+
+def _collectives_step():
+    """{"op/axis": calls} since the last reset (the program's record
+    apart)."""
+    return {k: v["calls"] for k, v in collectives.read_counts().items()
+            if k != "program"}
+
+
+def _collective_bytes():
+    return {k: v["bytes"] for k, v in collectives.read_counts().items()
+            if k != "program"}
+
+
+def _sharded_rel_l2(local, ref_full, spec) -> float:
+    """The relative L2 gap of a whole leaf, from each rank's shard of it
+    and the matching slice of the whole reference: squared sums weighted
+    by 1 / the shard's replica count, all-reduced over the world."""
+    ref = sharding.shard_leaf(ref_full, spec).to(local.device, torch.float32)
+    w = collectives.replica_weight(local)
+    sums = torch.stack([(local.float() - ref).square().sum() * w,
+                        ref.square().sum() * w])
+    num, den = collectives.all_reduce(sums, collectives.WORLD).tolist()
+    return math.sqrt(num) / math.sqrt(den) if den else math.sqrt(num)
+
+
+def _gathered_all(x, dim, axes):
+    for a in axes:
+        x = collectives.all_gather(x, dim, a)
+    return x
+
+
+def _rank_record(prog, peak, **kw):
+    return {"rank": prog.rank, "coords": prog.coords,
+            "card": prog.cards[prog.rank], "peak_mem_bytes": peak, **kw}
+
+
+def _hold_mesh(path, ranks, expected, per="call"):
+    """Every rank launched exactly the kernels its code calls and issued
+    exactly the collectives derived from its code (``mesh_*_collectives``);
+    the ranks' peaks sum under the card's memory."""
+    for r in ranks:
+        got_k = r["launches_per_" + per]
+        got_c = r["collectives_per_" + per]
+        if any(c != expected["launches"] for c in got_k):
+            raise AssertionError(f"{path} rank {r['rank']}: launches "
+                                 f"{got_k}, expected {expected['launches']}")
+        if any(c != expected["collectives"] for c in got_c):
+            raise AssertionError(f"{path} rank {r['rank']}: collectives "
+                                 f"{got_c}, expected "
+                                 f"{expected['collectives']}")
+    total = sum(r["peak_mem_bytes"] for r in ranks)
+    if total >= 80e9:
+        raise AssertionError(f"{path}: the ranks' peaks sum to {total} B")
+    return total
+
+
+def _mesh_counts(ranks, per="call"):
+    """Each kernel's launches over every rank of the mesh path."""
+    out = dict.fromkeys(COUNTERS, 0)
+    for r in ranks:
+        for c in r["launches_per_" + per]:
+            for k, v in c.items():
+                out[k] += v
+    return out
+
+
+def mesh_train_collectives(cfg, spec) -> dict:
+    """The collectives of one MPSL train step on a (data d, model m) mesh
+    (d, m > 1), from the code of a dense LM with layernorm or rmsnorm
+    blocks, every weight's D on `data` and heads, d_ff, vocab on `model`,
+    block remat, L blocks of which T trainable:
+
+      all_gather/data      the fsdp weights of every block (attention 4,
+                           MLP 2 or 3: n_w) at use and again in the
+                           block's remat recompute (2 n_w L), the lm_head
+                           (1), the token ids of the lookup (1) and every
+                           client's loss for the metrics (1)
+      reduce_scatter/data  the gradients of the trainable blocks' fsdp
+                           weights (n_w T), the lm_head's (1), and the
+                           lookup's rows back to their data rank (1)
+      all_reduce/data      the mask's sum, L_S and the participating count
+                           (3), and the gradient of every trainable leaf
+                           with no dim on `data`: the norms (n_norm T + the
+                           final norm's)
+      all_gather/model     the lookup's columns (1), the ranks' lse (1)
+      all_reduce/model     the attention and MLP outputs of every block
+                           (2 L), the attention output again in each
+                           recompute (L: torch's checkpoint stops its
+                           recompute at the last saved tensor, before the
+                           MLP's reduction), the region inputs' gradients
+                           in the backward (2 L), the CE's gold logit and
+                           its dh (2)
+      all_reduce/world     the global norm's squared sums (1)
+    """
+    L = cfg.num_layers
+    T = split.resolve_trainable_blocks(cfg, MPSLConfig(
+        trainable_blocks=spec["trainable_blocks"]))
+    n_w = 4 + (3 if layers.gated_activation(cfg.activation) else 2)
+    n_norm = 2 * (2 if cfg.norm == "layernorm" else 1)
+    final = 2 if cfg.norm == "layernorm" else 1
+    return {"all_gather/data": 2 * n_w * L + 3,
+            "reduce_scatter/data": n_w * T + 2,
+            "all_reduce/data": 3 + n_norm * T + final,
+            "all_gather/model": 2,
+            "all_reduce/model": 5 * L + 2,
+            "all_reduce/world": 1}
+
+
+def mesh_serve_collectives(cfg, steps_) -> dict:
+    """The collectives of one serve call (prefill and `steps_` greedy
+    steps) on the TP-only layout (weights on `model`, replicated over
+    `data`, which only splits the batch): each forward all-gathers the
+    lookup's columns (1) and the greedy token's max and index over the
+    vocab shards (2), and all-reduces the attention and MLP outputs of
+    every block (2 L). Nothing moves over `data`."""
+    fwd = 1 + steps_
+    return {"all_gather/model": 3 * fwd,
+            "all_reduce/model": 2 * cfg.num_layers * fwd}
+
+
+def mesh_ep_collectives(cfg) -> dict:
+    """The collectives of one prefill of an MoE LM on a (1, m) mesh: the
+    lookup's columns (1 all-gather), each block's attention output and its
+    experts' partial sums (2 L all-reduces); the logits stay vocab-sharded.
+    With a data axis of 1 the router's loss moves nothing."""
+    return {"all_gather/model": 1, "all_reduce/model": 2 * cfg.num_layers}
+
+
+def _train_setup(cfg, spec, device):
+    mp = MPSLConfig(n_clients=spec["n_clients"],
+                    trainable_blocks=spec["trainable_blocks"],
+                    compress_uplink=True, compress_downlink=True)
+    run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mpsl=mp,
+                    compute_dtype=spec["compute_dtype"],
+                    learning_rate=spec["lr"], seed=spec["seed"])
+    loader = train.make_lm_loader(cfg, spec["n_clients"],
+                                  spec["batch_per_client"], spec["seq"],
+                                  spec["seed"])
+
+    def batch(i):
+        b = loader.batch(i)
+        b["mask"] = b["mask"].copy()
+        b["mask"][spec["masked_client"]] = 0.0
+        return b
+
+    loss_fn = mpsl.make_lm_loss(cfg, run, impls=mpsl.KERNEL_IMPLS)
+    first = []
+
+    def keep_first(step, grads):
+        # the first step's gradients, kept for the comparison after the
+        # run (copied on the card: the hook adds no collective)
+        if step == 0:
+            first.extend(g.clone() for g in grads)
+
+    step_fn = mpsl.make_train_step(
+        loss_fn, run, schedules.warmup_cosine(spec["lr"], 10, spec["steps"]),
+        grad_hook=keep_first)
+    return run, batch, step_fn, first
+
+
+def phase_mesh_train(path, spec):
+    """The MPSL train step as the SPMD program on a (2, 2) mesh against
+    the one-rank path on the same params, batches (client 1 masked out)
+    and int seeds: each step's loss (1e-4 relative), every trainable
+    gradient of the first step (1e-3 relative L2, from each rank's
+    shard), the masked client's adapter gradient exactly 0."""
+    cfg, depth = _config(spec)
+    device = serve.resolve_device("cuda")
+    run, batch, step_fn, first = _train_setup(cfg, spec, device)
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
+    params, frozen, _ = split.init_mpsl_lm(gen, cfg, run, device)
+    state = mpsl.init_state(params, frozen, spec["seed"])
+    batches = [train.to_device(batch(i), device)
+               for i in range(spec["steps"])]
+    _, one = _run_steps(step_fn, state, batches,
+                        train_launches_per_step(cfg))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        ref_file = os.path.join(tmp, "grads.pt")
+        torch.save(dict(zip(tree.paths(state["params"]),
+                            (g.cpu() for g in first))), ref_file)
+        del state, params, frozen, batches, first
+        ranks, world_s = _spawn(path, _mesh_train_rank, _mesh(spec), spec,
+                                ref_file, one["losses"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    expected = {"launches": train_launches_per_step(cfg),
+                "collectives": mesh_train_collectives(cfg, spec)}
+    rec = {"phase": path, **depth, "arch": cfg.name, "mesh": spec["mesh"],
+           "program": ranks[0]["program"], "d_model": cfg.d_model,
+           "compute_dtype": spec["compute_dtype"],
+           "n_clients": spec["n_clients"],
+           "batch_per_client": spec["batch_per_client"], "seq": spec["seq"],
+           "trainable_blocks": spec["trainable_blocks"],
+           "masked_client": spec["masked_client"], "steps": spec["steps"],
+           "one_rank_losses": one["losses"],
+           "one_rank_median_step_ms": one["median_step_ms"],
+           "one_rank_peak_mem_bytes": one["peak_mem_bytes"],
+           "world_s": world_s, "expected_per_step": expected,
+           "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL,
+           "ranks": ranks}
+    rec["ranks_peak_mem_bytes_sum"] = _hold_mesh(path, ranks, expected,
+                                                 per="step")
+    emit(rec)
+    for r in ranks:
+        worst = max(r["grad_rel_l2"], key=r["grad_rel_l2"].get)
+        errs = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                    one["losses"])]
+        if not (max(errs) <= TRAIN_LOSS_TOL
+                and r["grad_rel_l2"][worst] <= TRAIN_GRAD_TOL
+                and r["masked_adapter_grad_zero"]):
+            raise AssertionError(
+                f"{path} rank {r['rank']}: losses {r['losses']} vs "
+                f"{one['losses']}, gradient {worst} "
+                f"{r['grad_rel_l2'][worst]}, masked client's adapter "
+                f"gradient zero: {r['masked_adapter_grad_zero']}")
+    return _mesh_counts(ranks, "step")
+
+
+def _mesh_train_rank(spec, ref_file, ref_losses):
+    prog = collectives.active()
+    device = prog.device
+    cfg, _ = _config(spec)
+    mesh = prog.mesh
+    run, batch, step_fn, first = _train_setup(cfg, spec, device)
+
+    def make():
+        gen = torch.Generator(device=device).manual_seed(spec["seed"])
+        params, frozen, _ = split.init_mpsl_lm(gen, cfg, run, device)
+        return (sharding.shard_tree(params,
+                                    sharding.param_specs(params, mesh)),
+                sharding.shard_tree(frozen,
+                                    sharding.param_specs(frozen, mesh)))
+
+    t0 = time.perf_counter()
+    lp, lf = _rank_init(make)
+    state = mpsl.init_state(lp, lf, spec["seed"])
+    batches = [sharding.take_batch(sharding.place_batch(
+        batch(i), device, mesh), device) for i in range(spec["steps"])]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    # the steps, every counter set to 0 just before
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    collectives.reset_counts()
+    losses, times, launches, colls, nbytes = [], [], [], [], []
+    for b in batches:
+        k0, c0, b0 = read_counts(), _collectives_step(), _collective_bytes()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = step_fn(state, b)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        k1, c1, b1 = read_counts(), _collectives_step(), _collective_bytes()
+        launches.append({k: k1[k] - k0[k] for k in k1})
+        colls.append({k: c1[k] - c0.get(k, 0) for k in c1})
+        nbytes.append({k: b1[k] - b0.get(k, 0) for k in b1})
+    peak = torch.cuda.max_memory_allocated()
+
+    # the first step's gradients (summed over `data`, before clipping)
+    # against the one-rank path's
+    ref = torch.load(ref_file, mmap=True)
+    errs = {}
+    for name, p, g in zip(tree.paths(state["params"]),
+                          tree.leaves(state["params"]), first):
+        errs[name] = _sharded_rel_l2(g, ref[name], collectives.spec_of(p))
+    # the masked client's adapter gradient, on the data rank holding it
+    n_loc = spec["n_clients"] // prog.size("data")
+    c = spec["masked_client"] - prog.index("data") * n_loc
+    zero = True
+    for name, g in zip(tree.paths(state["params"]), first):
+        if "adapter" in name and 0 <= c < n_loc:
+            zero &= bool(g[c].abs().max().item() == 0.0)
+    flag = collectives.all_reduce(torch.tensor(
+        [0.0 if zero else 1.0], device=device), collectives.WORLD)
+    del ref, first[:]
+    return _rank_record(
+        prog, peak, program=prog.record(),
+        init_s=init_s, losses=losses,
+        step_ms=[x * 1e3 for x in times],
+        median_step_ms=statistics.median(times[1:]) * 1e3,
+        launches_per_step=launches, collectives_per_step=colls,
+        collective_bytes_per_step=nbytes, grad_rel_l2=errs,
+        masked_adapter_grad_zero=float(flag) == 0.0,
+        shard_params=sum(p.numel() for p in tree.leaves(state["params"])),
+        shard_frozen=sum(p.numel() for p in tree.leaves(state["frozen"])))
+
+
+def _mesh(spec):
+    return mesh_lib.Mesh(("data", "model"), tuple(spec["mesh"]))
+
+
+def phase_mesh_serve(path, spec):
+    """Serving as the SPMD program on a (2, 2) mesh (the TP-only layout:
+    weights on `model`, the batch on `data`) against the one-rank serve
+    path on the same params and prompt, each step teacher-forced with the
+    one-rank path's tokens: every step's logits within SERVE_TOL (atol
+    and rtol), every greedy token the one-rank token or a near tie."""
+    cfg, depth = _config(spec)
+    device = serve.resolve_device("cuda")
+    steps_ = spec["decode_steps"]
+    params, tokens = _serve_inputs(cfg, spec, device)
+    prefill, decode = serve.build_serving_fns(cfg, torch.float32, device)
+    serve.generate(prefill, decode, params, tokens, 1)          # warm-up
+    one = serve.generate(prefill, decode, params, tokens, steps_)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        ref_file = os.path.join(tmp, "ref.pt")
+        torch.save({"logits": one["logits"].cpu(),
+                    "tokens": one["tokens"].cpu()}, ref_file)
+        rec_one = {"one_rank_prefill_ms": one["prefill_s"] * 1e3,
+                   "one_rank_decode_ms_per_token":
+                   one["decode_s"] / steps_ * 1e3}
+        del params, tokens, one
+        ranks, world_s = _spawn(path, _mesh_serve_rank, _mesh(spec), spec,
+                                ref_file)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = serve_launches(cfg, steps_)
+    expected = {"launches": want,
+                "collectives": mesh_serve_collectives(cfg, steps_)}
+    rec = {"phase": path, **depth, "arch": cfg.name, "mesh": spec["mesh"],
+           "program": ranks[0]["program"], "batch": spec["batch"],
+           "prompt_len": spec["prompt_len"], "decode_steps": steps_,
+           "dtype": spec["compute_dtype"], **rec_one, "world_s": world_s,
+           "expected_per_call": expected, "tol": SERVE_TOL,
+           "ranks": ranks}
+    rec["ranks_peak_mem_bytes_sum"] = _hold_mesh(path, ranks, expected)
+    emit(rec)
+    for r in ranks:
+        if not (r["logits_close"] and r["tokens_ok"]):
+            raise AssertionError(
+                f"{path} rank {r['rank']}: logits {r['max_logit_diff']} "
+                f"off the one-rank path's, or a greedy token off by more "
+                f"than a near tie ({r['token_deficit_max']})")
+    return _mesh_counts(ranks)
+
+
+def _serve_inputs(cfg, spec, device):
+    """serve's params and prompt from the seed (``phase_serve``'s)."""
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
+    params = M.init_lm(cfg, gen, device)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (spec["batch"], spec["prompt_len"]),
+                           generator=gen, device=device)
+    return params, tokens
+
+
+def _mesh_serve_rank(spec, ref_file):
+    prog = collectives.active()
+    device = prog.device
+    cfg, _ = _config(spec)
+    mesh = prog.mesh
+    steps_ = spec["decode_steps"]
+
+    def make():
+        params, tokens = _serve_inputs(cfg, spec, device)
+        specs = steps._drop_fsdp(sharding.param_specs(params, mesh))
+        rows = sharding.resolve_spec(mesh, tokens.shape, ("batch", None))
+        return sharding.shard_tree(params, specs), \
+            sharding.shard_leaf(tokens, rows)
+
+    t0 = time.perf_counter()
+    params, tokens = _rank_init(make)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ref = torch.load(ref_file)
+    b = tokens.shape[0]
+    r0 = prog.index("data") * b
+    forced = ref["tokens"][r0:r0 + b, :steps_].to(device)
+    prefill, decode = serve.build_serving_fns(cfg, torch.float32, device)
+    serve.generate(prefill, decode, params, tokens, 1)          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    collectives.reset_counts()
+    out = serve.generate(prefill, decode, params, tokens, steps_,
+                         forced_tokens=forced)
+    launches, colls = read_counts(), _collectives_step()
+    nbytes = _collective_bytes()
+    peak = torch.cuda.max_memory_allocated()
+    logits = collectives.all_gather(out["logits"], 2, "model").cpu()
+    want = ref["logits"][r0:r0 + b]
+    close = torch.allclose(logits, want, atol=SERVE_TOL, rtol=SERVE_TOL)
+    diff = (logits - want).abs().max().item()
+    # a greedy token other than the one-rank path's must be a near tie:
+    # its one-rank logit within twice the logits' tolerance of the top
+    toks = out["tokens"].cpu()
+    top = want.max(-1).values
+    got = want.gather(-1, toks[..., None])[..., 0]
+    deficit = (top - got)
+    slack = 2 * (SERVE_TOL + SERVE_TOL * top.abs())
+    return _rank_record(
+        prog, peak, program=prog.record(), init_s=init_s,
+        prefill_ms=out["prefill_s"] * 1e3,
+        decode_ms_per_token=out["decode_s"] / steps_ * 1e3,
+        launches_per_call=[launches], collectives_per_call=[colls],
+        collective_bytes_per_call=nbytes, max_logit_diff=diff,
+        logits_close=close,
+        tokens_equal=int((toks == ref["tokens"][r0:r0 + b]).sum()),
+        tokens=int(toks.numel()),
+        token_deficit_max=deficit.max().item(),
+        tokens_ok=bool((deficit <= slack).all()))
+
+
+def phase_mesh_ep(path, spec):
+    """qwen3-moe's prefill through ``steps.build_prefill`` as the SPMD
+    program on a (1, 4) mesh (32 of 128 experts, 16 of 64 heads, 1 of 4
+    KV heads, a quarter of the vocab a rank; ep at capacity 2.0) against
+    the one-rank ep path (the 1 x 1 mesh), whose expert choices it
+    replays: each layer's dropped (token, k) slots over every rank's
+    experts bitwise the one-rank ``moe.ep_drop_mask``, the last logits
+    within SERVE_TOL_BF16 of the largest |logit|, each layer's cache K/V
+    within SERVE_TOL_BF16 in relative L2."""
+    cfg, depth = _config(spec)
+    device = serve.resolve_device("cuda")
+    one_mesh = mesh_lib.Mesh(("data", "model"), (1, 1))
+    run, krun = _cell_run(cfg, spec, one_mesh)
+    cdt = getattr(torch, run.compute_dtype)
+    fn = steps.build_prefill(cfg, krun, one_mesh)[0]
+    params, batch = _ep_inputs(cfg, spec, device, cdt)
+    with sharding.use_mesh(one_mesh):
+        fn(params, batch)                                     # warm-up
+        torch.cuda.synchronize()
+        with MOE.routing_tape() as tape:
+            t = time.perf_counter()
+            logits, cache = fn(params, batch)
+            torch.cuda.synchronize()
+            one_ms = (time.perf_counter() - t) * 1e3
+    drops = [MOE.ep_drop_mask(idx, cfg.moe.num_experts, run.moe_capacity)
+             for idx in tape.idx]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        ref_file = os.path.join(tmp, "ref.pt")
+        torch.save({"logits": logits.cpu(), "idx": [i.cpu() for i in tape.idx],
+                    "drops": [d.cpu() for d in drops],
+                    "cache": [{k: lay[k].cpu() for k in ("k", "v")}
+                              for seg in cache for lay in seg]}, ref_file)
+        del params, batch, logits, cache, tape
+        ranks, world_s = _spawn(path, _mesh_ep_rank, _mesh(spec), spec,
+                                ref_file)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash_attention_fwd"] = cfg.num_layers
+    expected = {"launches": want, "collectives": mesh_ep_collectives(cfg)}
+    rec = {"phase": path, **depth, "arch": cfg.name, "mesh": spec["mesh"],
+           "program": ranks[0]["program"],
+           "shape": dict(zip(("name", "seq_len", "global_batch", "kind"),
+                             spec["shape"])),
+           "ep_capacity": run.moe_capacity, "compute_dtype":
+           run.compute_dtype, "one_rank_prefill_ms": one_ms,
+           "ep_dropped_slots_by_layer": [int(d.sum()) for d in drops],
+           "world_s": world_s, "expected_per_call": expected,
+           "tol": SERVE_TOL_BF16, "ranks": ranks}
+    rec["ranks_peak_mem_bytes_sum"] = _hold_mesh(path, ranks, expected)
+    emit(rec)
+    for r in ranks:
+        if not (r["drops_equal"] and r["last_logits_rel_err"] <= SERVE_TOL_BF16
+                and r["cache_rel_l2_max"] <= SERVE_TOL_BF16):
+            raise AssertionError(
+                f"{path} rank {r['rank']}: drops equal {r['drops_equal']}, "
+                f"logits {r['last_logits_rel_err']}, cache "
+                f"{r['cache_rel_l2_max']}")
+    return _mesh_counts(ranks)
+
+
+def _ep_inputs(cfg, spec, device, dtype):
+    params, gen = _serving_params(cfg, device, spec["seed"], dtype)
+    b, s = spec["shape"][2], spec["shape"][1]
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=device)}
+    return params, batch
+
+
+def _mesh_ep_rank(spec, ref_file):
+    prog = collectives.active()
+    device = prog.device
+    cfg, _ = _config(spec)
+    mesh = prog.mesh
+    run, krun = _cell_run(cfg, spec, mesh)
+    cdt = getattr(torch, run.compute_dtype)
+    fn, _, in_specs = steps.build_prefill(cfg, krun, mesh)
+
+    def make():
+        return steps.shard_inputs(_ep_inputs(cfg, spec, device, cdt),
+                                  in_specs)
+
+    t0 = time.perf_counter()
+    params, batch = _rank_init(make)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ref = torch.load(ref_file)
+    with MOE.routing_tape(ref["idx"]):
+        fn(params, batch)                                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    collectives.reset_counts()
+    with MOE.routing_tape(ref["idx"]) as tape:
+        t = time.perf_counter()
+        logits, cache = fn(params, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+    launches, colls = read_counts(), _collectives_step()
+    nbytes = _collective_bytes()
+    peak = torch.cuda.max_memory_allocated()
+    # every rank's dropped slots among its own experts, joined
+    drops_equal = True
+    for mine, want in zip(tape.drops, ref["drops"]):
+        joined = collectives.all_reduce(mine.int(), "model") > 0
+        drops_equal &= torch.equal(joined.cpu(), want)
+    logits = collectives.all_gather(logits, 2, "model").float().cpu()
+    want = ref["logits"].float()
+    errs = {}
+    for i, (lay, r) in enumerate(zip((x for seg in cache for x in seg),
+                                     ref["cache"])):
+        for name in ("k", "v"):
+            whole = collectives.all_gather(lay[name], 2, "model").cpu()
+            errs[f"layer{i}.{name}"] = _rel_l2(whole, r[name])
+    worst = max(errs, key=errs.get)
+    return _rank_record(
+        prog, peak, program=prog.record(), init_s=init_s, prefill_ms=ms,
+        launches_per_call=[launches], collectives_per_call=[colls],
+        collective_bytes_per_call=nbytes,
+        drops_equal=bool(drops_equal), drop_calls=len(tape.drops),
+        routing_flips=int(tape.flips), routing_decisions=tape.decisions,
+        last_logits_rel_err=_rel_max(logits, want),
+        cache_rel_l2=errs, cache_rel_l2_max=errs[worst],
+        cache_rel_l2_worst=worst)
+
+
 def dryrun_cells() -> list:
     """``dryrun.run_cell`` on the host mesh for each cell path, at its cut
     size: argument and temp bytes, flops (no card touched)."""
@@ -3385,6 +4043,12 @@ def _main(smi, dry, dry_out) -> int:
             counts[path], driven = phase_cell_prefill(path, spec)
             peaks[path] = driven[-1]["peak_mem_bytes"]
             phase_cell_profile(*driven)
+        elif path == "mesh_train":
+            counts[path] = phase_mesh_train(path, spec)
+        elif path == "mesh_serve":
+            counts[path] = phase_mesh_serve(path, spec)
+        elif path == "mesh_ep":
+            counts[path] = phase_mesh_ep(path, spec)
         elif path.startswith("cell_"):
             counts[path], driven = phase_cell_decode(path, spec)
             peaks[path] = driven[-1]["peak_mem_bytes"]

@@ -15,7 +15,16 @@ update cannot overtake the copy) and then waits on one event: a save
 costs the main thread one sync, not one a leaf.
 
 Restores are in place: each leaf is copied into the template's tensor,
-which keeps its device, dtype and ``requires_grad``."""
+which keeps its device, dtype and ``requires_grad``.
+
+Under the SPMD program (``parallel.collectives``) a checkpoint holds the
+whole leaves, as the reference's does: a save gathers every shard
+(``sharding.gather_tree``; every rank takes part) and rank 0 alone
+writes; a restore reads the whole arrays on every rank and copies each
+rank's slice into its shard (``sharding.shard_leaf`` by the shard's
+spec), so a checkpoint written at one world size restores at another
+(the reference's ``restore_checkpoint(shardings=...)`` onto the active
+mesh)."""
 from __future__ import annotations
 
 import json
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import faults, obs, tree as _tree
+from repro_torch.parallel import collectives, sharding
 
 # bfloat16, which numpy has no type for, is stored as its raw bits
 _BF16_BITS = np.uint16
@@ -133,7 +143,8 @@ def restore_checkpoint(directory: str, template, step: Optional[int] = None):
     restored = []
     for key, leaf in flat.items():
         arr = data[key]
-        want = tuple(getattr(leaf, "shape", ()))
+        want = (sharding.global_shape(leaf) if torch.is_tensor(leaf)
+                else ())
         if tuple(arr.shape) != want:
             raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {want}")
         if torch.is_tensor(leaf):
@@ -141,6 +152,9 @@ def restore_checkpoint(directory: str, template, step: Optional[int] = None):
             if src.dtype != leaf.dtype:
                 raise ValueError(f"dtype mismatch for {key}: {arr.dtype} vs "
                                  f"{leaf.dtype}")
+            spec = collectives.spec_of(leaf)
+            if spec and collectives.active() is not None:
+                src = sharding.shard_leaf(src, spec)   # this rank's slice
             leaf.copy_(src)
             restored.append(leaf)
         else:
@@ -155,7 +169,10 @@ def snapshot(tree):
     """A host copy of `tree` that later in-place updates cannot touch:
     CUDA leaves copied into pinned buffers, ``non_blocking`` on the current
     stream, then one wait on an event recorded after the last copy; CPU
-    tensors cloned; ints kept."""
+    tensors cloned; ints kept. Under the SPMD program the whole leaves,
+    gathered from every rank's shards."""
+    if collectives.active() is not None:
+        tree = sharding.gather_tree(tree)
     out, on_card = [], False
     for v in _tree.leaves(tree):
         if torch.is_tensor(v):
@@ -199,6 +216,9 @@ class AsyncCheckpointer:
     def save(self, step: int, tree, extra=None):
         self.wait()
         host_tree = snapshot(tree)
+        prog = collectives.active()
+        if prog is not None and prog.rank != 0:
+            return                 # it took part in the gathers; rank 0 writes
 
         def work():
             for attempt in range(self.retries + 1):

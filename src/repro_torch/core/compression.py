@@ -14,6 +14,9 @@ version on the CPU), with stochastic rounding:
 Philox stream: the kernel draws it in registers, the plain version with
 torch integer ops, to the same bits) or a tensor of uniforms of x's shape
 (used as given, so a test can feed ``jax.random.uniform``'s draws).
+``row0`` is the global index of x's first token row: a data rank of the
+SPMD program passes its clients' offset, so that its draws are the ones
+the whole stacked tensor's call gives those rows.
 """
 from __future__ import annotations
 
@@ -34,25 +37,26 @@ def _note_quant(x, bits: int = 8):
     obs_comm.note_quant(x.shape, bits=bits, impl="kernel")
 
 
-def compress_activations(x, rng):
+def compress_activations(x, rng, row0: int = 0):
     _note_quant(x)
-    return kops.quant_dequant(x, rng)          # straight-through
+    return kops.quant_dequant(x, rng, row0=row0)      # straight-through
 
 
-def compress_gradients(x, rng):
-    return _CompressGradients.apply(x, rng)
+def compress_gradients(x, rng, row0: int = 0):
+    return _CompressGradients.apply(x, rng, int(row0))
 
 
 class _CompressGradients(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, rng):
-        ctx.rng = rng
+    def forward(ctx, x, rng, row0):
+        ctx.rng, ctx.row0 = rng, row0
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         _note_quant(g)
-        return kops.quant_dequant_value(g.contiguous(), ctx.rng), None
+        return kops.quant_dequant_value(g.contiguous(), ctx.rng,
+                                        row0=ctx.row0), None, None
 
 
 def compressed_bytes(shape, bits: int = 8) -> int:

@@ -8,6 +8,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import collectives as C
 
 
 def _chunk_xent(hx, lx, w):
@@ -26,8 +27,21 @@ def chunked_softmax_xent(h, w, labels, valid=None, chunk: int = 512,
     impl='plain' (the oracle): `chunk`-token slices under checkpointing,
     so the backward recomputes each chunk's logits instead of saving them.
     impl='kernel': the fused online-softmax kernels (``kernels.ops``),
-    vocab-tiled in both directions."""
-    if impl == "kernel":
+    vocab-tiled in both directions.
+
+    Under the SPMD program `w` is this rank's shard: its fsdp dim (D on
+    `data`) is gathered at use, and where its V lies on `model` the CE is
+    vocab-parallel (``kernels.ops.softmax_xent_vocab_parallel``: the
+    kernel, or for 'plain' the plain version, on each rank's V/m
+    columns)."""
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"unknown CE impl {impl!r} (plain | kernel)")
+    vocab_parallel = C.model_parallel(w)
+    w = C.gather_param(w)
+    if vocab_parallel:
+        losses = kops.softmax_xent_vocab_parallel(h, w, labels,
+                                                  plain=impl == "plain")
+    elif impl == "kernel":
         losses = kops.softmax_xent_tokens(h, w, labels)
     elif impl == "plain":
         labels = labels.long()
@@ -36,8 +50,6 @@ def chunked_softmax_xent(h, w, labels, valid=None, chunk: int = 512,
                      use_reentrant=False, preserve_rng_state=False)
                  for i in range(0, h.shape[0], chunk)]
         losses = torch.cat(parts)
-    else:
-        raise ValueError(f"unknown CE impl {impl!r} (plain | kernel)")
     if valid is not None:
         losses = losses * valid.float()
     return losses

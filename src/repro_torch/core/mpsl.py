@@ -29,6 +29,21 @@ the same draws (as the same key does). A test may pass instead a dict
 loss, whose late-fusion and retrieval paths send one link a modality,
 takes one such dict a link name (``{"joint": {...}}`` under early
 fusion, else ``{"vision": {...}, "text": {...}, ...}``).
+
+Under the SPMD program (``parallel.collectives``) the clients lie on the
+`data` axis: each data rank runs its N/d clients (their tokens, labels,
+mask entries and adapters, ``place_state`` / ``place_batch``) through the
+server's shards. The client weights read the global mask (its sum
+all-reduced over `data`); each rank's links quantise its clients' rows
+with the draws the whole stacked tensor's call gives them (the global
+client offset, ``row0``); L_S is the sum over data ranks of their
+weighted client losses, plus the router's aux loss taken over every
+client's tokens (``models/moe.py``), as the reference couples them. A
+rank backpropagates its own part; the step sums the gradients of the
+server leaves that do not lie on `data` over it
+(``collectives.reduce_grads``: an fsdp leaf's was reduce-scattered by
+its gather, an adapter holds only this rank's clients), and the global
+norm counts each shard once.
 """
 from __future__ import annotations
 
@@ -41,6 +56,8 @@ from repro_torch.models import layers, model as M, tokenizers as tok
 from repro_torch.obs import comm as obs_comm
 from repro_torch.optim import (adamw_init, adamw_update, apply_updates,
                                clip_by_global_norm)
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import sharding
 
 # the kernels and the ragged dispatch, by name: what the entry points
 # (the train CLI, the Trainer's builds, chip_smoke.py) ask for
@@ -60,9 +77,28 @@ def run_impls(run, impls=None) -> dict:
 
 
 def _client_weights(mask, n):
-    """w_n = |B_n| / |B| over participating clients (uniform B_n here)."""
+    """w_n = |B_n| / |B| over participating clients (uniform B_n here);
+    under the SPMD program `mask` is this data rank's clients' entries
+    and the participating count is the global one."""
     m = mask.float()
-    return m / torch.clamp(m.sum(), min=1.0)
+    return m / torch.clamp(C.all_reduce(m.sum(), "data"), min=1.0)
+
+
+def _client_offset(n_local: int) -> int:
+    """The global index of this rank's first client (0 off the program)."""
+    return C.index("data") * n_local
+
+
+def _global_metrics(l_local, aux, per_client, mask, device):
+    """The step's metrics from this data rank's part: L_S (the ranks'
+    weighted sums added, then aux), every client's loss, the
+    participating count."""
+    aux = aux.detach() if torch.is_tensor(aux) \
+        else torch.zeros((), device=device)
+    return {"loss": C.all_reduce(l_local.detach(), "data") + aux,
+            "per_client": C.all_gather(per_client.detach(), 0, "data"),
+            "aux": aux,
+            "participating": C.all_reduce(mask.sum(), "data")}
 
 
 def _account_links(h, mpsl, suffix: str = ""):
@@ -95,9 +131,14 @@ def fold_in(seed: int, data: int) -> int:
     return (z ^ (z >> 31)) >> 1
 
 
-def _link_rng(rng, link: str, index: int, device):
+def _link_rng(rng, link: str, index: int, device, c0: int = 0,
+              n: int = None):
+    """A link's stochastic rounding: a generator seeded from the step's
+    rng (the same on every rank), or the given uniforms [N, ...] of
+    clients c0 .. c0 + n (this data rank's; all of them by default)."""
     if isinstance(rng, dict):
-        return rng[link]
+        u = rng[link]
+        return u if n is None or n == u.shape[0] else u[c0:c0 + n]
     return torch.Generator(device=device).manual_seed(fold_in(rng, index))
 
 
@@ -164,12 +205,13 @@ def make_lm_loss(cfg, run, impls=None):
                 f"package's cross blocks attend over the decoder's own "
                 f"tokens, both ways (ROADMAP.md Queue 3)")
         tokens = batch["tokens"]
-        n, bn, s_text = tokens.shape
+        n, bn, s_text = tokens.shape            # this data rank's clients
         dev = tokens.device
+        c0 = _client_offset(n)
         adapter = trainable["client"]["adapter"]
 
         # ---- 1. client forward: frozen tokenizer + per-client adapter ----
-        h = frozen["embed"]["table"][tokens].to(cdt)           # [N,Bn,S,D]
+        h = layers.embed_lookup(frozen["embed"]["table"], tokens).to(cdt)
         if cfg.pos_embed == "learned":
             h = h + frozen["embed"]["pos"][:s_text].to(cdt)
         patches = batch.get("patch_embeds")
@@ -180,12 +222,13 @@ def make_lm_loss(cfg, run, impls=None):
 
         # ---- 2. uplink (smashed data) ----
         _account_links(h, mpsl)
+        row0 = c0 * bn * s                    # this rank's first token row
         if mpsl.compress_uplink:
             h = compression.compress_activations(
-                h, _link_rng(rng, "uplink", 1, dev))
+                h, _link_rng(rng, "uplink", 1, dev, c0, n), row0)
         if mpsl.compress_downlink:
             h = compression.compress_gradients(
-                h, _link_rng(rng, "downlink", 2, dev))
+                h, _link_rng(rng, "downlink", 2, dev, c0, n), row0)
         hb = h.reshape(n * bn, s, cfg.d_model)
         positions = layers.build_positions(
             cfg, n * bn, s, None if patches is None else patches.shape[2],
@@ -219,7 +262,14 @@ def make_lm_loss(cfg, run, impls=None):
 
         # ---- 5. aggregated loss => single backward pass ----
         w = _client_weights(batch["mask"], n)
-        l_s = (w * per_client).sum() + aux
+        l_local = (w * per_client).sum()
+        l_s = l_local + aux
+        if C.size("data") > 1:
+            # this rank's part of L_S (its clients, and aux once: its
+            # gradient reaches this rank's tokens only); the metrics hold
+            # the whole
+            return l_s, _global_metrics(l_local, aux, per_client,
+                                        batch["mask"], dev)
         metrics = {"loss": l_s.detach(), "per_client": per_client.detach(),
                    "aux": (aux.detach() if torch.is_tensor(aux)
                            else torch.zeros((), device=dev)),
@@ -353,10 +403,12 @@ def grad(loss, leaves):
 def value_and_grad(loss_fn, params, frozen, batch, rng):
     """(loss, metrics, gradients of the loss w.r.t. `params` leaves, in
     ``tree.leaves`` order, zeros for a leaf the loss does not reach); the
-    params must require grad."""
+    params must require grad. Under the SPMD program the loss is the
+    global L_S (``metrics["loss"]``) and the gradients this rank's part."""
     leaves = tree.leaves(params)
     loss, metrics = loss_fn(params, frozen, batch, rng)
-    return loss.detach(), metrics, grad(loss, leaves)
+    value = metrics["loss"] if C.size("data") > 1 else loss.detach()
+    return value, metrics, grad(loss, leaves)
 
 
 def _split_microbatches(batch, mu: int):
@@ -397,6 +449,10 @@ def _grad_agg(loss_fn, params, frozen, batch, rng, microbatches):
 def _per_client_grads(loss_fn, params, frozen, batch, rng):
     """Vanilla PSL: one backward per client, combined with the same global
     weights w_n the aggregated mode uses."""
+    if C.active() is not None:
+        raise NotImplementedError("the per-client backward baseline under "
+                                  "the SPMD program (ROADMAP.md Queue 1 "
+                                  "item 7)")
     mask = batch["mask"]
     n = mask.shape[0]
     w = _client_weights(mask, n)
@@ -417,7 +473,8 @@ def _per_client_grads(loss_fn, params, frozen, batch, rng):
 
 
 def make_train_step(loss_fn, run, sched, backward_mode: str = "aggregated",
-                    microbatches: int = 1, guard_nonfinite: bool = False):
+                    microbatches: int = 1, guard_nonfinite: bool = False,
+                    grad_hook=None):
     """One MPSL optimization step (client + server updates):
     ``step(state, batch) -> (state, metrics)``, updating the state's params
     and AdamW moments in place.
@@ -429,7 +486,11 @@ def make_train_step(loss_fn, run, sched, backward_mode: str = "aggregated",
     guard_nonfinite — when the aggregated loss or the grad norm is not
     finite, params and both Adam moments (and its count) keep every bit,
     decided on the device with no host readback; the step counter still
-    advances and ``metrics["skipped"]`` carries the flag."""
+    advances and ``metrics["skipped"]`` carries the flag.
+
+    grad_hook — called as grad_hook(step, grads) with the step's
+    gradients (``tree.leaves`` order; summed over `data` under the SPMD
+    program) before they are clipped; it must not modify them."""
     if backward_mode not in ("aggregated", "per_client"):
         raise ValueError(f"unknown backward mode {backward_mode!r}")
 
@@ -443,7 +504,11 @@ def make_train_step(loss_fn, run, sched, backward_mode: str = "aggregated",
             grads, loss, metrics = _per_client_grads(
                 loss_fn, params, state["frozen"], batch, rng)
         grads = list(grads)
-        grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
+        C.reduce_grads(tree.leaves(params), grads)
+        if grad_hook is not None:
+            grad_hook(state["step"], grads)
+        grads, gnorm = clip_by_global_norm(grads, run.grad_clip,
+                                           params=tree.leaves(params))
         lr = sched(state["step"])
         ok = None
         if guard_nonfinite:
@@ -470,13 +535,45 @@ def undonated(step):
     first clones both, so the caller's state stays valid and unchanged,
     at twice the param and optimizer memory (``--no-donate``)."""
     def clone(t):
-        return t.detach().clone().requires_grad_(t.requires_grad)
+        out = t.detach().clone().requires_grad_(t.requires_grad)
+        C.set_spec(out, C.spec_of(t))
+        return out
 
     def fresh_step(state, batch):
         return step(dict(state, params=tree.map_(clone, state["params"]),
                          opt=tree.map_(clone, state["opt"])), batch)
 
     return fresh_step
+
+
+def state_shardings(state, mesh):
+    """Specs mirroring a train state (the JAX ``state_shardings``):
+    params, frozen and the AdamW moments by the rule table (the moments
+    mirror their params: ZeRO-1), the count replicated, the host step and
+    seed none."""
+    opt = state["opt"]
+    return {
+        "params": sharding.param_specs(state["params"], mesh),
+        "frozen": sharding.param_specs(state["frozen"], mesh),
+        "opt": {"mu": sharding.param_specs(opt["mu"], mesh),
+                "nu": sharding.param_specs(opt["nu"], mesh),
+                "count": ()},
+        "step": (), "rng": (),
+    }
+
+
+def place_state(state):
+    """A whole train state (``init_state``'s, the same on every rank) as
+    this rank's shards under the active SPMD program, the trainable
+    shards made leaves that require grad; with no program, the state as
+    it is (the JAX ``place_state``: the state committed to the mesh)."""
+    prog = C.active()
+    if prog is None:
+        return state
+    out = sharding.shard_tree(state, state_shardings(state, prog.mesh))
+    for p in tree.leaves(out["params"]):
+        p.requires_grad_(True)
+    return out
 
 
 def init_state(params, frozen, seed: int = 0):

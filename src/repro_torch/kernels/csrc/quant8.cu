@@ -15,13 +15,16 @@
 // hardware PRNG (`pltpu.prng_seed`), from this stream:
 //
 //   element (r, c) takes word c mod 4 of Philox4x32-10 (Salmon et al.,
-//   SC'11) at counter (g_lo, g_hi, 0, 0), g = r * ceil(d / 4) + c / 4,
+//   SC'11) at counter (g_lo, g_hi, 0, 0), g = (row0 + r) * ceil(d / 4) +
+//   c / 4,
 //   under the key (seed_lo, seed_hi), the two 32-bit words of a 64-bit
 //   seed that the wrapper draws from its torch.Generator into device
 //   memory; u = (word >> 8) * 2^-24, in [0, 1).
 //
-// One draw serves four neighbouring elements of a row and no draw straddles
-// two rows, so both routes below give the same bits at any d, and so does
+// row0 is the global index of x's first row: a data rank that quantises
+// its own clients' rows of a stacked tensor passes their offset, and draws
+// the bits the whole tensor's call draws for them. One draw serves four
+// neighbouring elements of a row and no draw straddles two rows, so both routes below give the same bits at any d, and so does
 // the wrapper's plain version (`quant8.philox_uniforms`, torch integer
 // ops). In every mode the kernel gives the plain version's bits: the same
 // f32 operations in the same order, IEEE divisions (no fast math).
@@ -214,7 +217,7 @@ template <typename T, int MODE, bool VEC, bool WIDE>
 __global__ void __launch_bounds__(MAX_THREADS)
 kernel(const T* __restrict__ x, const float* __restrict__ u,
        const unsigned long long* __restrict__ seed, T* __restrict__ y,
-       int rows, int d, int group, float qmax) {
+       int rows, int d, int group, float qmax, long long row0) {
   using C = Chunk<T, VEC>;
   constexpr int K = C::K;
   __shared__ float red[MAX_THREADS / 32];
@@ -257,7 +260,8 @@ kernel(const T* __restrict__ x, const float* __restrict__ u,
     k0 = (uint32_t)s;
     k1 = (uint32_t)(s >> 32);
   }
-  const unsigned long long g0 = (unsigned long long)row * ((d + 3) / 4);
+  const unsigned long long g0 =
+      (unsigned long long)(row0 + row) * ((d + 3) / 4);
   if constexpr (WIDE) {
 #pragma unroll 4
     for (int j = t; j < nch; j += stride) {
@@ -279,30 +283,30 @@ kernel(const T* __restrict__ x, const float* __restrict__ u,
 
 template <typename T, int MODE, bool VEC>
 void launch(const T* x, const float* u, const unsigned long long* seed, T* y,
-            int rows, int d, float qmax, cudaStream_t st) {
+            int rows, int d, float qmax, long long row0, cudaStream_t st) {
   constexpr int K = Chunk<T, VEC>::K;
   const int w = ((d + K - 1) / K + CPT - 1) / CPT;   // threads a row holds
   if (w > MAX_THREADS) {
     kernel<T, MODE, VEC, true><<<rows, MAX_THREADS, 0, st>>>(
-        x, u, seed, y, rows, d, MAX_THREADS, qmax);
+        x, u, seed, y, rows, d, MAX_THREADS, qmax, row0);
   } else if (w > 32) {
     const int group = (w + 31) / 32 * 32;
     kernel<T, MODE, VEC, false><<<rows, group, 0, st>>>(
-        x, u, seed, y, rows, d, group, qmax);
+        x, u, seed, y, rows, d, group, qmax, row0);
   } else {
     int group = 1;
     while (group < w) group *= 2;
     const int per_block = SHORT_BLOCK / group;
     kernel<T, MODE, VEC, false>
         <<<(rows + per_block - 1) / per_block, SHORT_BLOCK, 0, st>>>(
-            x, u, seed, y, rows, d, group, qmax);
+            x, u, seed, y, rows, d, group, qmax, row0);
   }
 }
 
 template <typename T>
 int dispatch(const T* x, const float* u, const unsigned long long* seed,
              T* y, int rows, int d, float qmax, int mode, bool vec,
-             cudaStream_t st) {
+             long long row0, cudaStream_t st) {
   if (vec) {
     const bool aligned = d % (16 / (int)sizeof(T)) == 0 &&
                          (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0 &&
@@ -310,12 +314,12 @@ int dispatch(const T* x, const float* u, const unsigned long long* seed,
     if (!aligned) return (int)cudaErrorInvalidValue;
   }
   switch (mode * 2 + vec) {
-    case 0: launch<T, 0, false>(x, u, seed, y, rows, d, qmax, st); break;
-    case 1: launch<T, 0, true>(x, u, seed, y, rows, d, qmax, st); break;
-    case 2: launch<T, 1, false>(x, u, seed, y, rows, d, qmax, st); break;
-    case 3: launch<T, 1, true>(x, u, seed, y, rows, d, qmax, st); break;
-    case 4: launch<T, 2, false>(x, u, seed, y, rows, d, qmax, st); break;
-    default: launch<T, 2, true>(x, u, seed, y, rows, d, qmax, st); break;
+    case 0: launch<T, 0, false>(x, u, seed, y, rows, d, qmax, row0, st); break;
+    case 1: launch<T, 0, true>(x, u, seed, y, rows, d, qmax, row0, st); break;
+    case 2: launch<T, 1, false>(x, u, seed, y, rows, d, qmax, row0, st); break;
+    case 3: launch<T, 1, true>(x, u, seed, y, rows, d, qmax, row0, st); break;
+    case 4: launch<T, 2, false>(x, u, seed, y, rows, d, qmax, row0, st); break;
+    default: launch<T, 2, true>(x, u, seed, y, rows, d, qmax, row0, st); break;
   }
   return (int)cudaGetLastError();
 }
@@ -328,12 +332,13 @@ extern "C" {
 // round to nearest; mode 1: u [rows, d] f32 uniforms in [0, 1); mode 2:
 // seed points at one uint64 in device memory. vec: 1 for the vector route
 // (d a whole number of 16-byte vectors, x, y and u 16-byte aligned; the
-// call is refused otherwise), 0 for the scalar route. Launches on `stream`
-// without synchronising and returns cudaGetLastError().
+// call is refused otherwise), 0 for the scalar route. row0 >= 0: the global
+// index of x's first row in the Philox counter (mode 2). Launches on
+// `stream` without synchronising and returns cudaGetLastError().
 int quant_dequant(int dtype, const void* x, const void* u, const void* seed,
                   void* y, int rows, int d, float qmax, int mode, int vec,
-                  void* stream) {
-  if (rows <= 0 || d <= 0 || mode < 0 || mode > 2 ||
+                  long long row0, void* stream) {
+  if (rows <= 0 || d <= 0 || mode < 0 || mode > 2 || row0 < 0 ||
       (mode == 1 && u == nullptr) || (mode == 2 && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -342,11 +347,11 @@ int quant_dequant(int dtype, const void* x, const void* u, const void* seed,
   if (dtype == 0)
     return quant8::dispatch(static_cast<const float*>(x), uu, s,
                             static_cast<float*>(y), rows, d, qmax, mode,
-                            vec != 0, st);
+                            vec != 0, row0, st);
   if (dtype == 1)
     return quant8::dispatch(static_cast<const __nv_bfloat16*>(x), uu, s,
                             static_cast<__nv_bfloat16*>(y), rows, d, qmax,
-                            mode, vec != 0, st);
+                            mode, vec != 0, row0, st);
   return (int)cudaErrorInvalidValue;
 }
 

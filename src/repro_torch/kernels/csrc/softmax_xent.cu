@@ -8,11 +8,14 @@
 // w [D,V] (each f32 or bf16) and labels [T],
 //
 //   logits = h . w   lse = logsumexp(logits)   loss = lse - logits[label]
-//   ds = g * (softmax(logits) - onehot(label))
+//   ds = g * (exp(logits - lse) - onehot(label))
 //   dh = ds . w^T    dw = h^T . ds
 //
 // in f32 (the TPU kernel upcasts both tiles), without ever holding [T, V]
-// logits in device memory.
+// logits in device memory. A label outside [0, V) has no gold logit
+// (loss = lse) and no one-hot: a model rank of the vocab-parallel CE runs
+// these kernels on its shard of w with labels less its first column, and
+// the backward on the global lse.
 //
 // What bounds it on an H100: operations. One product h . w at the train
 // shape (T 4088, D 3072, V 256000) is 2TDV = 6.43 TFLOP; the tensor cores
@@ -686,7 +689,10 @@ int softmax_xent_fwd_scratch(int T, int V) {
 int softmax_xent_bwd_slab() { return SLAB; }
 
 // hdt, wdt: 0 = float32, 1 = bfloat16, for h and w each. Contiguous
-// h [T, D], w [D, V], labels [T] int32 in [0, V). Dp, Vp: D and V rounded
+// h [T, D], w [D, V], labels [T] int32 (a label outside [0, V) has no gold
+// logit and no one-hot: the epilogues compare labels with column indices
+// and never index by one; a vocab shard runs on labels - its first column).
+// Dp, Vp: D and V rounded
 // up to 8. hp: bf16 [2, T, Dp] when h is f32, [1, T, Dp] when h is bf16
 // and D % 8 != 0, else null (h read in place); wp likewise [., D, Vp] for
 // w. part: f32 scratch of softmax_xent_fwd_scratch(T, V) * T elements;

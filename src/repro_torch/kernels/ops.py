@@ -24,6 +24,7 @@ from repro_torch.kernels import quant8 as _q8
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import selective_scan as _ss
 from repro_torch.kernels import softmax_xent as _sx
+from repro_torch.parallel import collectives as _C
 
 
 def _on_cpu(t) -> bool:
@@ -111,6 +112,51 @@ class _SoftmaxXent(torch.autograd.Function):
         return (*fn(h, w, labels, lse, g), None)
 
 
+def softmax_xent_vocab_parallel(h, w, labels, axis: str = "model",
+                                plain: bool = False):
+    """The per-token CE [T] (f32) of h [T, D] against a head whose vocab
+    lies on `axis` (the rule table puts lm_head's V on `model`): `w` is
+    this rank's columns v0 .. v0 + V/m, and h and labels [T] are the same
+    on every rank of the axis.
+
+    Each rank runs the CE kernel (``plain``: the plain version, the
+    logits [T, V/m] materialized) on its shard with labels - v0, which
+    lie outside [0, V/m) where another rank holds the label. The global
+    lse is the logsumexp of the ranks' lse (all-gathered), the gold logit
+    the sum of the ranks' lse - loss (0 where the label is elsewhere).
+    The backward hands the kernel the global lse, so its ds is the
+    shard's columns of the global softmax; dh is all-reduced over the
+    axis, dw stays local. No [T, V] tensor exists."""
+    return _VocabParallelXent.apply(h, w, labels.to(torch.int32), axis,
+                                    bool(plain))
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, w, labels, axis, plain):
+        labels = labels - _C.index(axis) * w.shape[1]
+        on_cpu = _on_cpu(h)
+        if not on_cpu:
+            h, w, labels = h.contiguous(), w.contiguous(), labels.contiguous()
+        if plain or on_cpu:
+            loss, lse = _sx.softmax_xent_fwd_plain(h, w, labels)
+        else:
+            loss, lse = _sx.softmax_xent_fwd(h, w, labels)
+        lse_all = torch.logsumexp(_C.all_gather(lse[None], 0, axis), dim=0)
+        gold = _C.all_reduce(lse - loss, axis)
+        ctx.save_for_backward(h, w, labels, lse_all)
+        ctx.axis, ctx.plain = axis, plain or on_cpu
+        return lse_all - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, labels, lse = ctx.saved_tensors
+        g = g.float().contiguous()
+        fn = _sx.softmax_xent_bwd_plain if ctx.plain else _sx.softmax_xent_bwd
+        dh, dw = fn(h, w, labels, lse, g)
+        return _C.all_reduce(dh, ctx.axis), dw, None, None, None
+
+
 # ---------------------------------------------------------------------------
 # selective scan
 
@@ -174,24 +220,25 @@ class _SelectiveScan(torch.autograd.Function):
 # quant-dequant (straight-through)
 
 
-def quant_dequant_value(x, rng=None, bits: int = 8):
+def quant_dequant_value(x, rng=None, bits: int = 8, row0: int = 0):
     """The quant-dequant value of x (no gradient): the kernel on CUDA, the
-    plain version on the CPU. ``rng``: None, uniforms or a Generator."""
+    plain version on the CPU. ``rng``: None, uniforms or a Generator;
+    ``row0``: the global index of x's first row (the Philox counter)."""
     if _on_cpu(x):
-        return _q8.quant_dequant_plain(x, rng, bits)
-    return _q8.quant_dequant(x.contiguous(), rng, bits)
+        return _q8.quant_dequant_plain(x, rng, bits, row0)
+    return _q8.quant_dequant(x.contiguous(), rng, bits, row0)
 
 
-def quant_dequant(x, rng=None, bits: int = 8):
+def quant_dequant(x, rng=None, bits: int = 8, row0: int = 0):
     """Fused quant-dequant; the cotangent is straight-through (identity)."""
-    return _QuantDequant.apply(x, rng, int(bits))
+    return _QuantDequant.apply(x, rng, int(bits), int(row0))
 
 
 class _QuantDequant(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, rng, bits):
-        return quant_dequant_value(x, rng, bits)
+    def forward(ctx, x, rng, bits, row0):
+        return quant_dequant_value(x, rng, bits, row0)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None

@@ -26,8 +26,15 @@ Philox stream of that seed:
 
   element (r, c) of x viewed as [rows, d] takes word c mod 4 of
   Philox4x32-10 (Salmon et al., SC'11) at counter (g_lo, g_hi, 0, 0),
-  g = r * ceil(d / 4) + floor(c / 4), under the key (seed_lo, seed_hi),
-  the seed's two 32-bit words; u = (word >> 8) * 2^-24, in [0, 1).
+  g = (row0 + r) * ceil(d / 4) + floor(c / 4), under the key (seed_lo,
+  seed_hi), the seed's two 32-bit words; u = (word >> 8) * 2^-24, in
+  [0, 1).
+
+``row0`` (0 by default) is the global index of x's first row: the rows
+r0 .. r0 + n of a tensor, quantised alone with row0 = r0 under a
+generator in the same state, take the bits that one call over the whole
+tensor gives them (a data rank quantising its own clients' rows of the
+stacked link activations).
 
 One draw serves four neighbouring elements of a row and no draw straddles
 two rows. The kernel draws it in registers; the plain version computes it
@@ -75,13 +82,15 @@ def philox4x32(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def philox_uniforms(seed, rows: int, d: int):
-    """The kernel's uniforms for x viewed as [rows, d]: f32 [rows, d] in
-    [0, 1), on seed's device. ``seed``: an int64 tensor of one element in
-    [0, 2^63) (as the wrapper draws it) or an int."""
+def philox_uniforms(seed, rows: int, d: int, row0: int = 0):
+    """The kernel's uniforms for x viewed as [rows, d] whose first row is
+    row `row0` of the whole: f32 [rows, d] in [0, 1), on seed's device.
+    ``seed``: an int64 tensor of one element in [0, 2^63) (as the wrapper
+    draws it) or an int."""
     seed = torch.as_tensor(seed, dtype=torch.int64).reshape(())
     n4 = -(-d // 4)
-    g = torch.arange(rows * n4, dtype=torch.int64, device=seed.device)
+    g = torch.arange(row0 * n4, (row0 + rows) * n4, dtype=torch.int64,
+                     device=seed.device)
     zero = torch.zeros((), dtype=torch.int64, device=seed.device)
     words = philox4x32(g & _M32, g >> 32, zero, zero, seed & _M32,
                        seed >> 32)
@@ -96,9 +105,10 @@ def _draw_seed(gen, device):
                          generator=gen)
 
 
-def quant_dequant_plain(x, rng=None, bits: int = 8):
+def quant_dequant_plain(x, rng=None, bits: int = 8, row0: int = 0):
     """The kernel's function in plain PyTorch (``compression.
-    _quant_dequant_jnp`` of the JAX package, and its Pallas kernel)."""
+    _quant_dequant_jnp`` of the JAX package, and its Pallas kernel);
+    `row0` as the kernel's."""
     qmax = 2.0 ** (bits - 1) - 1
     x32 = x.float()
     scale = (x32.abs().amax(dim=-1, keepdim=True)
@@ -110,7 +120,7 @@ def quant_dequant_plain(x, rng=None, bits: int = 8):
         if isinstance(rng, torch.Generator):
             d = x.shape[-1]
             rng = philox_uniforms(_draw_seed(rng, x.device), x.numel() // d,
-                                  d).reshape(x.shape)
+                                  d, row0).reshape(x.shape)
         y = torch.floor(y + rng)
     return (y.clamp(-qmax, qmax) * scale).to(x.dtype)
 
@@ -121,7 +131,8 @@ def _lib():
     lib.quant_dequant.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                                   + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p])
+                                     ctypes.c_int, ctypes.c_longlong,
+                                     ctypes.c_void_p])
     lib.quant_dequant.restype = ctypes.c_int
     return lib
 
@@ -140,17 +151,20 @@ def vector_route(x, *others) -> bool:
                     if t is not None))
 
 
-def quant_dequant(x, rng=None, bits: int = 8):
+def quant_dequant(x, rng=None, bits: int = 8, row0: int = 0):
     """Launch the CUDA kernel on the current stream (no synchronisation).
 
     With a generator, its seed is drawn into device memory (on the
-    generator's device, which must be x's), so nothing waits on the host."""
+    generator's device, which must be x's), so nothing waits on the host.
+    `row0`: the global index of x's first row in the Philox counter."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous() or x.numel() == 0:
         raise ValueError("x must be contiguous and non-empty")
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
     lib = _lib()
     d = x.shape[-1]
     u = seed = None
@@ -172,7 +186,7 @@ def quant_dequant(x, rng=None, bits: int = 8):
             None if u is None else u.data_ptr(),
             None if seed is None else seed.data_ptr(), y.data_ptr(),
             x.numel() // d, d, 2.0 ** (bits - 1) - 1, mode,
-            int(vector_route(x, u, y)),
+            int(vector_route(x, u, y)), int(row0),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "quant_dequant")
     quant_dequant.launches += 1

@@ -55,14 +55,23 @@ def selective_scan_ref(x, dt, b_in, c_in, a_log, h0=None):
     return torch.stack(ys, dim=1).to(x.dtype), h
 
 
+def gold_logits(logits, labels):
+    """logits [T, V] at each row's label [T]; 0 where the label lies outside
+    [0, V) (a vocab shard that does not hold it)."""
+    labels = labels.long()
+    inside = (labels >= 0) & (labels < logits.shape[1])
+    gold = logits.gather(1, torch.where(inside, labels, 0)[:, None])[:, 0]
+    return torch.where(inside, gold, 0.0)
+
+
 def softmax_xent_ref(h, w, labels):
     """Materialized-logits per-token CE (and LSE), f32.
 
-    h [T, D], w [D, V], labels [T] -> (loss [T], lse [T])."""
+    h [T, D], w [D, V], labels [T] -> (loss [T], lse [T]). A label outside
+    [0, V) has no gold logit: its loss is the lse."""
     logits = h.float() @ w.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(1, labels.long()[:, None])[:, 0]
-    return lse - gold, lse
+    return lse - gold_logits(logits, labels), lse
 
 
 def quant_dequant_ref(x, bits: int = 8):

@@ -12,8 +12,15 @@ Both versions compute, for h [T,D] and w [D,V] (each f32 or bf16) and
 labels [T]:
 
   logits = h . w in f32;  lse = logsumexp(logits);  loss = lse - logits[label]
-  ds = g * (softmax(logits) - onehot(label))
+  ds = g * (exp(logits - lse) - onehot(label))
   dh = ds . w^T (h's dtype);  dw = h^T . ds (w's dtype)
+
+A label may lie outside [0, V): it then has no gold logit (loss = lse)
+and no one-hot. That is how a model rank of the vocab-parallel CE
+(``ops.softmax_xent_vocab_parallel``) runs on its shard w[:, v0 : v0 +
+V/m] with labels - v0; there the backward's lse is the global one, so its
+ds is the shard's columns of the global softmax's. The kernels only ever
+compare a label with a column index, never index by it.
 
 The kernels never hold [T, V] logits; the plain versions materialize them.
 The kernels run every product on the tensor cores from bf16 pieces of the
@@ -32,7 +39,7 @@ import torch
 
 from repro_torch.kernels import build, pieces
 from repro_torch.kernels.pieces import n_pieces, split_bf16  # noqa: F401
-from repro_torch.kernels.ref import softmax_xent_ref
+from repro_torch.kernels.ref import gold_logits, softmax_xent_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -42,9 +49,12 @@ softmax_xent_fwd_plain = softmax_xent_ref
 
 
 def _ds(logits, labels, lse, g):
-    """ds = g * (softmax(logits) - onehot(label)) in f32, from lse."""
+    """ds = g * (exp(logits - lse) - onehot(label)) in f32 (no one-hot for
+    a label outside [0, V))."""
     p = torch.exp(logits - lse[:, None])
-    p[torch.arange(logits.shape[0], device=p.device), labels.long()] -= 1.0
+    labels = labels.long()
+    rows = torch.nonzero((labels >= 0) & (labels < logits.shape[1]))[:, 0]
+    p[rows, labels[rows]] -= 1.0
     return p * g.float()[:, None]
 
 
@@ -73,7 +83,7 @@ def softmax_xent_fwd_pieces(h, w, labels):
     from the split-bf16 logits."""
     logits = pieces.product(h, w)
     lse = torch.logsumexp(logits, dim=-1)
-    return lse - logits.gather(1, labels.long()[:, None])[:, 0], lse
+    return lse - gold_logits(logits, labels), lse
 
 
 def softmax_xent_bwd_pieces(h, w, labels, lse, g):

@@ -8,11 +8,15 @@ is touched by making one.
 
   make_production_mesh()               16 x 16 (data, model): 256 devices
   make_production_mesh(multi_pod=True) 2 x 16 x 16 (pod, data, model)
-  make_host_mesh()                     (the CUDA device count, 1), or
-                                       (1, 1) without a card
+  make_host_mesh()                     (world, 1) under a process group
+                                       (the ranks of ``torchrun`` or
+                                       ``launch.spmd``), else (1, 1)
 
 The production meshes are the JAX dry run's; they serve the parity of
-its records (their per-device counts), not a layout any code here runs.
+its records (their per-device counts). A mesh whose size is the world's
+is run by ``init_device_mesh`` (the SPMD program of
+``parallel.collectives``): rank r sits at ``coords(r)``, row-major over
+the axes, as ``jax.sharding.Mesh`` lays out its device array.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import dataclasses
 import math
 from typing import Dict, Tuple
 
-import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +44,17 @@ class Mesh:
     def name(self) -> str:
         return "x".join(str(n) for n in self.axis_sizes)
 
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Rank `rank`'s coordinate on each axis, row-major (the last axis
+        fastest)."""
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not on a {self.name} mesh")
+        out = {}
+        for a, n in zip(reversed(self.axis_names), reversed(self.axis_sizes)):
+            out[a] = rank % n
+            rank //= n
+        return {a: out[a] for a in self.axis_names}
+
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     if multi_pod:
@@ -48,10 +63,20 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 
 def make_host_mesh() -> Mesh:
-    """The local devices as a (data, model) mesh with model = 1: the CUDA
-    device count, or one device where there is no card."""
-    n = torch.cuda.device_count() if torch.cuda.is_available() else 1
-    return Mesh(("data", "model"), (max(1, n), 1))
+    """The ranks as a (data, model) mesh with model = 1: the world of the
+    initialized process group (the JAX package's ``len(jax.devices())``:
+    one rank a device), or (1, 1) without one."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    return Mesh(("data", "model"), (n, 1))
+
+
+def init_device_mesh(mesh: Mesh, device="cuda"):
+    """The SPMD program of this rank on `mesh` (``parallel.collectives.
+    Program``): a ``torch.distributed.device_mesh.DeviceMesh`` over the
+    initialized process group, its dims named by ``mesh.axis_names``,
+    one process group an axis. Activate it with ``collectives.program``."""
+    from repro_torch.parallel import collectives
+    return collectives.start(mesh, device)
 
 
 # NVIDIA H100 80GB HBM3 (SXM) at its 700 W limit, the card's nvidia-smi

@@ -115,7 +115,10 @@ def build_serving_fns(cfg, compute_dtype=torch.float32, device="cuda",
     of s_text tokens behind n_patches patches (None: no patches), and
     ``decode.check_room(cache, n)`` raises if n more steps would write
     past a cache that cannot wrap (``check_cache_room``); ``generate``
-    calls it once before its first step. attn_impl: "kernel" | "naive";
+    calls it once before its first step; ``decode.greedy(logits)`` is the
+    greedy token (``M.greedy``). Under the SPMD program the params, the
+    tokens and the cache are this rank's shards (batch on `data`, heads
+    and vocab on `model`) and the logits its vocab shard. attn_impl: "kernel" | "naive";
     ssm_impl: "kernel" | "plain"; moe_impl: "ragged" | "dense"."""
     device = resolve_device(device)
     impls = {"attn": attn_impl, "ssm": ssm_impl, "moe": moe_impl}
@@ -170,6 +173,8 @@ def build_serving_fns(cfg, compute_dtype=torch.float32, device="cuda",
                           dtype=torch.int32, device=device)
 
     decode.positions = positions
+    # the greedy token of (a rank's vocab shard of) the logits
+    decode.greedy = lambda logits: M.greedy(logits, cfg)
     decode.check_room = lambda cache, n: check_cache_room(cfg, cache, n)
     return prefill, decode
 
@@ -203,7 +208,7 @@ def generate(prefill, decode, params, tokens, steps: int,
     decode.check_room(cache, steps)
 
     all_logits = [logits[:, -1]]
-    greedy = [logits[:, -1].argmax(dim=-1)]
+    greedy = [decode.greedy(logits[:, -1])]
     t0 = time.perf_counter()
     for i in range(steps):
         tok = greedy[-1] if forced_tokens is None else forced_tokens[:, i]
@@ -212,7 +217,7 @@ def generate(prefill, decode, params, tokens, steps: int,
         logits, cache = decode(params, cache, tok[:, None].to(torch.int64),
                                pos)
         all_logits.append(logits[:, -1])
-        greedy.append(logits[:, -1].argmax(dim=-1))
+        greedy.append(decode.greedy(logits[:, -1]))
     _sync(device)
     t_decode = time.perf_counter() - t0
     return {"tokens": torch.stack(greedy, dim=1),

@@ -15,6 +15,13 @@ The port's state keeps the step and the seed as host ints, where the
 JAX state holds a step [] int32 and a key [2] uint32. The VLM prefill
 hands ``layers.build_positions`` its patch count (the JAX
 ``build_prefill`` reads it off the wrong axis; ROADMAP.md Queue 3).
+
+On a mesh of several ranks every builder's function runs as the SPMD
+program (``parallel.collectives``, started by ``launch.mesh.
+init_device_mesh`` and made active by ``collectives.program``): it takes
+and returns this rank's shards, laid out by the builder's in_specs
+(``shard_inputs`` cuts whole arguments by them), and the model code
+calls the collectives. With no program it is the one-rank function.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch import tree
 from repro_torch.configs import MPSLConfig, RunConfig
 from repro_torch.core import mpsl, split
 from repro_torch.models import layers, model as M
@@ -137,17 +145,24 @@ def abstract_train_state(cfg, run):
 
 
 def state_specs(abstract_state, mesh):
-    """Specs of a train state (the JAX ``state_shardings``); the count is
-    replicated, the host step and seed have none."""
-    opt = abstract_state["opt"]
-    return {
-        "params": sharding.param_specs(abstract_state["params"], mesh),
-        "frozen": sharding.param_specs(abstract_state["frozen"], mesh),
-        "opt": {"mu": sharding.param_specs(opt["mu"], mesh),
-                "nu": sharding.param_specs(opt["nu"], mesh),
-                "count": ()},
-        "step": (), "rng": (),
-    }
+    """Specs of a train state (the JAX ``state_shardings``:
+    ``mpsl.state_shardings``); the count is replicated, the host step and
+    seed have none."""
+    return mpsl.state_shardings(abstract_state, mesh)
+
+
+def shard_inputs(args, in_specs, dmesh=None):
+    """This rank's shards of a builder's whole arguments (a tuple laid out
+    as its in_specs), for the program `dmesh` (``collectives.Program``;
+    the active one by default); the train state's params are made leaves
+    that require grad."""
+    out = tuple(sharding.shard_tree(a, sp, dmesh)
+                for a, sp in zip(args, in_specs))
+    for a in out:
+        if isinstance(a, dict) and "params" in a and "opt" in a:
+            for p in tree.leaves(a["params"]):
+                p.requires_grad_(True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +326,7 @@ def build_prefill(cfg, run, mesh):
     def prefill_fn(params, batch):
         tokens = batch["tokens"]
         dev = tokens.device
+        b = tokens.shape[0]                    # this rank's batch rows
         h = M.embed_tokens(params, tokens, cfg, dtype=cdt)
         n_patches = None
         if cfg.family == "vlm":

@@ -31,6 +31,21 @@ The last line of standard output is one JSON summary: ``final_loss``,
 ``steps_per_sec``, ``host_stall_frac``, ``skipped_steps`` and the losses
 of the steps run (the last ``metrics_ring`` of them), read back after
 the loop.
+
+Several ranks (the SPMD program of ``parallel.collectives``):
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
+      --steps 3 --seq 24
+
+runs one process a rank on the host mesh (N, 1), as the JAX CLI puts its
+clients on the host devices: each rank initializes the same whole state
+from the seed and keeps its shards (``mpsl.place_state``), places its
+clients of each batch (``sharding.place_batch(mesh=...)``), and the
+step's collectives join them (NCCL where each rank has a card of its
+own, gloo otherwise). Rank 0 alone writes the run log, the checkpoints
+(gathered from every rank) and the summary; the losses are the global
+L_S. A world already started by ``launch.spmd.spawn`` is used as it is,
+on its mesh.
 """
 from __future__ import annotations
 
@@ -38,18 +53,21 @@ import argparse
 import functools
 import json
 import math
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import faults, obs
 from repro_torch.configs import MPSLConfig, RunConfig, SHAPES, get_config, reduced
 from repro_torch.core import mpsl, split
 from repro_torch.data import (ClientLoader, PrefetchLoader, SyntheticLM,
                               dirichlet_partition)
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.serve import resolve_device, stub_embeds
 from repro_torch.optim import schedules
-from repro_torch.parallel import sharding
+from repro_torch.parallel import collectives, sharding
 from repro_torch.train import Trainer, TrainerConfig
 from repro_torch.train.trainer import to_host
 
@@ -109,9 +127,14 @@ def build(args, device, guard_nonfinite: bool = False):
     run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mpsl=mp,
                     compute_dtype="float32", learning_rate=args.lr,
                     seed=args.seed)
+    prog = collectives.active()
+    if prog is not None and args.n_clients % prog.size("data"):
+        raise ValueError(f"{args.n_clients} clients do not split over "
+                         f"{prog.size('data')} data ranks")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params, frozen, _ = split.init_mpsl_lm(gen, cfg, run, device)
-    state = mpsl.init_state(params, frozen, args.seed)
+    # every rank draws the whole state; the program keeps its shards
+    state = mpsl.place_state(mpsl.init_state(params, frozen, args.seed))
     loss_fn = mpsl.make_lm_loss(cfg, run, impls=mpsl.KERNEL_IMPLS)
     sched = schedules.warmup_cosine(args.lr, 10, args.steps)
     step_fn = mpsl.make_train_step(loss_fn, run, sched,
@@ -170,11 +193,38 @@ def parser():
     return p
 
 
+def start_world(device):
+    """(the SPMD program or None, the rank's device). Under ``torchrun``
+    (WORLD_SIZE > 1) this joins its process group (env:// rendezvous;
+    rank r on card LOCAL_RANK) and starts the program on the host mesh
+    (N, 1); in a world that ``launch.spmd`` started, the program is
+    already active."""
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE",
+                                                        "1")) > 1:
+        world = int(os.environ["WORLD_SIZE"])
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get(
+                "LOCAL_RANK", os.environ["RANK"])) % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        dist.init_process_group(collectives.default_backend(device, world),
+                                init_method="env://")
+    prog = collectives.active()
+    if prog is None and dist.is_initialized():
+        prog = mesh_lib.init_device_mesh(mesh_lib.make_host_mesh(), device)
+    return prog, device
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
-    device = resolve_device(args.device)
+    prog, device = start_world(resolve_device(args.device))
+    with collectives.program(prog):
+        return _main(args, device, prog)
+
+
+def _main(args, device, prog):
+    writer = prog is None or prog.rank == 0     # the run log, the summary
     log = obs.get_logger("train")
-    if args.obs_log:
+    if args.obs_log and writer:
         obs.configure(args.obs_log,
                       meta={"driver": "train", "arch": args.arch,
                             "steps": args.steps,
@@ -200,12 +250,14 @@ def main(argv=None):
         args, device, guard_nonfinite=fault_plan is not None)
     loader = PrefetchLoader(
         inner, depth=args.prefetch,
-        place_fn=functools.partial(sharding.place_batch, device=device))
+        place_fn=functools.partial(sharding.place_batch, device=device,
+                                   mesh=None if prog is None else prog.mesh))
     trainer = Trainer(step_fn, state, loader,
                       TrainerConfig(total_steps=args.steps,
                                     ckpt_every=args.ckpt_every,
                                     ckpt_dir=args.ckpt_dir,
-                                    profile_dir=args.profile_dir))
+                                    profile_dir=args.profile_dir),
+                      log_fn=print if writer else (lambda *_: None))
     start = int(trainer.state["step"])
     result = trainer.run()
     loader.close()
@@ -226,7 +278,7 @@ def main(argv=None):
                  skipped_steps=result["skipped_steps"],
                  producer_retries=loader.retries)
         faults.deactivate()
-    if args.obs_log:
+    if args.obs_log and writer:
         obs.shutdown()
         log.info(f"run log -> {args.obs_log} "
                  f"(python -m repro_torch.obs.report {args.obs_log})")
@@ -238,7 +290,10 @@ def main(argv=None):
                "steps_per_sec": result["steps_per_sec"],
                "host_stall_frac": result["host_stall_frac"],
                "skipped_steps": result["skipped_steps"], "losses": losses}
-    print(json.dumps(summary), flush=True)
+    if prog is not None:
+        summary["mesh"] = prog.record()
+    if writer:
+        print(json.dumps(summary), flush=True)
     kept = [x for step, x in zip(ran, losses)
             if step - 1 not in result["skipped_steps"]]
     if not all(math.isfinite(x) for x in kept):

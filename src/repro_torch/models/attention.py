@@ -20,8 +20,18 @@ Positions are [B, S], or [B, 3, S] under M-RoPE (Qwen2-VL), whose row 0
 is the flat position the masks, the kernel and the KV cache use.
 Cross-attention (the whisper decoder) takes its keys and values from the
 encoder's output (``kv_x``) or, at decode, precomputed once per layer
-(``compute_cross_kv``); it rotates neither queries nor keys. Sequence
-sharding across devices comes with the multi-GPU work (ROADMAP.md).
+(``compute_cross_kv``); it rotates neither queries nor keys.
+
+Under the SPMD program (``parallel.collectives``) the heads lie on
+`model`: wq [D, H, hd] and wk / wv [D, K, hd] hold H/m and K/m heads (G
+unchanged, so the core runs as it is, the flash kernel included, at the
+local head counts), wo [H, hd, D] is row-parallel and its partial sums
+leave by one all-reduce over `model`; the KV cache holds this rank's
+K/m heads (``cache_specs``) and its batch rows. Each weight's fsdp dim
+is gathered at use. The rule table's fallbacks for heads that do not
+divide the model axis (``dboth`` on D, a sequence-sharded cache) and
+sequence sharding (``seq_model``) are not in the program yet (ROADMAP.md
+Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
+from repro_torch.parallel import collectives as C
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
@@ -178,8 +189,10 @@ def resolve_impl(impl: str, sq: int, sk: int) -> str:
 
 def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
                device=None):
-    """KV cache of one layer; `index` counts the entries written so far."""
-    k, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    """KV cache of one layer; `index` counts the entries written so far.
+    Under the SPMD program it holds this rank's KV heads (`batch` is the
+    local batch)."""
+    k, hd = C.local(cfg.num_kv_heads, "model"), cfg.resolved_head_dim
     return {
         "k": torch.zeros((batch, cache_len, k, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, cache_len, k, hd), dtype=dtype, device=device),
@@ -224,16 +237,36 @@ def _cache_insert(cache, k_new, v_new, positions):
 # Public entry
 
 
-def _kv(params, src, cfg):
-    """Keys and values of `src` [B, S, D]: [B, S, K, hd] each."""
-    k = _proj(src, params["wk"])
-    v = _proj(src, params["wv"])
+def _norm_scale(params, name, tp):
+    """A qk-norm scale [hd]: replicated, used by this rank's heads only, so
+    its gradient is summed over `model` (``copy_to``)."""
+    scale = params[name]["scale"]
+    return C.copy_to(scale, "model") if tp else scale
+
+
+def _kv(params, src, cfg, tp=False):
+    """Keys and values of `src` [B, S, D]: [B, S, K, hd] each (this rank's
+    K/m heads under the program)."""
+    k = _proj(src, C.gather_param(params["wk"]))
+    v = _proj(src, C.gather_param(params["wv"]))
     if cfg.qkv_bias:
         k = k + params["bk"].to(src.dtype)
         v = v + params["bv"].to(src.dtype)
     if cfg.qk_norm:
-        k = layers.rms_norm(k, params["k_norm"]["scale"])
+        k = layers.rms_norm(k, _norm_scale(params, "k_norm", tp))
     return k, v
+
+
+def _tensor_parallel(params) -> bool:
+    """Whether the heads lie on `model` (raises where only some do: the
+    rule table's fallbacks are not in the program)."""
+    tp = C.model_parallel(params["wq"])
+    if tp != C.model_parallel(params["wk"]):
+        raise NotImplementedError(
+            "query heads and KV heads laid out apart on the model axis (a "
+            "KV head count that does not divide it): ROADMAP.md Queue 1 "
+            "item 7")
+    return tp
 
 
 def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
@@ -254,14 +287,19 @@ def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
     neither."""
     hd = cfg.resolved_head_dim
     flat_pos = positions[:, 0] if positions.dim() == 3 else positions
-    q = _proj(x, params["wq"])
+    tp = _tensor_parallel(params)
+    if tp:
+        x = C.copy_to(x, "model")
+        if kv_x is not None:
+            kv_x = C.copy_to(kv_x, "model")
+    q = _proj(x, C.gather_param(params["wq"]))
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
     if cfg.qk_norm:
-        q = layers.rms_norm(q, params["q_norm"]["scale"])
+        q = layers.rms_norm(q, _norm_scale(params, "q_norm", tp))
     k = v = None
     if precomputed_kv is None:
-        k, v = _kv(params, x if kv_x is None else kv_x.to(x.dtype), cfg)
+        k, v = _kv(params, x if kv_x is None else kv_x.to(x.dtype), cfg, tp)
 
     cross = kv_x is not None or precomputed_kv is not None
     if not cross and cfg.pos_embed in ("rope", "mrope"):
@@ -312,9 +350,9 @@ def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
                          f"(naive | blockwise | auto | kernel)")
 
     b, s, h, _ = out.shape
-    wo = params["wo"]
+    wo = C.gather_param(params["wo"])
     y = out.reshape(b, s, h * hd) @ wo.reshape(h * hd, -1).to(x.dtype)
-    return y, cache
+    return (C.reduce_from(y, "model") if tp else y), cache
 
 
 def compute_cross_kv(params, enc_out, cfg):

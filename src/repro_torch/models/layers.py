@@ -25,6 +25,50 @@ def dense_init(generator, shape, in_axis_size=None, device=None):
 
 
 # ---------------------------------------------------------------------------
+# Embedding lookup
+
+
+def embed_lookup(table, ids):
+    """table[ids] (ids [B, ...] int; [B, ..., D] in the table's dtype).
+
+    Under the SPMD program (``parallel.collectives``) the table [V, D] is
+    a shard laid out (fsdp, model) by the rule table: rows on `data`,
+    columns on `model`, while the ids (batch on `data`) differ from one
+    data rank to the next. The ids are all-gathered over `data`; each rank
+    looks them up in its own rows, zeros elsewhere; a reduce-scatter over
+    `data` on the batch dim gives each rank its own ids' rows (a sum in
+    which one rank holds each row: exact, the one-rank lookup's bits); an
+    all-gather over `model` joins the columns. The ids move, not the
+    table, which takes no gradient here (frozen in MPSL, and in
+    serving)."""
+    from repro_torch.parallel import collectives as C
+    spec = C.spec_of(table)
+    if spec is None or C.active() is None:
+        return table[ids]
+    if table.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError("a trainable embedding under the SPMD "
+                                  "program (ROADMAP.md Queue 1 item 7)")
+    rows, cols = spec
+    if rows is not None and rows != "data" or cols not in (None, "model"):
+        raise NotImplementedError(
+            f"an embedding laid out {spec} (ROADMAP.md Queue 1 item 7)")
+    if rows == "data":
+        n = table.shape[0]
+        ids = C.all_gather(ids, 0, "data")
+        local = ids - C.index("data") * n
+        hit = (local >= 0) & (local < n)
+        e = table[torch.where(hit, local, 0)]
+        e = torch.where(hit[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                        device=e.device))
+        e = C.reduce_scatter(e, 0, "data")
+    else:
+        e = table[ids]
+    if cols == "model":
+        e = C.all_gather(e, e.dim() - 1, "model")
+    return e
+
+
+# ---------------------------------------------------------------------------
 # Norms (computed in f32, cast back to input dtype)
 
 

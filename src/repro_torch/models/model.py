@@ -37,6 +37,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.models import attention, hybrid, layers, mamba, mlp, moe
+from repro_torch.parallel import collectives as C
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +124,11 @@ def apply_block(params, x, cfg, kind: BlockKind, *, positions, cache=None,
     A cross block attends over `cross_kv` (this layer's precomputed K/V)
     where given, else over `enc_out` [B, Sk, D]."""
     impls = impls or {}
+    if C.active() is not None and kind.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{kind.family} blocks under the SPMD program (Mamba and hybrid "
+            f"under TP, the vit, whisper and qwen2-vl stacks on a mesh): "
+            f"ROADMAP.md Queue 1 item 7")
     h = layers.apply_norm(x, params["norm1"], cfg.norm)
     ssm_kw = dict(ssm_impl=impls.get("ssm", "kernel"),
                   ssm_chunk=impls.get("ssm_chunk", 256),
@@ -272,13 +278,14 @@ def embed_tokens(params, tokens, cfg, positions=None, dtype=torch.bfloat16):
 
     The JAX package casts the whole table before the gather; a cast is
     elementwise, so gathering first gives the same bits without copying
-    the table on every call."""
-    h = params["embed"]["table"][tokens].to(dtype)
+    the table on every call. Under the SPMD program the lookup is
+    ``layers.embed_lookup``'s, the same bits."""
+    h = layers.embed_lookup(params["embed"]["table"], tokens).to(dtype)
     if cfg.pos_embed == "learned":
         pos = positions if positions is not None else \
             layers.positions_from_shape(tokens.shape[0], tokens.shape[1],
                                         device=tokens.device)
-        h = h + params["embed"]["pos"][pos].to(dtype)
+        h = h + layers.embed_lookup(params["embed"]["pos"], pos).to(dtype)
     return h
 
 
@@ -315,13 +322,46 @@ def forward_body(params, h, cfg, *, positions, cache=None, enc_out=None,
 
 
 def lm_logits(params, h, cfg):
+    """h [..., D] -> logits [..., V].
+
+    Under the SPMD program the logits are vocab-sharded, [..., V/m] on
+    `model` (the JAX ``("batch", None, "model")``), where the head
+    [D, V] lies (fsdp, model): its D gathered over `data`, h entering the
+    region by ``copy_to``. A tied head (the table [V, D], D on `model`)
+    gives each model rank the partial sums of its D columns, all-reduced
+    into the whole [..., V] on every rank. ``greedy`` takes the argmax of
+    either."""
     # Tied archs may carry an explicitly trained head (MPSL fine-tuning
     # keeps the embedding frozen client-side but trains the tail copy).
     if "lm_head" in params:
         w = params["lm_head"]
-    else:
-        w = params["embed"]["table"].T
-    return h @ w.to(h.dtype)
+        if C.model_parallel(w):
+            h = C.copy_to(h, "model")
+        return h @ C.gather_param(w).to(h.dtype)
+    table = params["embed"]["table"]
+    if C.model_parallel(table):
+        rows = C.gather_param(table)                       # [V, D/m]
+        d_loc = rows.shape[1]
+        i = C.index("model")
+        part = h[..., i * d_loc:(i + 1) * d_loc] @ rows.T.to(h.dtype)
+        return C.reduce_from(part, "model")
+    return h @ C.gather_param(table).T.to(h.dtype)
+
+
+def greedy(logits, cfg):
+    """The argmax over the vocabulary of logits [..., V], or of a rank's
+    vocab shard [..., V/m] under the SPMD program: each model rank's max
+    and its global index all-gathered, the first rank holding the largest
+    wins (ties go to the lowest index, as ``torch.argmax``'s)."""
+    v = logits.shape[-1]
+    idx = logits.argmax(dim=-1)
+    if v == cfg.vocab_size or C.size("model") == 1:
+        return idx
+    top = logits.gather(-1, idx[..., None])[..., 0].float()
+    idx = idx + C.index("model") * v
+    tops = C.all_gather(top[None], 0, "model")
+    idxs = C.all_gather(idx[None], 0, "model")
+    return idxs.gather(0, tops.argmax(dim=0, keepdim=True))[0]
 
 
 def init_body_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,

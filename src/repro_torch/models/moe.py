@@ -18,17 +18,24 @@ the same function up to ep's capacity:
              [T, k, D] and adds the k choices in order: no scatter-add,
              whose CUDA atomics would change the bits from run to run.
 
-  * ep     — the JAX package's expert-parallel dispatch under the active
-             mesh (``parallel.sharding.use_mesh``). With no mesh, or
-             experts not divisible by the model axis, it is ragged, as
-             there. With a model axis of 1 (one card) it is the JAX
-             ``local`` function on each data shard's tokens: a stable
-             sort of the (token, k) slots by expert, each expert's first
-             ``cap_e = max(1, int(capacity * T * k / E))`` slots kept and
-             the rest dropped (``ep_drop_mask`` says which), three
-             grouped products over [E, cap_e] padded rows, a scatter-add
-             back to the tokens. Static shapes: no host readback. A model
-             axis above 1 is the multi-GPU work of ROADMAP.md.
+  * ep     — the JAX package's expert-parallel dispatch: tokens stay on
+             their data shard, experts lie on the model axis (E / m a
+             device), each device keeps an expert's first ``cap_e =
+             max(1, int(capacity * T_loc * k / E))`` slots in token order
+             (a stable sort; ``ep_drop_mask`` says which are dropped),
+             runs three grouped products over [E/m, cap_e] padded rows
+             and scatter-adds back, and the partials add over `model`.
+             Static shapes: no host readback. Under the SPMD program
+             (``parallel.collectives``) each rank is one such device;
+             with only the mesh record of ``parallel.sharding.use_mesh``
+             one process computes every device's share and adds them.
+             With no mesh, or experts that do not divide the model axis,
+             it is ragged, as in the JAX package.
+
+Under the SPMD program the router and the load-balance loss are computed
+on every model rank from the same tokens (the loss's means over every
+data rank's tokens); the routed experts and the shared expert are a
+model-parallel region (``_moe_program``).
 
 ``routing_tape`` is a check-only tool: a comparison of the kernel path
 with the plain path records the kernel path's expert choices and replays
@@ -45,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers, mlp
+from repro_torch.parallel import collectives as C
 
 
 def init_moe(generator, cfg, device=None):
@@ -81,10 +89,13 @@ class RoutingTape:
     """The expert choices of every ``_routing`` call made while the tape is
     open, in call order. Given the choices of an earlier tape, each call
     uses them instead of its own top k, and counts the tokens whose own
-    top-k set differs."""
+    top-k set differs. Each ep ``local`` call (``_ep_local``) adds the
+    (token, k) slots it dropped past capacity among its own experts'
+    (``drops``)."""
 
     def __init__(self, replay=None):
         self.idx = []               # [T, k] per call, as recorded
+        self.drops = []             # [T, k] bool per ep ``local`` call
         self.replay = replay
         self.calls = 0
         self.flips = 0              # a 0-d tensor once a call is replayed
@@ -134,9 +145,15 @@ def routing_tape(replay=None):
 
 
 def _routing(params, x, cfg):
-    """x [T, D] -> (weights [T, k] in x's dtype, idx [T, k], aux f32)."""
+    """x [T, D] -> (weights [T, k] in x's dtype, idx [T, k], aux f32).
+
+    Under the SPMD program with a data axis the load-balance loss takes
+    its two means over every data rank's tokens (sums all-reduced over
+    `data`, the probabilities' by ``reduce_from``: each rank's tokens then
+    get their own gradient of it), as the JAX package's over the global
+    batch."""
     m = cfg.moe
-    logits = x.float() @ params["router"].float()
+    logits = x.float() @ C.gather_param(params["router"]).float()
     probs = torch.softmax(logits, dim=-1)
     weights, idx = torch.topk(probs, m.top_k, dim=-1)
     tape = _TAPE
@@ -144,18 +161,28 @@ def _routing(params, x, cfg):
         weights, idx = tape.take(probs, idx, weights)
     weights = weights / weights.sum(dim=-1, keepdim=True)
     # Switch-style load-balance loss; the density carries no gradient
-    density = F.one_hot(idx, m.num_experts).sum(dim=1).float().mean(dim=0)
-    aux = m.num_experts * (density * probs.mean(dim=0)).sum() \
-        * m.router_aux_coef
+    hits = F.one_hot(idx, m.num_experts).sum(dim=1).float()
+    if C.size("data") > 1:
+        t = x.shape[0] * C.size("data")
+        density = C.all_reduce(hits.sum(dim=0), "data") / t
+        mean_p = C.reduce_from(probs.sum(dim=0), "data") / t
+    else:
+        density, mean_p = hits.mean(dim=0), probs.mean(dim=0)
+    aux = m.num_experts * (density * mean_p).sum() * m.router_aux_coef
     return weights.to(x.dtype), idx, aux
 
 
-def _apply_dense(params, x, cfg, weights, idx):
-    """Every expert on every token, weighted by combine [T, E]."""
+def _apply_dense(params, x, cfg, weights, idx, eid0: int = 0):
+    """Every expert on every token, weighted by combine [T, E]; with
+    `eid0`, the experts eid0 .. of ``params`` only (this rank's share:
+    the other experts' combine columns dropped)."""
     m = cfg.moe
     act = layers.act_fn(cfg.activation)
     combine = (F.one_hot(idx, m.num_experts).to(x.dtype)
                * weights[..., None]).sum(dim=1)
+    e_loc = params["wi"].shape[0]
+    if e_loc != m.num_experts:
+        combine = combine[:, eid0:eid0 + e_loc]
     h = torch.einsum("td,edf->tef", x, params["wi"].to(x.dtype))
     if "wg" in params:
         g = torch.einsum("td,edf->tef", x, params["wg"].to(x.dtype))
@@ -209,41 +236,65 @@ def _data_shards(mesh) -> int:
                      if a in mesh.axis_names)
 
 
-def _ep_local(params, x, cfg, weights, idx, capacity: float):
-    """The JAX ``_apply_ep``'s per-device ``local`` on one (data, model)
-    device holding every expert: x [T, D] -> [T, D]."""
+def _ep_local(x, cfg, weights, idx, capacity: float, wi, wg, wo,
+              eid0: int = 0):
+    """The JAX ``_apply_ep``'s per-device ``local``: the (token, k) slots
+    of x [T, D] routed to the experts eid0 .. eid0 + e_loc - 1, whose
+    weights wi / wg [e_loc, D, F] and wo [e_loc, F, D] are given; each
+    expert keeps its first ``cap_e`` slots (cap_e from the global expert
+    count), the rest are dropped. Returns this device's partial [T, D]
+    (the sum over the model axis of every device's is the layer's)."""
     t, d = x.shape
     k = idx.shape[1]
     e = cfg.moe.num_experts
+    e_loc = wi.shape[0]
     cap_e = _ep_capacity(t, k, e, capacity)
     act = layers.act_fn(cfg.activation)
-    flat_e = idx.reshape(-1)                                 # [T*k]
-    order = torch.argsort(flat_e, stable=True)
+    local_e = idx.reshape(-1) - eid0                         # [T*k]
+    hit = (local_e >= 0) & (local_e < e_loc)
+    key = torch.where(hit, local_e, e_loc)                   # misses last
+    order = torch.argsort(key, stable=True)
     # hits per expert, with a static shape (bincount would read its
     # length back to the host)
-    gs = torch.zeros(e, dtype=torch.long, device=x.device).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))
+    gs = torch.zeros(e_loc + 1, dtype=torch.long,
+                     device=x.device).scatter_add_(
+        0, key, torch.ones_like(key))[:e_loc]
     starts = torch.cumsum(gs, 0) - gs
     slot = torch.arange(cap_e, device=x.device)
     pos = (starts[:, None] + slot[None, :]).clamp(0, t * k - 1)
-    rows = order[pos]                                        # [E, cap_e]
+    rows = order[pos]                                        # [e_loc, cap_e]
     valid = slot[None, :] < gs.clamp(max=cap_e)[:, None]
     toks = rows // k
     xs = x[toks] * valid[..., None].to(x.dtype)
-    h = torch.einsum("ecd,edf->ecf", xs, params["wi"].to(x.dtype))
-    if "wg" in params:
-        g = torch.einsum("ecd,edf->ecf", xs, params["wg"].to(x.dtype))
+    h = torch.einsum("ecd,edf->ecf", xs, wi.to(x.dtype))
+    if wg is not None:
+        g = torch.einsum("ecd,edf->ecf", xs, wg.to(x.dtype))
         h = act(g) * h
     else:
         h = act(h)
-    y = torch.einsum("ecf,efd->ecd", h, params["wo"].to(x.dtype))
+    y = torch.einsum("ecf,efd->ecd", h, wo.to(x.dtype))
     wsel = weights.reshape(-1)[rows] * valid.to(weights.dtype)
     y = y * wsel[..., None].to(y.dtype)
+    tape = _TAPE
+    if tape is not None:
+        kept = torch.zeros(t * k, dtype=torch.bool, device=x.device)
+        kept[rows[valid]] = True
+        tape.drops.append((hit & ~kept).reshape(t, k))
     return torch.zeros_like(x).index_add(0, toks.reshape(-1),
                                          y.reshape(-1, d))
 
 
 def _apply_ep(params, x, cfg, weights, idx, capacity: float = 2.0):
+    """The JAX package's expert-parallel dispatch: tokens stay on their
+    data shard, experts lie on the model axis, each device runs ``local``
+    over its experts' slots and the partial sums add over `model`.
+
+    Under the SPMD program x is this rank's tokens and wi / wg / wo its
+    experts (``_moe_program``). Otherwise the mesh record of
+    ``sharding.use_mesh`` says the layout, and one process computes what
+    its devices would: each data shard's tokens, each model shard's
+    experts, the partials summed. With no mesh, or experts that do not
+    divide the model axis, it is ragged, as in the JAX package."""
     from repro_torch.parallel import sharding
 
     mesh = sharding.current_mesh()
@@ -251,16 +302,66 @@ def _apply_ep(params, x, cfg, weights, idx, capacity: float = 2.0):
     if mesh is None or "model" not in mesh.axis_names \
             or e % int(mesh.shape["model"]) != 0:
         return _apply_ragged(params, x, cfg, weights, idx)
-    if int(mesh.shape["model"]) > 1:
-        raise NotImplementedError(
-            "ep with a model axis above 1 places experts across GPUs: the "
-            "multi-GPU work of ROADMAP.md")
+    m = int(mesh.shape["model"])
+    e_loc = e // m
+    wg = params.get("wg")
+
+    def experts(xs, ws, js):
+        out = None
+        for r in range(m):
+            sl = slice(r * e_loc, (r + 1) * e_loc)
+            y = _ep_local(xs, cfg, ws, js, capacity, params["wi"][sl],
+                          None if wg is None else wg[sl], params["wo"][sl],
+                          eid0=r * e_loc)
+            out = y if out is None else out + y
+        return out
+
     shards = _data_shards(mesh)
     if shards == 1:
-        return _ep_local(params, x, cfg, weights, idx, capacity)
-    return torch.cat([_ep_local(params, xs, cfg, ws, js, capacity)
-                      for xs, ws, js in zip(x.chunk(shards), weights.chunk(
-                          shards), idx.chunk(shards))])
+        return experts(x, weights, idx)
+    return torch.cat([experts(xs, ws, js) for xs, ws, js in zip(
+        x.chunk(shards), weights.chunk(shards), idx.chunk(shards))])
+
+
+def _moe_program(params, xt, cfg, weights, idx, impl, capacity):
+    """The routed experts under the SPMD program: this rank's tokens
+    (`data`), its experts (`model`: E/m of them, the rule table's expert
+    parallelism) with their fsdp dim gathered; the tokens and the combine
+    weights enter the model-parallel region by ``copy_to``, the partial
+    sums leave by ``reduce_from``. ep runs the JAX ``local`` (capacity
+    from the global E); dense runs every local expert on every token."""
+    tp = C.model_parallel(params["wi"])
+    if tp and C.spec_of(params["wi"])[0] != "model":
+        raise NotImplementedError(
+            "experts that do not divide the model axis (each expert's F on "
+            "`model`): ROADMAP.md Queue 1 item 7")
+    if not tp:
+        local = {k: C.gather_param(params[k]) for k in ("wi", "wg", "wo")
+                 if k in params}
+        if impl == "dense":
+            return _apply_dense(local, xt, cfg, weights, idx)
+        if impl == "ragged":
+            return _apply_ragged(local, xt, cfg, weights, idx)
+        return _ep_local(xt, cfg, weights, idx, capacity, local["wi"],
+                         local.get("wg"), local["wo"])
+    x_in = C.copy_to(xt, "model")
+    w_in = C.copy_to(weights, "model")
+    wi = C.gather_param(params["wi"])
+    wg = C.gather_param(params["wg"]) if "wg" in params else None
+    wo = C.gather_param(params["wo"])
+    e_loc = wi.shape[0]
+    eid0 = C.index("model") * e_loc
+    if impl == "ep":
+        y = _ep_local(x_in, cfg, w_in, idx, capacity, wi, wg, wo, eid0)
+    elif impl == "dense":
+        local = {"wi": wi, "wo": wo, **({"wg": wg} if wg is not None
+                                         else {})}
+        y = _apply_dense(local, x_in, cfg, w_in, idx, eid0=eid0)
+    else:
+        raise NotImplementedError(
+            "the ragged dispatch over experts on the model axis: ROADMAP.md "
+            "Queue 1 item 7 (ep and dense run there)")
+    return y
 
 
 def ep_drop_mask(idx, num_experts: int, capacity: float = 2.0,
@@ -292,16 +393,32 @@ def apply_moe(params, x, cfg, impl: str = "ragged", capacity: float = 2.0):
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     weights, idx, aux = _routing(params, xt, cfg)
-    if impl == "dense":
+    if impl not in ("dense", "ragged", "ep"):
+        raise ValueError(f"unknown moe impl {impl!r} (dense | ragged | ep)")
+    if C.active() is not None:
+        y = _moe_program(params, xt, cfg, weights, idx, impl, capacity)
+    elif impl == "dense":
         y = _apply_dense(params, xt, cfg, weights, idx)
     elif impl == "ragged":
         y = _apply_ragged(params, xt, cfg, weights, idx)
-    elif impl == "ep":
-        y = _apply_ep(params, xt, cfg, weights, idx, capacity)
     else:
-        raise ValueError(f"unknown moe impl {impl!r} (dense | ragged | ep)")
+        y = _apply_ep(params, xt, cfg, weights, idx, capacity)
+    tp = C.model_parallel(params["wi"])
     if "shared" in params:
-        ys = mlp.apply_mlp(params["shared"], xt, cfg.activation)
-        gate = torch.sigmoid(xt.float() @ params["shared_gate"].float())
+        # the shared expert's partial sums join the routed experts' before
+        # the one reduction; its gate, computed outside the region, enters
+        # it by copy_to
+        ys = mlp.apply_mlp(params["shared"], xt, cfg.activation,
+                           reduce=not tp)
+        gate = torch.sigmoid(
+            xt.float() @ C.gather_param(params["shared_gate"]).float())
+        if tp and C.model_parallel(params["shared"]["wi"]):
+            gate = C.copy_to(gate, "model")
+        elif tp:
+            raise NotImplementedError(
+                "a shared expert replicated beside experts on the model "
+                "axis: ROADMAP.md Queue 1 item 7")
         y = y + ys * gate.to(y.dtype)
+    if tp:
+        y = C.reduce_from(y, "model")
     return y.reshape(b, s, d), aux

@@ -9,18 +9,29 @@ update of each leaf is written into its gradient's buffer, so no second
 copy of params or moments is made (one leaf's temporaries at a time).
 The step count and what derives from it stay 0-d tensors on the params'
 device, so nothing waits on the host.
+
+Under the SPMD program the params are this rank's shards, so the moments
+are too (ZeRO-1, as ``repro/optim/adamw.py`` says: they shard like their
+params, and carry the params' specs), and the update is elementwise.
+The global norm sums each leaf's local squares weighted by
+1 / its replica count (``collectives.replica_weight``) and all-reduces
+that over the world, so each shard counts once.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.parallel import collectives as C
 from repro_torch.tree import leaves as tree_leaves
 from repro_torch.tree import map_
 
 
 def adamw_init(params):
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    def zeros(p):
+        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        C.set_spec(z, C.spec_of(p))
+        return z
+
     dev = tree_leaves(params)[0].device
     return {"mu": map_(zeros, params), "nu": map_(zeros, params),
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -78,19 +89,28 @@ def apply_updates(params, updates, ok=None):
         p.copy_(new if ok is None else torch.where(ok, new, p))
 
 
-def global_norm(tree):
+def global_norm(tree, params=None):
+    """The L2 norm over every leaf of `tree`. Under the SPMD program, with
+    `params` (the leaves the gradients belong to, whose specs say how
+    they are laid out), the norm of the whole leaves over all ranks."""
+    weights = ([C.replica_weight(p) for p in tree_leaves(params)]
+               if params is not None and C.active() is not None else None)
     total = torch.zeros((), dtype=torch.float32,
                         device=tree_leaves(tree)[0].device)
-    for g in tree_leaves(tree):
-        total = total + g.float().square().sum()
+    for i, g in enumerate(tree_leaves(tree)):
+        sq = g.float().square().sum()
+        total = total + (sq if weights is None else sq * weights[i])
+    if weights is not None:
+        total = C.all_reduce(total, C.WORLD)
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, params=None):
     """Scale the gradients in place so their global norm is at most
-    `max_norm`. Returns (grads, the norm before clipping)."""
-    norm = global_norm(grads)
+    `max_norm`. Returns (grads, the norm before clipping). `params`: as
+    ``global_norm``'s."""
+    norm = global_norm(grads, params)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in tree_leaves(grads):
         g.copy_((g.float() * scale).to(g.dtype))

@@ -22,9 +22,13 @@ The port keeps per-layer lists where the JAX package stacks [L, ...]
 segments (``bridge.py``), so a segment leaf's spec is the JAX spec
 without its leading layer entry, and so is a per-layer cache's.
 
-Nothing partitions a tensor yet: one card runs everything, so
-``shard_act`` is the identity at any mesh. Placing tensors by these specs
-across GPUs (DTensor) is the multi-GPU work of ROADMAP.md.
+Under the SPMD program (``parallel.collectives``: one process a rank,
+``launch/spmd.py`` or ``torchrun``) every rank holds plain local tensors:
+``shard_tree`` cuts a tree by these specs into this rank's slices (and
+marks each with its spec, which ``collectives.gather_param`` reads),
+``gather_tree`` joins them back, ``place_batch(mesh=...)`` places this
+rank's clients of a host batch. The model code calls the collectives
+itself, so ``shard_act`` stays the identity (see there).
 
 ``place_batch`` runs on the prefetch producer thread
 (``data.PrefetchLoader(place_fn=place_batch)``); ``take_batch`` runs on
@@ -122,7 +126,17 @@ def shard_shape(shape: Sequence[int], spec, mesh) -> tuple:
 
 def shard_act(x, dims):
     """The JAX package's ``with_sharding_constraint`` against the active
-    mesh. No partitioner runs on one card: the identity at any mesh."""
+    mesh: the identity. No partitioner runs in the port; the explicit
+    program already holds the layouts those constraints ask for: the
+    clients' stacked activations on `data` (``repro/core/mpsl.py:132,
+    143, 160``: each data rank runs its own clients) and the batch of the
+    body, the decoder's hidden states and the logits
+    (``repro/models/model.py:156, 287, 328``: batch on `data`, hidden
+    states replicated over `model` between the blocks, logits
+    vocab-sharded over `model`). Not held: ``seq_model``, the
+    sequence-sharded activations of ``repro/models/attention.py:273-276``
+    (training at d_model >= 8192, ``RunConfig.seq_shard_acts``), which
+    the program leaves unsharded (ROADMAP.md Queue 1 item 7)."""
     return x
 
 
@@ -298,6 +312,106 @@ def cache_specs(cache, mesh, stacked: bool = False, kv_heads=None):
 
 
 # ---------------------------------------------------------------------------
+# This rank's shards (the SPMD program)
+
+
+def _program(prog):
+    from repro_torch.parallel import collectives
+    return prog if prog is not None else collectives.active()
+
+
+def _entry(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _part(prog, axes) -> Tuple[int, int]:
+    """(this rank's index, the part count) of a dim laid on `axes`
+    (row-major over them, as ``NamedSharding`` cuts a dim on two axes)."""
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * prog.size(a) + prog.index(a)
+        n *= prog.size(a)
+    return idx, n
+
+
+def shard_leaf(x, spec, prog=None):
+    """This rank's slice of `x` (a tensor or a numpy array) laid out by
+    `spec`: each dim cut into equal parts by its axes, the part at this
+    rank's coordinates. A tensor slice is a contiguous copy marked with
+    its spec (``collectives.set_spec``)."""
+    from repro_torch.parallel import collectives
+    prog = _program(prog)
+    if prog is None or not hasattr(x, "shape"):
+        return x
+    index = []
+    for dim, entry in enumerate(spec or ()):
+        i, n = _part(prog, _entry(entry))
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"into {n} parts ({spec})")
+        step = x.shape[dim] // n
+        index.append(slice(i * step, (i + 1) * step))
+    out = x[tuple(index)]
+    if torch.is_tensor(out):
+        out = out.contiguous() if index else out
+        out = out.clone() if out.data_ptr() == x.data_ptr() else out
+        collectives.set_spec(out, spec)
+        return out
+    return np.ascontiguousarray(out)
+
+
+def shard_tree(tree_, specs, prog=None):
+    """``shard_leaf`` of every leaf of `tree_` by the matching leaf of
+    `specs` (a spec tree of ``param_specs``, ``cache_specs``,
+    ``batch_specs``, ``steps.state_specs``...); a non-array leaf as it
+    is. `prog`: the program (``collectives.Program``; the active one by
+    default)."""
+    if isinstance(tree_, dict):
+        return {k: shard_tree(v, specs[k], prog) for k, v in tree_.items()}
+    if isinstance(tree_, list):
+        return [shard_tree(v, sp, prog) for v, sp in zip(tree_, specs)]
+    return shard_leaf(tree_, specs, prog)
+
+
+def gather_leaf(x, spec=None):
+    """The whole leaf from this rank's shard: each sharded dim all-gathered
+    over its axes (the inverse of ``shard_leaf``). `spec`: the shard's own
+    (``collectives.spec_of``) by default."""
+    from repro_torch.parallel import collectives
+    spec = collectives.spec_of(x) if spec is None else spec
+    if not torch.is_tensor(x) or not spec or collectives.active() is None:
+        return x
+    for dim, entry in enumerate(spec):
+        for a in reversed(_entry(entry)):     # the inner axis first
+            x = collectives.all_gather(x, dim, a)
+    return x
+
+
+def gather_tree(tree_):
+    """``gather_leaf`` of every leaf, by its own spec (every rank takes
+    part; every rank gets the whole tree)."""
+    if isinstance(tree_, dict):
+        return {k: gather_tree(v) for k, v in tree_.items()}
+    if isinstance(tree_, list):
+        return [gather_tree(v) for v in tree_]
+    return gather_leaf(tree_)
+
+
+def global_shape(x) -> tuple:
+    """The whole leaf's shape from a shard's (its spec's axis sizes)."""
+    from repro_torch.parallel import collectives
+    spec = collectives.spec_of(x)
+    prog = collectives.active()
+    shape = tuple(x.shape)
+    if not spec or prog is None:
+        return shape
+    return tuple(d * (_part(prog, _entry(spec[i]))[1] if i < len(spec)
+                      else 1) for i, d in enumerate(shape))
+
+
+# ---------------------------------------------------------------------------
 # Host batch placement
 
 # integer fields the step uses as indices: int64 on the device
@@ -310,11 +424,15 @@ class PlacedBatch(dict):
     ready = None
 
 
-def place_batch(batch, device=None) -> PlacedBatch:
+def place_batch(batch, device=None, mesh=None) -> PlacedBatch:
     """A host batch (numpy arrays) as tensors on `device` (the current
     CUDA device unless given; ``"cpu"`` for plain copies), token ids and
-    labels as int64. The ``h2d/place_batch`` span measures the host's
-    time to enqueue the copies, not their transfer."""
+    labels as int64. With `mesh` (the active program's), only this rank's
+    slice of each array's client (or batch) axis is placed, as
+    ``batch_specs`` lays it out. The ``h2d/place_batch`` span measures
+    the host's time to enqueue the copies, not their transfer."""
+    if mesh is not None:
+        batch = shard_tree(batch, batch_specs(batch, mesh))
     with obs.span("h2d/place_batch"):
         device = torch.device("cuda" if device is None else device)
         out = PlacedBatch()

@@ -1,0 +1,345 @@
+"""The per-rank functions of the mesh tests (``tests/test_torch_mesh_*.py``).
+
+``launch.spmd.spawn`` starts a fresh process a rank, which imports the
+function it runs by its module: this one imports torch and the port only
+(no jax), so a rank starts in a few seconds. Each function runs with the
+rank's program active, takes numpy inputs (the whole arrays; each rank
+cuts its own shards) and returns numpy results, gathered back to whole
+arrays where the test compares them."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import bridge, tree
+from repro_torch.configs import (MPSLConfig, RunConfig, get_config,
+                                 reduced)
+from repro_torch.core import compression, losses, mpsl
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import serve, steps, train
+from repro_torch.models import model as M
+from repro_torch.models import moe
+from repro_torch.optim import schedules
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import sharding
+
+
+def port_config(arch, **kw):
+    return reduced(get_config(arch), **kw)
+
+
+def _np(t):
+    return t.detach().float().numpy() if t.dtype == torch.bfloat16 \
+        else t.detach().numpy()
+
+
+def _gathered(local, params_local=None):
+    """Whole numpy leaves of a local tree (by each leaf's own spec, or the
+    spec of the matching leaf of `params_local`)."""
+    if params_local is None:
+        return [_np(sharding.gather_leaf(x)) for x in tree.leaves(local)]
+    return [_np(sharding.gather_leaf(g, C.spec_of(p)))
+            for g, p in zip(local, tree.leaves(params_local))]
+
+
+def _with_meshes(meshes, fn, *args):
+    """fn(*args) under a program on each mesh (all of this world's size),
+    in order: {mesh.name: result}."""
+    out = {}
+    dev = C.active().device
+    for m in meshes:
+        with C.program(mesh_lib.init_device_mesh(m, dev)):
+            out[m.name] = fn(*args)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# layouts and the autograd pairs
+
+
+def roundtrip(trees):
+    """{name: {"shapes", "specs", "equal"}}: each tree cut by
+    ``param_specs`` on the active mesh and gathered back."""
+    prog = C.active()
+    out = {}
+    for name, t in trees.items():
+        params = bridge.from_repro(t)
+        specs = sharding.param_specs(params, prog.mesh)
+        local = sharding.shard_tree(params, specs)
+        back = sharding.gather_tree(local)
+        out[name] = {
+            "shapes": [tuple(x.shape) for x in tree.leaves(local)],
+            "specs": [C.spec_of(x) for x in tree.leaves(local)],
+            "equal": all(torch.equal(a, b) for a, b in zip(
+                tree.leaves(params), tree.leaves(back)))}
+    return out
+
+
+def pairs():
+    """The three autograd pairs on every axis: values and gradients."""
+    out = {}
+    for axis in ("data", "model"):
+        n, i = C.size(axis), C.index(axis)
+        x = torch.ones(3, requires_grad=True)
+        (C.copy_to(x, axis) * (i + 1)).sum().backward()
+        y = torch.full((3,), float(i + 1), requires_grad=True)
+        r = C.reduce_from(y, axis)
+        r.sum().backward()
+        z = (torch.arange(6.).reshape(2, 3) + 10 * i).requires_grad_()
+        g = C.gather_from(z, 0, axis)
+        w = torch.arange(2. * n * 3).reshape(2 * n, 3)
+        (g * w).sum().backward()
+        out[axis] = {"n": n, "i": i, "copy_grad": x.grad.numpy(),
+                     "reduce": r.detach().numpy(),
+                     "reduce_grad": y.grad.numpy(),
+                     "gather": g.detach().numpy(),
+                     "gather_grad": z.grad.numpy()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# one dense block, the vocab-parallel CE, quant8's row0
+
+
+def block(cfg_kw, block_np, x_np, pos_np, cot_np):
+    """A dense block's output and gradients (x's and every param's,
+    gathered) under the active program."""
+    cfg = port_config("minitron-4b", **cfg_kw)
+    prog = C.active()
+    params = bridge.from_repro(block_np)
+    local = sharding.shard_tree(params, sharding.param_specs(params,
+                                                             prog.mesh))
+    for p in tree.leaves(local):
+        p.requires_grad_(True)
+    x = torch.from_numpy(x_np).requires_grad_()
+    y, _, _ = M.apply_block(local, x, cfg, M.BlockKind("dense"),
+                            positions=torch.from_numpy(pos_np),
+                            impls={"attn": "kernel"})
+    (y * torch.from_numpy(cot_np)).sum().backward()
+    grads = [p.grad for p in tree.leaves(local)]
+    return {"y": _np(y), "dx": _np(x.grad),
+            "grads": _gathered(grads, local)}
+
+
+def vocab_ce(h_np, w_np, labels_np, g_np):
+    """The CE of h against lm_head w (laid out by the rule table) through
+    ``losses.chunked_softmax_xent`` (the kernel route: its plain version
+    on the CPU): losses, dh and the gathered dw."""
+    prog = C.active()
+    w_full = torch.from_numpy(w_np)
+    spec = sharding.param_specs({"lm_head": w_full}, prog.mesh)["lm_head"]
+    w = sharding.shard_leaf(w_full, spec).requires_grad_()
+    h = torch.from_numpy(h_np).requires_grad_()
+    loss = losses.chunked_softmax_xent(h, w, torch.from_numpy(labels_np),
+                                       impl="kernel")
+    loss.backward(torch.from_numpy(g_np))
+    return {"loss": _np(loss), "dh": _np(h.grad),
+            "dw": _np(sharding.gather_leaf(w.grad, spec)), "spec": spec}
+
+
+def quant_links(x_np, g_np, seed):
+    """This data rank's clients of the stacked link activations x [N, Bn,
+    S, D] through both links (``core.compression``, Philox under a
+    generator of `seed`, row0 = the rank's first row), gathered: the
+    uplink's value and the downlink's quantised cotangent g."""
+    n = x_np.shape[0] // C.size("data")
+    c0 = C.index("data") * n
+    rows = int(np.prod(x_np.shape[1:-1]))
+    x = torch.from_numpy(x_np[c0:c0 + n]).requires_grad_()
+    up = compression.compress_activations(
+        x, torch.Generator().manual_seed(seed), row0=c0 * rows)
+    down = compression.compress_gradients(
+        x, torch.Generator().manual_seed(seed + 1), row0=c0 * rows)
+    down.backward(torch.from_numpy(g_np[c0:c0 + n]))
+    return {"up": _np(C.all_gather(up.detach(), 0, "data")),
+            "down": _np(C.all_gather(x.grad, 0, "data"))}
+
+
+def layer_cases(meshes, trees, block_args, ce_args, quant_args):
+    """On each mesh: the round trip of `trees`, the pairs, and (on a data
+    axis of 1: the inputs are the same on every rank) the dense block at a
+    model axis of 2 and the CE at any model axis above 1, (on a data axis
+    above 1) quant8's links."""
+    def one():
+        prog = C.active()
+        out = {"trip": roundtrip(trees), "pairs": pairs()}
+        if prog.mesh.shape["data"] == 1 and prog.mesh.shape["model"] == 2:
+            out["block"] = block(*block_args)
+        if prog.mesh.shape["data"] == 1 and prog.mesh.shape["model"] > 1:
+            out["ce"] = vocab_ce(*ce_args)
+        if prog.mesh.shape["data"] > 1:
+            out["quant"] = quant_links(*quant_args)
+        return out
+    return _with_meshes(meshes, one)
+
+
+# ---------------------------------------------------------------------------
+# the MPSL step and serving
+
+
+def _port_run(cfg, n_clients, compress):
+    mp = MPSLConfig(n_clients=n_clients, trainable_blocks=1,
+                    head_adapter_rank=4, compress_uplink=compress,
+                    compress_downlink=compress)
+    return RunConfig(model=cfg, shape=None, mpsl=mp, compute_dtype="float32",
+                     attn_impl="kernel", ce_impl="kernel")
+
+
+def _batch(batch_np, prog):
+    b = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    return sharding.shard_tree(b, sharding.batch_specs(b, prog.mesh))
+
+
+def mpsl_step(cfg_kw, params_np, frozen_np, batch_np, draws_np, lr):
+    """Under the active program: the MPSL loss and every gradient (this
+    rank's part, summed over `data` by ``reduce_grads``, gathered), then
+    one ``make_train_step`` (the loss fed `draws_np`, the JAX uniforms of
+    both links) and the gathered state after it."""
+    cfg = port_config("minitron-4b", **cfg_kw)
+    prog = C.active()
+    run = _port_run(cfg, batch_np["mask"].shape[0], True)
+    state = mpsl.init_state(bridge.from_repro(params_np),
+                            bridge.from_repro(frozen_np), seed=9)
+    state = mpsl.place_state(state)
+    batch = _batch(batch_np, prog)
+    draws = {k: torch.from_numpy(v) for k, v in draws_np.items()}
+    loss_fn = mpsl.make_lm_loss(cfg, run)
+    C.reset_counts()
+    loss, met, grads = mpsl.value_and_grad(loss_fn, state["params"],
+                                           state["frozen"], batch, draws)
+    C.reduce_grads(tree.leaves(state["params"]), grads)
+    counts = C.read_counts()
+    out = {"loss": float(loss), "per_client": _np(met["per_client"]),
+           "participating": float(met["participating"]),
+           "grads": _gathered(grads, state["params"]), "counts": counts}
+    step = mpsl.make_train_step(
+        lambda p, f, bb, _rng: loss_fn(p, f, bb, draws), run,
+        schedules.constant(lr))
+    state, met = step(state, batch)
+    out.update(step_loss=float(met["loss"]),
+               grad_norm=float(met["grad_norm"]),
+               params=_gathered(state["params"]),
+               mu=_gathered(state["opt"]["mu"]),
+               nu=_gathered(state["opt"]["nu"]),
+               count=int(state["opt"]["count"]))
+    return out
+
+
+def adapter_grads(cfg_kw, params_np, frozen_np, batches_np):
+    """The adapter gradients (gathered, [N, ...]) of each batch, links
+    off, rng 0."""
+    cfg = port_config("minitron-4b", **cfg_kw)
+    prog = C.active()
+    run = _port_run(cfg, batches_np[0]["mask"].shape[0], False)
+    state = mpsl.place_state(mpsl.init_state(
+        bridge.from_repro(params_np), bridge.from_repro(frozen_np)))
+    loss_fn = mpsl.make_lm_loss(cfg, run)
+    out = []
+    for b in batches_np:
+        loss, _, grads = mpsl.value_and_grad(
+            loss_fn, state["params"], state["frozen"], _batch(b, prog), 0)
+        full = _gathered(grads, state["params"])
+        paths = tree.paths(state["params"])
+        out.append({"loss": float(loss),
+                    "adapter": {p: g for p, g in zip(paths, full)
+                                if "adapter" in p}})
+    return out
+
+
+def step_cases(meshes, step_args, prop_args, serve_args):
+    """On each mesh: the MPSL step, and (with a model axis above 1)
+    ``adapter_grads`` of each of `prop_args` and serving."""
+    def one():
+        out = {"step": mpsl_step(*step_args)}
+        if C.size("model") > 1:
+            out["props"] = [adapter_grads(*a) for a in prop_args]
+            out["serve"] = served(*serve_args)
+        return out
+    return _with_meshes(meshes, one)
+
+
+def served(cfg_kw, params_np, tokens_np, steps_):
+    """Prefill + greedy decode steps of ``launch.serve`` on this rank's
+    shards (the TP-only serving layout: weights on `model`, replicated
+    over `data`; the batch on `data`): every step's logits and tokens,
+    gathered."""
+    cfg = port_config("minitron-4b", **cfg_kw)
+    prog = C.active()
+    params = bridge.from_repro(params_np)
+    params = sharding.shard_tree(params, steps._drop_fsdp(
+        sharding.param_specs(params, prog.mesh)))
+    tokens = torch.from_numpy(tokens_np)
+    tokens = sharding.shard_leaf(tokens, sharding.resolve_spec(
+        prog.mesh, tokens.shape, ("batch", None)))
+    prefill, decode = serve.build_serving_fns(cfg, device="cpu",
+                                              decode_slots=steps_ + 4)
+    C.reset_counts()
+    out = serve.generate(prefill, decode, params, tokens, steps_)
+    counts = C.read_counts()
+    logits = C.all_gather(out["logits"], 2, "model")
+    return {"logits": _np(C.all_gather(logits, 0, "data")),
+            "tokens": _np(C.all_gather(out["tokens"], 0, "data")),
+            "counts": counts}
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism
+
+
+def moe_config(moe_kw):
+    from repro_torch.configs import MoEConfig
+    return port_config("qwen3-moe-235b-a22b", moe=MoEConfig(**moe_kw))
+
+
+def ep_layer(moe_kw, moe_np, x_np, capacity):
+    """``apply_moe(impl="ep")`` under the active program: this rank's
+    tokens (x [B, S, D], batch on `data`) and experts (on `model`): the
+    output gathered, and the routing's drop mask."""
+    cfg = moe_config(moe_kw)
+    prog = C.active()
+    params = bridge.from_repro(moe_np)
+    specs = sharding.param_specs({"moe": params}, prog.mesh)["moe"]
+    local = sharding.shard_tree(params, specs)
+    x = sharding.shard_leaf(torch.from_numpy(x_np), sharding.resolve_spec(
+        prog.mesh, x_np.shape, ("batch", None, None)))
+    with moe.routing_tape() as tape, torch.no_grad():
+        y, aux = moe.apply_moe(local, x, cfg, impl="ep", capacity=capacity)
+    drop = moe.ep_drop_mask(tape.idx[0], cfg.moe.num_experts, capacity)
+    return {"y": _np(C.all_gather(y, 0, "data")), "aux": float(aux),
+            "drop": _np(C.all_gather(drop, 0, "data")),
+            "specs": {k: C.spec_of(v) for k, v in local.items()}}
+
+
+def ep_cases(meshes, cases):
+    """{mesh name: [ep_layer(*args) for each of `cases`]}."""
+    return _with_meshes(meshes, lambda: [ep_layer(*a) for a in cases])
+
+
+# ---------------------------------------------------------------------------
+# the train CLI and its checkpoints
+
+
+def cli(argv):
+    """``launch.train.main(argv)`` on this rank: (exit code, the summary
+    line, or None on a rank that prints none)."""
+    import contextlib
+    import io
+    import json
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv)
+    lines = [x for x in buf.getvalue().splitlines() if x.startswith("{")]
+    return rc, (json.loads(lines[-1]) if lines else None)
+
+
+def restore(argv, directory, step):
+    """The train CLI's state (``train.build``) restored from `directory`'s
+    checkpoint `step` onto this rank's shards (in one process with no
+    program: the whole state), gathered whole."""
+    from repro_torch.checkpoint import restore_checkpoint
+    args = train.parser().parse_args(argv)
+    _, _, state, _, _ = train.build(args, torch.device("cpu"))
+    restored, _ = restore_checkpoint(directory, state, step)
+    return {p: _np(sharding.gather_leaf(x))
+            for p, x in zip(tree.paths(restored), tree.leaves(restored))
+            if torch.is_tensor(x)}

@@ -215,15 +215,23 @@ def test_ep_equals_ragged_where_nothing_drops():
 
 
 def test_ep_without_a_mesh_is_ragged_and_a_model_axis_of_two_raises():
-    _, tcfg, _, tparams, x, jw, jidx = _moe_setup(seed=2)
+    """With no mesh ep is ragged. A model axis of two no longer raises:
+    the mesh record's two devices each run the JAX ``local`` on their
+    experts and the partials add, which is the JAX shard_map ep on that
+    mesh (emulated here by the JAX one-device dispatch: the same capacity
+    from the global E, so the same drops; the SPMD program's ranks are
+    held to the JAX shard_map itself in tests/test_torch_mesh_ep.py)."""
+    jcfg, tcfg, params, tparams, x, jw, jidx = _moe_setup(seed=2)
     w, idx = _t(jw), _t(jidx).long()
     assert sharding.current_mesh() is None
     got = moe._apply_ep(tparams, _t(x), tcfg, w, idx, 0.5)
     want = moe._apply_ragged(tparams, _t(x), tcfg, w, idx)
     assert torch.equal(got, want)
     with sharding.use_mesh(mesh_lib.Mesh(("data", "model"), (1, 2))):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            moe._apply_ep(tparams, _t(x), tcfg, w, idx, 2.0)
+        got = moe._apply_ep(tparams, _t(x), tcfg, w, idx, 0.5)
+    np.testing.assert_allclose(got.numpy(),
+                               _jax_ep(params, x, jcfg, jw, jidx, 0.5),
+                               atol=EP_TOL, rtol=EP_TOL)
 
 
 def test_ep_splits_tokens_over_data_shards_as_jax():

@@ -288,8 +288,9 @@ def test_new_families_forward_shapes_and_finite(arch):
 def test_moe_archs_init_and_name_the_ep_slice(arch):
     """The MoE family is ported: a reduced model initialises with an MoE
     FFN in every block. The ep dispatch is ragged with no mesh, as in the
-    JAX package; experts placed across a model axis above 1 are left to
-    the multi-GPU work."""
+    JAX package; with experts placed across a model axis of 2 (the mesh as
+    a record: one process computes both devices' shares and adds them) it
+    is the one-device ep (the same capacity, so the same drops)."""
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.parallel import sharding as TSH
     cfg = t_reduced(t_get_config(arch))
@@ -301,6 +302,8 @@ def test_moe_archs_init_and_name_the_ep_slice(arch):
     y_ep, _ = TMOE.apply_moe(layer["moe"], x, cfg, impl="ep")
     y_ragged, _ = TMOE.apply_moe(layer["moe"], x, cfg, impl="ragged")
     assert torch.equal(y_ep, y_ragged)
+    with TSH.use_mesh(mesh_lib.Mesh(("data", "model"), (1, 1))):
+        y_one, _ = TMOE.apply_moe(layer["moe"], x, cfg, impl="ep")
     with TSH.use_mesh(mesh_lib.Mesh(("data", "model"), (1, 2))):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            TMOE.apply_moe(layer["moe"], x, cfg, impl="ep")
+        y_two, _ = TMOE.apply_moe(layer["moe"], x, cfg, impl="ep")
+    torch.testing.assert_close(y_two, y_one, atol=1e-6, rtol=1e-6)
