@@ -45,7 +45,7 @@
                  4096, d_inner 8192, d_state 16, vocab 65024), as serve:
                  the scan forward in every layer's prefill (decode is the
                  recurrence step, outside any kernel);
-   ssm_train     falcon-mamba-7b at 32 of its 64 layers (`reduced` says
+   ssm_train     falcon-mamba-7b at 16 of its 64 layers (`reduced` says
                  why), as train: the scan forward (block and remat
                  recompute) and backward in every block, 3 steps;
    hybrid_serve  full-width hymba-1.5b (32 hybrid blocks: parallel
@@ -157,11 +157,12 @@
    mesh_train    the SPMD program (``parallel.collectives``) as 4 rank
                  processes sharing the card over gloo
                  (``launch.spmd.spawn``), mesh (data 2, model 2): train's
-                 spec with client 1 masked out, each rank 2 clients, 12
+                 spec at 16 of 32 layers, 2 steps (the run's time) with
+                 client 1 masked out, each rank 2 clients, 12
                  of 24 heads on 4 of 8 KV heads, d_ff 4608 and 128000
                  vocab columns (the vocab-parallel CE kernel on its
                  shard, labels outside it included), every weight's D
-                 gathered at use; 3 steps against the one-rank train path
+                 gathered at use; its steps against the one-rank train path
                  run first on the card (each loss, the first step's
                  gradients from each rank's shards, the masked client's
                  adapter gradient exactly 0);
@@ -176,6 +177,28 @@
                  path's expert choices: every rank's dropped slots joined
                  bitwise the one-rank ``ep_drop_mask``, last logits and
                  cache K/V against it.
+   mesh_ssm      falcon-mamba-7b at full width (d_model 4096, d_inner
+                 8192: 4096 channels a rank), 8 of 64 layers, on (2, 2):
+                 mesh_train's spec (2 steps, the last 4 blocks trainable,
+                 client 1 masked, int8 links), then serve's (prompt 512, 16
+                 steps), in one world: the scan kernels at 4096 local
+                 channels, in_proj cut x's and z's channels alike, the
+                 vocab-parallel CE; each part against its one-rank path
+                 run first, at mesh_train's and mesh_serve's limits;
+   mesh_hybrid   hymba-1.5b at full width, 16 of 32 layers, as mesh_ssm
+                 (prompt 1536): 25 heads on 5 KV heads divide no model axis, so
+                 every attention weight's D lies on (data, model) (dboth)
+                 and each rank computes every head; 1600 local channels;
+                 the lm_head (V 32001) on `data` alone, its CE whole on
+                 each model rank; prefill writes each rank's half of the
+                 caches' slots (the rings wrap), decode merges the ranks'
+                 split-KV partials by lse;
+   mesh_long_500k  cell_long_500k's decode on (1, 4) at bf16: the global
+                 layers' 524288 slots 131072 a rank, the rings 256, the
+                 SSM states 800 channels, 8 steps teacher-forced with the
+                 one-rank kernel path's tokens (DECODE_CELL_TOL,
+                 ``_token_deficit``); the seeded cache's shards gathered
+                 back bitwise on every rank.
    Each mesh path requires every rank's launches and collectives (by op
    and axis) exactly as derived from the code (``mesh_*_collectives``),
    and the ranks' peaks to sum under 80 GB; the collectives' times on
@@ -363,11 +386,12 @@ PATHS = {
     # and the Trainer (telemetry on), held bitwise to it
     "trainer": TRAIN,
     "ssm_serve": dict(SERVE, arch="falcon-mamba-7b"),
-    "ssm_train": dict(TRAIN, arch="falcon-mamba-7b", layers=32,
-                      reduced="depth 64 -> 32 layers: the plain "
+    "ssm_train": dict(TRAIN, arch="falcon-mamba-7b", layers=16,
+                      reduced="depth 64 -> 16 layers: the plain "
                       "path's Python-stepped scan took 108 s of the run at "
-                      "64, and the mesh paths needed the time; every "
-                      "kernel shape is the full width's"),
+                      "64 and 55 s at 32 (PR 24's cut), and the mesh paths "
+                      "needed the time; every kernel shape is the full "
+                      "width's"),
     "hybrid_serve": dict(SERVE, arch="hymba-1.5b", prompt_len=1536),
     "hybrid_train": dict(TRAIN, arch="hymba-1.5b", steps=2),
     "serve_bf16": dict(SERVE, compute_dtype="bfloat16"),
@@ -444,14 +468,36 @@ PATHS = {
     # the SPMD program (parallel.collectives): 4 ranks sharing the card
     # over gloo, each holding its shards of the rule table's layout,
     # against the one-rank path; the new paths at full width
-    "mesh_train": dict(TRAIN, mesh=(2, 2), masked_client=1),
+    "mesh_train": dict(TRAIN, mesh=(2, 2), masked_client=1, layers=16,
+                       steps=2,
+                       reduced="depth 32 -> 16 layers, 3 -> 2 steps since "
+                       "PR 25: the run's 1200 s, beside three more mesh "
+                       "paths; every shape a rank gives the kernels is the "
+                       "full width's"),
     "mesh_serve": dict(SERVE, mesh=(2, 2)),
     "mesh_ep": dict(
         arch="qwen3-moe-235b-a22b", layers=2, mesh=(1, 4),
         shape=("prefill_4k", 4096, 1, "prefill"), seed=0,
         reduced="depth 94 -> 2 layers (235 B params exceed one card); "
         "batch 1 x 4096 tokens"),
+    # the Mamba and hybrid families on (2, 2): train's spec with client 1
+    # masked out (2 steps), then serve's (prompt 512, hymba 1536: its
+    # sequence-sharded rings wrap), in one world; and long_500k's decode
+    # on (1, 4)
+    "mesh_ssm": dict(TRAIN, arch="falcon-mamba-7b", layers=8, mesh=(2, 2),
+                     masked_client=1, steps=2, batch=4, prompt_len=512,
+                     decode_steps=16,
+                     reduced="depth 64 -> 8 layers: the run's time (each "
+                     "layer's collectives cross gloo's host buffers); every "
+                     "shape a rank gives the kernels is the full width's"),
+    "mesh_hybrid": dict(TRAIN, arch="hymba-1.5b", layers=16, mesh=(2, 2),
+                        masked_client=1, steps=2, batch=4, prompt_len=1536,
+                        decode_steps=16,
+                        reduced="depth 32 -> 16 layers (global layers 0 and "
+                        "15 kept): the run's 1200 s; every shape a rank "
+                        "gives the kernels is the full width's"),
 }
+PATHS["mesh_long_500k"] = dict(PATHS["cell_long_500k"], mesh=(1, 4))
 # every path's plain version: naive attention, the plain scan, chunked CE,
 # the dense expert dispatch
 PLAIN_IMPLS = {"attn": "naive", "ssm": "plain", "ce": "plain", "moe": "dense"}
@@ -507,26 +553,69 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# profiles taken of a call before it is timed by CUDA events instead (one
+# once FALLBACKS_TO_TRUST calls have fallen back), the key of that time,
+# and the spin kernels that open and close each profile's window
+PROFILE_TRIES = 3
+FALLBACKS_TO_TRUST = 3
+EVENTS_KEY = "whole call, CUDA events"
+SENTINELS = 4
+_fallbacks = 0
+
+
 def device_ms_by_kernel(fn, iters=20, warmup=3) -> dict:
     """{kernel name: device ms a call} of one fn() call: the durations of
     the CUDA kernels its calls launched (torch.profiler), by name, divided
     by `iters`. Host dispatch is left out, so a call shorter than its
-    Python wrapper is timed as the card runs it."""
+    Python wrapper is timed as the card runs it.
+
+    torch.profiler has been seen on that machine to drop the launches at
+    the start of a profile's window (the first call's: a kernel caught 19
+    times of 20, 2 of 3), in most profiles once it starts to, and every
+    launch three profiles running. So SENTINELS spin kernels open the
+    window, then a synchronize, and SENTINELS close it; a profile counts
+    only where it caught at least SENTINELS spins and a multiple of
+    `iters` launches of each kernel of the calls (memsets and copies
+    aside), so a drop that reached the calls shows; else it is taken
+    again, up to PROFILE_TRIES times (once, after FALLBACKS_TO_TRUST calls
+    fell back: a run that reaches that state stays in it). Where none
+    counted, the call is timed by CUDA events (``time_ms``, which counts
+    the host's dispatch where the card waits for it, so never less than
+    the device time), as the one entry ``EVENTS_KEY``, with a
+    ``timing_fallback`` line naming the spins the last profile caught and
+    the kernels whose counts were off."""
     from torch.profiler import ProfilerActivity, profile
 
+    global _fallbacks
     for _ in range(warmup):
         fn()
-    for _ in range(3):   # a profile that caught no kernel is taken again
+    tries = 1 if _fallbacks >= FALLBACKS_TO_TRUST else PROFILE_TRIES
+    spins, off = 0, {}
+    for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(SENTINELS):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
             for _ in range(iters):
                 fn()
+            for _ in range(SENTINELS):
+                torch.cuda._sleep(100)
             torch.cuda.synchronize()
-        times = _device_time_by_kernel(prof)
-        if sum(times.values()) > 0:
+        counts = {}
+        times = _device_time_by_kernel(prof, counts)
+        spins = sum(c for k, c in counts.items() if "spin_kernel" in k)
+        times = {k: v for k, v in times.items() if "spin_kernel" not in k}
+        off = {k[:60]: c for k, c in counts.items()
+               if c % iters and "spin_kernel" not in k
+               and not k.startswith(("Memset", "Memcpy"))}
+        if spins >= SENTINELS and not off and sum(times.values()) > 0:
             return {k: v / iters for k, v in times.items()}
-    raise AssertionError("torch.profiler recorded no device time for a call "
-                         "that launches kernels")
+    _fallbacks += 1
+    ms = time_ms(fn, iters=iters, warmup=0)
+    emit({"phase": "timing_fallback", "tries": tries, "iters": iters,
+          "spins": spins, "off": off, "ms": ms})
+    return {EVENTS_KEY: ms}
 
 
 def device_ms(fn, iters=20, warmup=3) -> float:
@@ -770,6 +859,37 @@ def _attn_cases():
         cases.append((name, dict(b=bb, sq=ss, sk=ss, h=hh, kh=kk, hd=hd), dict(
             q_pos=cp, k_pos=cp, k_valid=torch.ones(bb, ss, dtype=torch.bool),
             causal=True, window=0), True))
+    # the hybrid mesh paths: mesh_hybrid's rank (dboth: all 25 heads on 5
+    # KV heads; 2 clients x 2 sequences in training, its 2 requests in the
+    # prefill and in decode over its half of a local ring, f32) and
+    # mesh_long_500k's (bf16): one rank's 131072-slot shard of a global
+    # cache (the last rank's: its last 8 slots empty), and a shard holding
+    # only empty slots (o = 0 and lse = 0, which the merge marks -inf)
+    for name, bb, ss in (("mesh_hybrid_train", 4, 512),
+                         ("mesh_hybrid_prefill", 2, 1536)):
+        cp = torch.arange(ss, dtype=torch.int32)[None].expand(bb, ss)
+        cases.append((name, dict(b=bb, sq=ss, sk=ss, h=25, kh=5, hd=64),
+                      dict(q_pos=cp, k_pos=cp,
+                           k_valid=torch.ones(bb, ss, dtype=torch.bool),
+                           causal=True, window=1024), True))
+    half = torch.arange(512, 1024, dtype=torch.int32)
+    half = torch.where(half + 1024 <= 1551, half + 1024, half)
+    cases.append(("mesh_hybrid_decode", dict(b=2, sq=1, sk=512, h=25, kh=5,
+                                             hd=64), dict(
+        q_pos=torch.full((2, 1), 1551, dtype=torch.int32),
+        k_pos=half[None].expand(2, 512),
+        k_valid=torch.ones(2, 512, dtype=torch.bool), causal=True,
+        window=1024), True))
+    shard = torch.arange(393216, 524288, dtype=torch.int32)[None].clone()
+    shard[:, 524280 - 393216:] = -1
+    empty = torch.full((1, 131072), -1, dtype=torch.int32)
+    for name, kp, main in (("mesh_long_decode", shard, True),
+                           ("mesh_long_empty_decode", empty, False)):
+        cases.append((name, dict(b=1, sq=1, sk=131072, h=25, kh=5, hd=64),
+                      dict(q_pos=torch.full((1, 1), 524280,
+                                            dtype=torch.int32),
+                           k_pos=kp, k_valid=kp >= 0, causal=True,
+                           window=0), main))
     for name, bb, sk, filled, hh, kk, d, main in (
             ("cell_decode", 4, 32768, 32760, 24, 8, hd, True),
             ("cell_long_decode", 1, 524288, 524280, 25, 5, 64, True),
@@ -792,7 +912,8 @@ VIT_ATTN = {"vit_early": (64, 274), "vit_vision": (64, 197),
 
 # the production cells' cases and mesh_ep's: bf16 only, as they compute
 CELL_ATTN = ("cell_prefill", "cell_train", "cell_moe_prefill", "cell_decode",
-             "cell_long_decode", "qwen3_decode", "mesh_ep_prefill")
+             "cell_long_decode", "qwen3_decode", "mesh_ep_prefill",
+             "mesh_long_decode", "mesh_long_empty_decode")
 
 
 # the cases where every query sees every key (no mask for SDPA)
@@ -800,7 +921,8 @@ ENCDEC_ATTN = ("encdec_enc", "encdec_cross", "encdec_cross_decode")
 FULL_ATTN = (*VIT_ATTN, *ENCDEC_ATTN)
 # the cases no bf16 path runs
 F32_ONLY = (*(n for n in FULL_ATTN if n != "vit_early"), "vlm_train",
-            "mesh_train")
+            "mesh_train", "mesh_hybrid_train", "mesh_hybrid_prefill",
+            "mesh_hybrid_decode")
 
 
 def _attn_dtypes(name):
@@ -1001,10 +1123,16 @@ def kernels_flash_fwd():
                                         warmup=1)
             lib = _library_call(q, k, v, qp, kp, kv, m, name)
             rows = fa.pair_mask(qp, kp, kv, m["causal"], m["window"]).any(-1)
-            rec["library_max_abs_err_o"] = _hold_yardstick(
-                "flash_attention_fwd", name, dtype, lib(), o_ref, rows, tol)
-            rec["library_ms"] = device_ms(lib, iters=it)
-            rec["library_wall_ms"] = time_ms(lib, iters=it)
+            if rows.any():
+                rec["library_max_abs_err_o"] = _hold_yardstick(
+                    "flash_attention_fwd", name, dtype, lib(), o_ref, rows,
+                    tol)
+                rec["library_ms"] = device_ms(lib, iters=it)
+                rec["library_wall_ms"] = time_ms(lib, iters=it)
+            else:
+                # no row has a key: SDPA's softmax is NaN there, not this
+                # function (o = 0, lse = 0)
+                rec["library_ms"] = None
             (rec["bound_ms"], rec["bound_by"], rec["bound_products"],
              rec["bound_f32_cuda_core_ms"]) = _bound(
                 q, k, qp, kp, kv, m["causal"], m["window"], dtype)
@@ -1527,7 +1655,9 @@ def kernels_quant8():
         iters = 20
         for r, rng in rngs.items():
             times = _ring_ms(q8.quant_dequant, xs, us, rng, iters)
-            own = {k: v for k, v in times.items() if "quant8" in k}
+            # where no profile caught a kernel, the whole call's time
+            own = {k: v for k, v in times.items()
+                   if "quant8" in k or k == EVENTS_KEY}
             rec[f"ms_{r}"] = sum(own.values())
             rec[f"kernels_{r}"] = sorted(own)
             if r == "philox":
@@ -1573,6 +1703,17 @@ def _scan_cases():
             ("prefill", 4, 512, 8192, 16, ck, 256, f32, True, True),
             ("hymba_train", 8, 512, 3200, 16, ck, 256, f32, False, True),
             ("hymba_prefill", 4, 1536, 3200, 16, ck, 256, f32, True, True),
+            # the mesh paths' local channels: falcon-mamba's 4096 and
+            # hymba's 1600 a rank on (2, 2) (its 2 clients x 2 sequences
+            # in training, its 2 requests in hymba's prefill), and hymba's
+            # 800 on (1, 4), whose last 64-channel block of the backward's
+            # db/dc partials is ragged (12.5 blocks)
+            ("mesh_ssm_train", 4, 512, 4096, 16, ck, 256, f32, False, True),
+            ("mesh_hybrid_train", 4, 512, 1600, 16, ck, 256, f32, False,
+             True),
+            ("mesh_hybrid_prefill", 2, 1536, 1600, 16, ck, 256, f32, True,
+             True),
+            ("local_800", 8, 512, 800, 16, ck, 256, f32, False, False),
             ("ragged", 2, 300, 1000, 16, 256, 256, f32, True, False),
             ("ds4", 2, 200, 512, 4, 64, 64, f32, True, False),
             ("train", 8, 512, 8192, 16, ck, 256, bf16, False, False)]
@@ -1912,13 +2053,16 @@ def _hold_flips(path, routing, calls):
                              f"{calls} expected")
 
 
-def _device_time_by_kernel(prof):
-    """{kernel name: device ms} of the CUDA kernels a profile recorded."""
+def _device_time_by_kernel(prof, counts=None):
+    """{kernel name: device ms} of the CUDA kernels a profile recorded;
+    each name's launch count into `counts` where given."""
     out = {}
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             out[evt.key] = out.get(evt.key, 0.0) + \
                 evt.self_device_time_total / 1e3
+            if counts is not None:
+                counts[evt.key] = counts.get(evt.key, 0) + evt.count
     return out
 
 
@@ -1929,7 +2073,7 @@ def phase_profile(path, prefill, decode, params, tokens, stub, serve_rec,
     device's busy share of the unprofiled host times of the serve phase."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CUDA]
     b, s = tokens.shape
     n_patches = (stub["patch_embeds"].shape[1] if "patch_embeds" in stub
                  else None)
@@ -2183,8 +2327,7 @@ def phase_train_profile(path, step_fn, state, batch, train_rec, top=10,
     is (a FedAvg path: a round)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, met = step_fn(state, batch)
         float(met["loss"])
         torch.cuda.synchronize()
@@ -2337,8 +2480,7 @@ def phase_trainer(path, spec, train_rec):
         loader.inner, depth=2,
         place_fn=functools.partial(sharding.place_batch, device=device))
     trainer.loader = loader
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.run(steps + 2)
         torch.cuda.synchronize()
     loader.close()
@@ -3333,7 +3475,7 @@ def phase_cell_profile(path, fn, args, host_ms, rec, top=8, part="prefill"):
 
     mesh = mesh_lib.make_host_mesh()
     with sharding.use_mesh(mesh), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            activities=[ProfilerActivity.CUDA]) as prof:
         fn(*args)
         torch.cuda.synchronize()
     times = _device_time_by_kernel(prof)
@@ -3461,58 +3603,111 @@ def _mesh_counts(ranks, per="call"):
     return out
 
 
+def _lm_ends(cfg, d, m) -> dict:
+    """The collectives of an MPSL step's ends on a (data d, model m) mesh:
+    the lookup (the ids all-gathered and the rows reduce-scattered over
+    `data` where the table's rows lie there, its columns all-gathered over
+    `model`), the lm_head [D, V] (its D gathered over `data` and its
+    gradient reduce-scattered; where V lies on `model` the vocab-parallel
+    CE: the ranks' lse all-gathered, the gold logit and dh all-reduced),
+    the metrics (every client's loss all-gathered; the mask's sum, L_S and
+    the participating count all-reduced over `data`) and the global
+    norm's squared sums (over the world)."""
+    rows = cfg.vocab_size % d == 0
+    vp = cfg.vocab_size % m == 0
+    return {"all_gather/data": rows + 2,
+            "reduce_scatter/data": rows + 1,
+            "all_reduce/data": 3,
+            "all_gather/model": 1 + vp,
+            "all_reduce/model": 2 * vp,
+            "all_reduce/world": 1}
+
+
 def mesh_train_collectives(cfg, spec) -> dict:
     """The collectives of one MPSL train step on a (data d, model m) mesh
-    (d, m > 1), from the code of a dense LM with layernorm or rmsnorm
-    blocks, every weight's D on `data` and heads, d_ff, vocab on `model`,
-    block remat, L blocks of which T trainable:
+    (d, m > 1), from the code, with block remat, L blocks of which T
+    trainable: ``_lm_ends`` and, by block family,
 
-      all_gather/data      the fsdp weights of every block (attention 4,
-                           MLP 2 or 3: n_w) at use and again in the
-                           block's remat recompute (2 n_w L), the lm_head
-                           (1), the token ids of the lookup (1) and every
-                           client's loss for the metrics (1)
-      reduce_scatter/data  the gradients of the trainable blocks' fsdp
-                           weights (n_w T), the lm_head's (1), and the
-                           lookup's rows back to their data rank (1)
-      all_reduce/data      the mask's sum, L_S and the participating count
-                           (3), and the gradient of every trainable leaf
-                           with no dim on `data`: the norms (n_norm T + the
-                           final norm's)
-      all_gather/model     the lookup's columns (1), the ranks' lse (1)
-      all_reduce/model     the attention and MLP outputs of every block
-                           (2 L), the attention output again in each
-                           recompute (L: torch's checkpoint stops its
-                           recompute at the last saved tensor, before the
-                           MLP's reduction), the region inputs' gradients
-                           in the backward (2 L), the CE's gold logit and
-                           its dh (2)
-      all_reduce/world     the global norm's squared sums (1)
+      dense (layernorm or rmsnorm; heads, d_ff on `model`, every weight's
+      D on `data`): n_w = 4 attention + 2 or 3 MLP weights gathered over
+      `data` at use and again in the remat recompute (2 n_w L), the
+      trainable ones' gradients reduce-scattered (n_w T); the trainable
+      norms' gradients all-reduced over `data` (n_norm T + the final
+      norm's); over `model` the attention and MLP outputs (2 L), the
+      attention output again in each recompute (L: torch's checkpoint
+      stops its recompute at the last saved tensor, before the MLP's
+      reduction), the region inputs' gradients (2 L);
+      ssm (d_inner on `model`): in_proj and out_proj gathered (n_w 2);
+      the gradients of the 7 channel leaves and the norm over `data`
+      (8 T + 1); over `model` x_proj's and out_proj's partial sums (2 L),
+      x_proj's again in the recompute (L), the gradients of x and of
+      (dt_in, B, C) entering the channel-parallel region (2 L): 5 L;
+      hybrid (the dboth attention, d_inner and d_ff on `model`): wq, wk,
+      wv, wo, in_proj, out_proj and the MLP's 3 gathered (n_w 9); the
+      gradients of the 4 norms, 2 betas and 7 channel leaves over `data`
+      (13 T + 1); over `model` the q|k|v partial sums, x_proj's and
+      out_proj's (each twice: forward and recompute) and the MLP's output
+      (7 L), the gradients of x (one copy_to for both branches), of the
+      attention output entering wo's columns, of (dt_in, B, C) and of the
+      MLP's input (4 L): 11 L; wo's output parts all-gathered over
+      `model` (2 L: forward and recompute).
     """
     L = cfg.num_layers
     T = split.resolve_trainable_blocks(cfg, MPSLConfig(
         trainable_blocks=spec["trainable_blocks"]))
-    n_w = 4 + (3 if layers.gated_activation(cfg.activation) else 2)
-    n_norm = 2 * (2 if cfg.norm == "layernorm" else 1)
-    final = 2 if cfg.norm == "layernorm" else 1
-    return {"all_gather/data": 2 * n_w * L + 3,
-            "reduce_scatter/data": n_w * T + 2,
-            "all_reduce/data": 3 + n_norm * T + final,
-            "all_gather/model": 2,
-            "all_reduce/model": 5 * L + 2,
-            "all_reduce/world": 1}
+    d, m = spec["mesh"]
+    out = _lm_ends(cfg, d, m)
+    fam = cfg.family
+    if fam == "ssm":
+        n_w, leaves, final, ar_m, ag_m = 2, 8, 1, 5 * L, 0
+    elif fam == "hybrid":
+        n_w, leaves, final, ar_m, ag_m = 9, 13, 1, 11 * L, 2 * L
+    else:
+        n_w = 4 + (3 if layers.gated_activation(cfg.activation) else 2)
+        leaves = 2 * (2 if cfg.norm == "layernorm" else 1)
+        final = 2 if cfg.norm == "layernorm" else 1
+        ar_m, ag_m = 5 * L, 0
+    out["all_gather/data"] += 2 * n_w * L
+    out["reduce_scatter/data"] += n_w * T
+    out["all_reduce/data"] += leaves * T + final
+    out["all_reduce/model"] += ar_m
+    out["all_gather/model"] += ag_m
+    return out
 
 
-def mesh_serve_collectives(cfg, steps_) -> dict:
+def mesh_serve_collectives(cfg, steps_, mesh=(2, 2)) -> dict:
     """The collectives of one serve call (prefill and `steps_` greedy
     steps) on the TP-only layout (weights on `model`, replicated over
     `data`, which only splits the batch): each forward all-gathers the
-    lookup's columns (1) and the greedy token's max and index over the
-    vocab shards (2), and all-reduces the attention and MLP outputs of
-    every block (2 L). Nothing moves over `data`."""
+    lookup's columns (1) and, where the vocab lies on `model`, the greedy
+    token's max and index over the vocab shards (2), and all-reduces
+    each dense block's attention and MLP outputs (2 L), each Mamba block's
+    x_proj and out_proj partial sums (2 L), each hybrid block's q|k|v,
+    x_proj, out_proj and MLP partial sums (4 L) and all-gathers its wo
+    output parts (L); a decode step over sequence-sharded caches (the KV
+    heads divide no model axis) all-gathers each attention layer's o and
+    lse (L a step). Nothing moves over `data`."""
     fwd = 1 + steps_
-    return {"all_gather/model": 3 * fwd,
-            "all_reduce/model": 2 * cfg.num_layers * fwd}
+    m = mesh[1]
+    L = cfg.num_layers
+    per = {"dense": 2, "moe": 2, "ssm": 2, "hybrid": 4}[cfg.family]
+    ag = 1 + 2 * (cfg.vocab_size % m == 0)
+    merged = 0
+    if cfg.family == "hybrid":
+        ag += L
+        merged = L * steps_ if cfg.num_kv_heads % m else 0
+    return {"all_gather/model": ag * fwd + merged,
+            "all_reduce/model": per * L * fwd}
+
+
+def mesh_decode_collectives(cfg) -> dict:
+    """The collectives of one ``steps.build_decode`` step of a hybrid LM
+    on a (1, m) mesh whose KV heads do not divide m (the dboth attention,
+    sequence-sharded caches): the lookup's columns (1), each layer's wo
+    output parts and its merged o and lse (2 L) all-gathered; each layer's
+    q|k|v, x_proj, out_proj and MLP partial sums (4 L) all-reduced."""
+    L = cfg.num_layers
+    return {"all_gather/model": 1 + 2 * L, "all_reduce/model": 4 * L}
 
 
 def mesh_ep_collectives(cfg) -> dict:
@@ -3555,14 +3750,10 @@ def _train_setup(cfg, spec, device):
     return run, batch, step_fn, first
 
 
-def phase_mesh_train(path, spec):
-    """The MPSL train step as the SPMD program on a (2, 2) mesh against
-    the one-rank path on the same params, batches (client 1 masked out)
-    and int seeds: each step's loss (1e-4 relative), every trainable
-    gradient of the first step (1e-3 relative L2, from each rank's
-    shard), the masked client's adapter gradient exactly 0."""
-    cfg, depth = _config(spec)
-    device = serve.resolve_device("cuda")
+def _mesh_train_ref(cfg, spec, device, tmp):
+    """The one-rank train path on the card (``_train_setup``'s step on the
+    same params and batches): (the file in `tmp` holding its first step's
+    gradients by leaf path, its ``_run_steps`` record)."""
     run, batch, step_fn, first = _train_setup(cfg, spec, device)
     gen = torch.Generator(device=device).manual_seed(spec["seed"])
     params, frozen, _ = split.init_mpsl_lm(gen, cfg, run, device)
@@ -3571,21 +3762,23 @@ def phase_mesh_train(path, spec):
                for i in range(spec["steps"])]
     _, one = _run_steps(step_fn, state, batches,
                         train_launches_per_step(cfg))
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    try:
-        ref_file = os.path.join(tmp, "grads.pt")
-        torch.save(dict(zip(tree.paths(state["params"]),
-                            (g.cpu() for g in first))), ref_file)
-        del state, params, frozen, batches, first
-        ranks, world_s = _spawn(path, _mesh_train_rank, _mesh(spec), spec,
-                                ref_file, one["losses"])
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    ref_file = os.path.join(tmp, "grads.pt")
+    torch.save(dict(zip(tree.paths(state["params"]),
+                        (g.cpu() for g in first))), ref_file)
+    return ref_file, one
+
+
+def _hold_mesh_train(path, spec, cfg, depth, ranks, one, world_s):
+    """The train record of a mesh path (emitted): every rank's launches
+    and collectives exactly the code's, each step's loss within
+    TRAIN_LOSS_TOL of the one-rank path's, every first-step gradient
+    within TRAIN_GRAD_TOL in relative L2, the masked client's adapter
+    gradient exactly 0."""
     expected = {"launches": train_launches_per_step(cfg),
                 "collectives": mesh_train_collectives(cfg, spec)}
-    rec = {"phase": path, **depth, "arch": cfg.name, "mesh": spec["mesh"],
-           "program": ranks[0]["program"], "d_model": cfg.d_model,
-           "compute_dtype": spec["compute_dtype"],
+    rec = {"phase": path, "part": "train", **depth, "arch": cfg.name,
+           "mesh": spec["mesh"], "program": ranks[0]["program"],
+           "d_model": cfg.d_model, "compute_dtype": spec["compute_dtype"],
            "n_clients": spec["n_clients"],
            "batch_per_client": spec["batch_per_client"], "seq": spec["seq"],
            "trainable_blocks": spec["trainable_blocks"],
@@ -3612,6 +3805,24 @@ def phase_mesh_train(path, spec):
                 f"{r['grad_rel_l2'][worst]}, masked client's adapter "
                 f"gradient zero: {r['masked_adapter_grad_zero']}")
     return _mesh_counts(ranks, "step")
+
+
+def phase_mesh_train(path, spec):
+    """The MPSL train step as the SPMD program on a (2, 2) mesh against
+    the one-rank path on the same params, batches (client 1 masked out)
+    and int seeds: each step's loss (1e-4 relative), every trainable
+    gradient of the first step (1e-3 relative L2, from each rank's
+    shard), the masked client's adapter gradient exactly 0."""
+    cfg, depth = _config(spec)
+    device = serve.resolve_device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        ref_file, one = _mesh_train_ref(cfg, spec, device, tmp)
+        ranks, world_s = _spawn(path, _mesh_train_rank, _mesh(spec), spec,
+                                ref_file, one["losses"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return _hold_mesh_train(path, spec, cfg, depth, ranks, one, world_s)
 
 
 def _mesh_train_rank(spec, ref_file, ref_losses):
@@ -3689,41 +3900,38 @@ def _mesh(spec):
     return mesh_lib.Mesh(("data", "model"), tuple(spec["mesh"]))
 
 
-def phase_mesh_serve(path, spec):
-    """Serving as the SPMD program on a (2, 2) mesh (the TP-only layout:
-    weights on `model`, the batch on `data`) against the one-rank serve
-    path on the same params and prompt, each step teacher-forced with the
-    one-rank path's tokens: every step's logits within SERVE_TOL (atol
-    and rtol), every greedy token the one-rank token or a near tie."""
-    cfg, depth = _config(spec)
-    device = serve.resolve_device("cuda")
+def _mesh_serve_ref(cfg, spec, device, tmp):
+    """The one-rank serve path on the card (a warm-up call, then the
+    call): (the file in `tmp` holding its logits and tokens, the
+    record's one-rank times)."""
     steps_ = spec["decode_steps"]
     params, tokens = _serve_inputs(cfg, spec, device)
     prefill, decode = serve.build_serving_fns(cfg, torch.float32, device)
     serve.generate(prefill, decode, params, tokens, 1)          # warm-up
     one = serve.generate(prefill, decode, params, tokens, steps_)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    try:
-        ref_file = os.path.join(tmp, "ref.pt")
-        torch.save({"logits": one["logits"].cpu(),
-                    "tokens": one["tokens"].cpu()}, ref_file)
-        rec_one = {"one_rank_prefill_ms": one["prefill_s"] * 1e3,
-                   "one_rank_decode_ms_per_token":
-                   one["decode_s"] / steps_ * 1e3}
-        del params, tokens, one
-        ranks, world_s = _spawn(path, _mesh_serve_rank, _mesh(spec), spec,
-                                ref_file)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    want = serve_launches(cfg, steps_)
-    expected = {"launches": want,
-                "collectives": mesh_serve_collectives(cfg, steps_)}
-    rec = {"phase": path, **depth, "arch": cfg.name, "mesh": spec["mesh"],
-           "program": ranks[0]["program"], "batch": spec["batch"],
-           "prompt_len": spec["prompt_len"], "decode_steps": steps_,
-           "dtype": spec["compute_dtype"], **rec_one, "world_s": world_s,
-           "expected_per_call": expected, "tol": SERVE_TOL,
-           "ranks": ranks}
+    ref_file = os.path.join(tmp, "ref.pt")
+    torch.save({"logits": one["logits"].cpu(),
+                "tokens": one["tokens"].cpu()}, ref_file)
+    return ref_file, {"one_rank_prefill_ms": one["prefill_s"] * 1e3,
+                      "one_rank_decode_ms_per_token":
+                      one["decode_s"] / steps_ * 1e3}
+
+
+def _hold_mesh_serve(path, spec, cfg, depth, ranks, rec_one, world_s):
+    """The serve record of a mesh path (emitted): every rank's launches
+    and collectives exactly the code's, every step's logits within
+    SERVE_TOL (atol and rtol) of the one-rank path's, every greedy token
+    the one-rank token or a near tie."""
+    steps_ = spec["decode_steps"]
+    expected = {"launches": serve_launches(cfg, steps_),
+                "collectives": mesh_serve_collectives(cfg, steps_,
+                                                      spec["mesh"])}
+    rec = {"phase": path, "part": "serve", **depth, "arch": cfg.name,
+           "mesh": spec["mesh"], "program": ranks[0]["program"],
+           "batch": spec["batch"], "prompt_len": spec["prompt_len"],
+           "decode_steps": steps_, "dtype": spec["compute_dtype"],
+           **rec_one, "world_s": world_s, "expected_per_call": expected,
+           "tol": SERVE_TOL, "ranks": ranks}
     rec["ranks_peak_mem_bytes_sum"] = _hold_mesh(path, ranks, expected)
     emit(rec)
     for r in ranks:
@@ -3733,6 +3941,57 @@ def phase_mesh_serve(path, spec):
                 f"off the one-rank path's, or a greedy token off by more "
                 f"than a near tie ({r['token_deficit_max']})")
     return _mesh_counts(ranks)
+
+
+def phase_mesh_serve(path, spec):
+    """Serving as the SPMD program on a (2, 2) mesh (the TP-only layout:
+    weights on `model`, the batch on `data`) against the one-rank serve
+    path on the same params and prompt, each step teacher-forced with the
+    one-rank path's tokens: every step's logits within SERVE_TOL (atol
+    and rtol), every greedy token the one-rank token or a near tie."""
+    cfg, depth = _config(spec)
+    device = serve.resolve_device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        ref_file, rec_one = _mesh_serve_ref(cfg, spec, device, tmp)
+        ranks, world_s = _spawn(path, _mesh_serve_rank, _mesh(spec), spec,
+                                ref_file)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return _hold_mesh_serve(path, spec, cfg, depth, ranks, rec_one, world_s)
+
+
+def phase_mesh_family(path, spec):
+    """A Mamba or hybrid LM as the SPMD program on a (2, 2) mesh, train
+    then serve in one world (4 ranks sharing the card over gloo), each
+    part against its one-rank path run first: ``phase_mesh_train``'s and
+    ``phase_mesh_serve``'s checks, limits and exact counts. Returns the
+    launches of both parts."""
+    cfg, depth = _config(spec)
+    device = serve.resolve_device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        train_ref, one = _mesh_train_ref(cfg, spec, device, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_ref, rec_one = _mesh_serve_ref(cfg, spec, device, tmp)
+        ranks, world_s = _spawn(path, _mesh_family_rank, _mesh(spec), spec,
+                                train_ref, one["losses"], serve_ref)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = _hold_mesh_train(path, spec, cfg, depth,
+                              [r["train"] for r in ranks], one, world_s)
+    served = _hold_mesh_serve(path, spec, cfg, depth,
+                              [r["serve"] for r in ranks], rec_one, world_s)
+    return {k: counts[k] + served[k] for k in counts}
+
+
+def _mesh_family_rank(spec, train_ref, losses, serve_ref):
+    out = {"train": _mesh_train_rank(spec, train_ref, losses)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve"] = _mesh_serve_rank(spec, serve_ref)
+    return out
 
 
 def _serve_inputs(cfg, spec, device):
@@ -3777,7 +4036,10 @@ def _mesh_serve_rank(spec, ref_file):
     launches, colls = read_counts(), _collectives_step()
     nbytes = _collective_bytes()
     peak = torch.cuda.max_memory_allocated()
-    logits = collectives.all_gather(out["logits"], 2, "model").cpu()
+    logits = out["logits"]
+    if logits.shape[-1] != cfg.vocab_size:           # the vocab shards
+        logits = collectives.all_gather(logits, 2, "model")
+    logits = logits.cpu()
     want = ref["logits"][r0:r0 + b]
     close = torch.allclose(logits, want, atol=SERVE_TOL, rtol=SERVE_TOL)
     diff = (logits - want).abs().max().item()
@@ -3861,6 +4123,155 @@ def phase_mesh_ep(path, spec):
                 f"logits {r['last_logits_rel_err']}, cache "
                 f"{r['cache_rel_l2_max']}")
     return _mesh_counts(ranks)
+
+
+def _long_inputs(cfg, spec, device, dtype):
+    """long_500k's decode inputs from the seed, as ``phase_cell_decode``
+    draws them: the params in `dtype`, the whole body cache (every slot,
+    whatever program is active) seeded as filled, the first token."""
+    params, gen = _serving_params(cfg, device, spec["seed"], dtype)
+    b, cache_len = spec["shape"][2], spec["shape"][1]
+    with collectives.program(None):
+        cache = M.init_body_cache(cfg, b, cache_len, dtype, device)
+    _seed_cache(cache, spec["filled"], gen)
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                        device=device)
+    return params, cache, tok
+
+
+def _long_positions(spec, i, device):
+    return torch.full((spec["shape"][2], 1), spec["filled"] + i,
+                      dtype=torch.int32, device=device)
+
+
+def phase_mesh_long(path, spec):
+    """long_500k's decode (hymba-1.5b, bf16, batch 1: ``phase_cell_decode``'s
+    params, seeded caches and first token) through ``steps.build_decode``
+    as the SPMD program on (1, 4): the three global layers' 524288 slots
+    131072 a rank, the 1024-slot rings 256, the SSM states 800 channels,
+    every attention weight's D a quarter (dboth); each rank's split-KV
+    partials merged by lse over `model`. Against the one-rank kernel path
+    (the 1 x 1 mesh) run first, teacher-forced with its greedy tokens:
+    each step's logits within DECODE_CELL_TOL in relative L2, each greedy
+    token the one-rank top or a near tie (``_token_deficit``); on every
+    rank the seeded cache's shards gathered back bitwise."""
+    cfg, depth = _config(spec)
+    device = serve.resolve_device("cuda")
+    one_mesh = mesh_lib.Mesh(("data", "model"), (1, 1))
+    run, krun = _cell_run(cfg, spec, one_mesh)
+    cdt = getattr(torch, run.compute_dtype)
+    fn = steps.build_decode(cfg, krun, one_mesh)[0]
+    n_steps = spec["decode_steps"]
+    params, cache, tok = _long_inputs(cfg, spec, device, cdt)
+    toks, outs, times = [tok], [], []
+    with sharding.use_mesh(one_mesh):
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = fn(params, cache, None, toks[-1],
+                               _long_positions(spec, i, device))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            outs.append(logits[:, -1].float().cpu())
+            toks.append(logits[:, -1].argmax(-1)[:, None])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        ref_file = os.path.join(tmp, "ref.pt")
+        torch.save({"logits": outs, "tokens": [t.cpu() for t in toks]},
+                   ref_file)
+        del params, cache, logits
+        ranks, world_s = _spawn(path, _mesh_long_rank, _mesh(spec), spec,
+                                ref_file)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash_attention_fwd"] = _layers(cfg)[0] * n_steps
+    per_step = mesh_decode_collectives(cfg)
+    expected = {"launches": want, "collectives": {
+        k: v * n_steps for k, v in per_step.items()}}
+    rec = {**_cell_record(path, spec, cfg, depth, run, one_mesh),
+           "mesh": spec["mesh"], "program": ranks[0]["program"],
+           "filled": spec["filled"], "decode_steps": n_steps,
+           "one_rank_decode_ms_per_token": statistics.median(times) * 1e3,
+           "world_s": world_s, "expected_per_call": expected,
+           "tol": DECODE_CELL_TOL, "ranks": ranks}
+    rec["ranks_peak_mem_bytes_sum"] = _hold_mesh(path, ranks, expected)
+    emit(rec)
+    for r in ranks:
+        if not (r["cache_round_trip_bitwise"]
+                and max(r["logits_rel_l2_by_step"]) <= DECODE_CELL_TOL
+                and max(r["token_deficit_by_step"]) <= 2 * DECODE_CELL_TOL):
+            raise AssertionError(
+                f"{path} rank {r['rank']}: round trip "
+                f"{r['cache_round_trip_bitwise']}, logits "
+                f"{r['logits_rel_l2_by_step']}, token deficits "
+                f"{r['token_deficit_by_step']}")
+    return _mesh_counts(ranks)
+
+
+def _mesh_long_rank(spec, ref_file):
+    prog = collectives.active()
+    device = prog.device
+    cfg, _ = _config(spec)
+    mesh = prog.mesh
+    run, krun = _cell_run(cfg, spec, mesh)
+    cdt = getattr(torch, run.compute_dtype)
+    fn, _, in_specs, _ = steps.build_decode(cfg, krun, mesh)
+
+    def make():
+        params, cache, _ = _long_inputs(cfg, spec, device, cdt)
+        lp, lc = steps.shard_inputs((params, cache), in_specs[:2])
+        del params
+        return lp, lc, cache
+
+    t0 = time.perf_counter()
+    params, cache, whole = _rank_init(make)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the seeded cache's shards, gathered back: every leaf bitwise
+    t0 = time.perf_counter()
+    trip = all((torch.equal(sharding.gather_leaf(a), b) if torch.is_tensor(a)
+                else a == b)
+               for a, b in zip(tree.leaves(cache), tree.leaves(whole)))
+    trip_s = time.perf_counter() - t0
+    slots = sorted({tuple(c["kv"]["k"].shape[1:3]) for seg in cache
+                    for c in seg})
+    channels = cache[0][0]["ssm"]["h"].shape[1]
+    del whole
+    torch.cuda.empty_cache()
+    ref = torch.load(ref_file)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    collectives.reset_counts()
+    errs, deficit, agree, times = [], [], [], []
+    with sharding.use_mesh(mesh):
+        for i in range(spec["decode_steps"]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = fn(params, cache, None,
+                               ref["tokens"][i].to(device),
+                               _long_positions(spec, i, device))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            got, want = logits[:, -1].float().cpu(), ref["logits"][i]
+            errs.append(_rel_l2(got, want))
+            tok = got.argmax(-1)
+            agree.append(float((tok == ref["tokens"][i + 1][:, 0]).float()
+                               .mean()))
+            deficit.append(_token_deficit(want, tok)[0])
+    launches, colls = read_counts(), _collectives_step()
+    nbytes = _collective_bytes()
+    peak = torch.cuda.max_memory_allocated()
+    return _rank_record(
+        prog, peak, program=prog.record(), init_s=init_s,
+        cache_round_trip_bitwise=bool(trip), cache_round_trip_s=trip_s,
+        kv_slots_and_heads=slots, ssm_channels=channels,
+        decode_ms_per_token=statistics.median(times) * 1e3,
+        step_ms=[x * 1e3 for x in times],
+        launches_per_call=[launches], collectives_per_call=[colls],
+        collective_bytes_per_call=nbytes, logits_rel_l2_by_step=errs,
+        greedy_token_agreement_by_step=agree,
+        token_deficit_by_step=deficit)
 
 
 def _ep_inputs(cfg, spec, device, dtype):
@@ -4049,6 +4460,10 @@ def _main(smi, dry, dry_out) -> int:
             counts[path] = phase_mesh_serve(path, spec)
         elif path == "mesh_ep":
             counts[path] = phase_mesh_ep(path, spec)
+        elif path in ("mesh_ssm", "mesh_hybrid"):
+            counts[path] = phase_mesh_family(path, spec)
+        elif path == "mesh_long_500k":
+            counts[path] = phase_mesh_long(path, spec)
         elif path.startswith("cell_"):
             counts[path], driven = phase_cell_decode(path, spec)
             peaks[path] = driven[-1]["peak_mem_bytes"]

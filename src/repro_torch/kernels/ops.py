@@ -48,6 +48,22 @@ def flash_attention(q, k, v, q_pos, k_pos, causal=True, window=0,
                                  int(window))
 
 
+def flash_attention_partial(q, k, v, q_pos, k_pos, causal=True, window=0,
+                            k_valid=None):
+    """(o [B,Sq,H,hd], lse [B,H,Sq] f32) of attention over these keys alone,
+    no gradient: a rank's partial over its shard of a sequence-sharded KV
+    cache, which the caller merges by lse with the other ranks'. A row
+    with no valid key gives o = 0 and lse = 0 (see `_fa`)."""
+    kv = k_valid if k_valid is not None else torch.ones(
+        k_pos.shape, dtype=torch.bool, device=k_pos.device)
+    if _on_cpu(q):
+        return _fa.flash_attention_plain(q, k, v, q_pos, k_pos, causal=causal,
+                                         window=window, k_valid=kv)
+    return _fa.flash_attention_fwd(
+        *(t.contiguous() for t in (q, k, v, q_pos, k_pos)), causal=causal,
+        window=window, k_valid=kv.contiguous(), return_lse=True)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, q_pos, k_pos, k_valid, causal, window):

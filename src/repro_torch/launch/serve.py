@@ -19,6 +19,17 @@ positions) families serve; the last two on seeded stub frames and patches
 (``stub_embeds``), their frontends being stubs in the configs. Runs on
 ``cuda`` unless ``--device cpu`` is given (then the kernels' plain
 versions run); without a card it raises rather than carry on on the CPU.
+
+Several ranks (the SPMD program of ``parallel.collectives``):
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve --device cpu \
+      --arch hymba-1.5b
+
+runs one process a rank on the host mesh (N, 1): each rank draws the
+whole model and prompt from the seed and keeps its shards of the serving
+layout (the requests split over `data`; in a world that
+``launch.spmd.spawn`` started, on its mesh, weights on `model` too);
+rank 0 alone logs.
 """
 from __future__ import annotations
 
@@ -30,7 +41,9 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs import get_config, reduced
-from repro_torch.models import layers, model as M
+from repro_torch.launch import spmd, steps
+from repro_torch.models import attention, layers, model as M
+from repro_torch.parallel import collectives, sharding
 
 
 def resolve_device(name) -> torch.device:
@@ -79,7 +92,7 @@ def check_cache_room(cfg, cache, n: int = 1) -> None:
         span = 0 if kind.is_global else (cfg.sliding_window or 0)
         for layer in seg_cache:
             kv = layer["kv"] if kind.family == "hybrid" else layer
-            length = kv["k"].shape[1]
+            length = attention.cache_slots(kv)[1]    # every rank's slots
             if kv["index"] + n > length and (not span or length < span):
                 raise ValueError(
                     f"the KV cache holds {length} positions and has "
@@ -241,9 +254,15 @@ def main(argv=None):
                         "(render with `python -m repro_torch.obs.report`)")
     args = p.parse_args(argv)
 
-    device = resolve_device(args.device)
+    prog, device = spmd.start_world(resolve_device(args.device))
+    with collectives.program(prog):
+        return _main(args, device, prog)
+
+
+def _main(args, device, prog):
+    writer = prog is None or prog.rank == 0     # the log and run log
     log = obs.get_logger("serve")
-    if args.obs_log:
+    if args.obs_log and writer:
         obs.configure(args.obs_log,
                       meta={"driver": "serve", "arch": args.arch,
                             "batch": args.batch,
@@ -260,11 +279,27 @@ def main(argv=None):
         cfg, device=device, decode_slots=max(512, args.decode_steps))
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
+    stub = stub_inputs(cfg, args.batch, args.seed, device)
+    if prog is not None:
+        # every rank drew the whole model and batch from the seed; it keeps
+        # its shards of the serving layout (weights on `model`, replicated
+        # over `data`, which splits the requests)
+        params = sharding.shard_tree(params, steps._drop_fsdp(
+            sharding.param_specs(params, prog.mesh)))
+        rows = lambda t: sharding.shard_leaf(t, sharding.resolve_spec(
+            prog.mesh, t.shape, ("batch",) + (None,) * (t.dim() - 1)))
+        tokens = rows(tokens)
+        stub = {k: rows(v) for k, v in stub.items()}
     out = generate(prefill, decode, params, tokens, args.decode_steps,
-                   **stub_inputs(cfg, args.batch, args.seed, device))
+                   **stub)
+    if prog is not None:        # the requests back whole, as they lay
+        out["tokens"] = sharding.gather_leaf(out["tokens"],
+                                             collectives.spec_of(tokens))
 
     t_prefill, t_decode = out["prefill_s"], out["decode_s"]
     ms_per_tok = t_decode / max(1, args.decode_steps) * 1e3
+    if not writer:
+        return 0
     log.info(f"batch={args.batch} prefill({args.prompt_len} tok)="
              f"{t_prefill*1e3:.1f}ms decode={args.decode_steps} steps in "
              f"{t_decode*1e3:.1f}ms ({ms_per_tok:.1f} ms/tok) on {device}",
@@ -273,7 +308,7 @@ def main(argv=None):
              ms_per_tok=round(ms_per_tok, 2))
     log.info(f"sample generations (token ids): "
              f"{out['tokens'][:2, 1:].tolist()}")
-    if args.obs_log:
+    if args.obs_log and writer:
         obs.shutdown()
     return 0
 

@@ -35,7 +35,29 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.parallel import collectives
+
+
+def start_world(device):
+    """(the SPMD program or None, the rank's device) of a CLI. Under
+    ``torchrun`` (WORLD_SIZE > 1) this joins its process group (env://
+    rendezvous; rank r on card LOCAL_RANK) and starts the program on the
+    host mesh (``mesh.make_host_mesh()``); in a world that ``spawn``
+    started, the program is already active."""
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE",
+                                                        "1")) > 1:
+        world = int(os.environ["WORLD_SIZE"])
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get(
+                "LOCAL_RANK", os.environ["RANK"])) % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        dist.init_process_group(collectives.default_backend(device, world),
+                                init_method="env://")
+    prog = collectives.active()
+    if prog is None and dist.is_initialized():
+        prog = mesh_lib.init_device_mesh(mesh_lib.make_host_mesh(), device)
+    return prog, device
 
 
 class WorldFailed(RuntimeError):

@@ -53,18 +53,16 @@ import argparse
 import functools
 import json
 import math
-import os
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch import faults, obs
 from repro_torch.configs import MPSLConfig, RunConfig, SHAPES, get_config, reduced
 from repro_torch.core import mpsl, split
 from repro_torch.data import (ClientLoader, PrefetchLoader, SyntheticLM,
                               dirichlet_partition)
-from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import spmd
 from repro_torch.launch.serve import resolve_device, stub_embeds
 from repro_torch.optim import schedules
 from repro_torch.parallel import collectives, sharding
@@ -193,30 +191,9 @@ def parser():
     return p
 
 
-def start_world(device):
-    """(the SPMD program or None, the rank's device). Under ``torchrun``
-    (WORLD_SIZE > 1) this joins its process group (env:// rendezvous;
-    rank r on card LOCAL_RANK) and starts the program on the host mesh
-    (N, 1); in a world that ``launch.spmd`` started, the program is
-    already active."""
-    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE",
-                                                        "1")) > 1:
-        world = int(os.environ["WORLD_SIZE"])
-        if device.type == "cuda":
-            device = torch.device("cuda", int(os.environ.get(
-                "LOCAL_RANK", os.environ["RANK"])) % torch.cuda.device_count())
-            torch.cuda.set_device(device)
-        dist.init_process_group(collectives.default_backend(device, world),
-                                init_method="env://")
-    prog = collectives.active()
-    if prog is None and dist.is_initialized():
-        prog = mesh_lib.init_device_mesh(mesh_lib.make_host_mesh(), device)
-    return prog, device
-
-
 def main(argv=None):
     args = parser().parse_args(argv)
-    prog, device = start_world(resolve_device(args.device))
+    prog, device = spmd.start_world(resolve_device(args.device))
     with collectives.program(prog):
         return _main(args, device, prog)
 

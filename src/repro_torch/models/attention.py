@@ -22,16 +22,37 @@ Cross-attention (the whisper decoder) takes its keys and values from the
 encoder's output (``kv_x``) or, at decode, precomputed once per layer
 (``compute_cross_kv``); it rotates neither queries nor keys.
 
-Under the SPMD program (``parallel.collectives``) the heads lie on
-`model`: wq [D, H, hd] and wk / wv [D, K, hd] hold H/m and K/m heads (G
-unchanged, so the core runs as it is, the flash kernel included, at the
-local head counts), wo [H, hd, D] is row-parallel and its partial sums
-leave by one all-reduce over `model`; the KV cache holds this rank's
-K/m heads (``cache_specs``) and its batch rows. Each weight's fsdp dim
-is gathered at use. The rule table's fallbacks for heads that do not
-divide the model axis (``dboth`` on D, a sequence-sharded cache) and
-sequence sharding (``seq_model``) are not in the program yet (ROADMAP.md
-Queue 1 item 7).
+Under the SPMD program (``parallel.collectives``) the weights lie as the
+rule table lays them (``model_layout``):
+
+  * heads: H and K divide the model axis: wq [D, H, hd] and wk / wv
+    [D, K, hd] hold H/m and K/m heads (G unchanged, so the core runs as
+    it is, the flash kernel included, at the local head counts), wo
+    [H, hd, D] is row-parallel and its partial sums leave by one
+    all-reduce over `model`; the KV cache holds this rank's K/m heads.
+  * dboth: neither count divides it (hymba-1.5b's 25 on 5): every
+    weight's D lies on (data, model) (``model`` alone in the serving
+    layout). x's columns that a rank's rows of wq / wk / wv hold
+    (``collectives.model_cols``) contract them, and the three partial
+    products leave by one all-reduce: every model rank then holds every
+    head and runs the whole core, whose output enters wo's columns by
+    ``copy_to``; wo's output D is this rank's part, joined over `model`
+    by ``collectives.join_model_parts``. The KV cache holds every head,
+    and where its length divides the model axis 1/m of its slots (the
+    rule table's sequence-sharded cache): prefill writes only this rank's
+    slots, decode writes the new entry on the rank that owns its slot and
+    each rank attends over its own slots, the partials merged by lse
+    across `model` (``_merged_attention``).
+  * mixed: H divides the model axis and K does not (reduced hymba-1.5b's
+    4 on 1): the query heads as under heads, wk / wv as under dboth
+    (whole KV heads on every rank, entering the rank's query heads by
+    ``copy_to``, each query head reading its own KV head), the cache as
+    under dboth; a decode step over a sequence-sharded cache all-gathers
+    the query heads first.
+
+Each weight's fsdp dim is gathered at use. Cross-attention under dboth
+or mixed, and sequence sharding (``seq_model``) are not in the program
+yet (ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -39,6 +60,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
 from repro_torch.parallel import collectives as C
@@ -189,17 +211,46 @@ def resolve_impl(impl: str, sq: int, sk: int) -> str:
 
 def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
                device=None):
-    """KV cache of one layer; `index` counts the entries written so far.
-    Under the SPMD program it holds this rank's KV heads (`batch` is the
-    local batch)."""
-    k, hd = C.local(cfg.num_kv_heads, "model"), cfg.resolved_head_dim
-    return {
-        "k": torch.zeros((batch, cache_len, k, hd), dtype=dtype, device=device),
-        "v": torch.zeros((batch, cache_len, k, hd), dtype=dtype, device=device),
-        "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+    """KV cache of one layer; `index` counts the entries written so far
+    (the global count, the same on every rank). Under the SPMD program it
+    holds this rank's part of the rule table's layout
+    (``sharding.cache_dims``), and its tensors carry that spec: its batch
+    rows (`batch` is the local batch), its K/m heads where the KV heads
+    divide the model axis, else, where `cache_len` divides it, every head
+    over 1/m of the slots (global slots r L/m .. (r+1) L/m on model rank
+    r: ``cache_slots``)."""
+    kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    m = C.size("model")
+    heads_on = m > 1 and kh % m == 0
+    seq_on = m > 1 and not heads_on and cache_len % m == 0
+    kh = kh // m if heads_on else kh
+    slots = cache_len // m if seq_on else cache_len
+    cache = {
+        "k": torch.zeros((batch, slots, kh, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, slots, kh, hd), dtype=dtype, device=device),
+        "pos": torch.full((batch, slots), -1, dtype=torch.int32,
                           device=device),
         "index": 0,
     }
+    if C.active() is not None:
+        rows = "data" if C.size("data") > 1 else None
+        seq = "model" if seq_on else None
+        C.set_spec(cache["k"], (rows, seq, "model" if heads_on else None,
+                                None))
+        C.set_spec(cache["v"], C.spec_of(cache["k"]))
+        C.set_spec(cache["pos"], (rows, seq))
+    return cache
+
+
+def cache_slots(cache):
+    """(this rank's first slot, the cache's slot count) of a KV cache, by
+    the global slot numbers: (0, its length) unless its slots lie on
+    `model` (a sequence-sharded cache)."""
+    n = cache["k"].shape[1]
+    m = C.size("model")
+    if m > 1 and "model" in C.dim_axes(cache["k"], 1):
+        return C.index("model") * n, n * m
+    return 0, n
 
 
 def _cache_insert(cache, k_new, v_new, positions):
@@ -213,8 +264,13 @@ def _cache_insert(cache, k_new, v_new, positions):
     Sq % cache_len, where the next decode step writes. (The JAX package
     writes them unrotated: after a prefill of 1536 into a 1024-slot
     window, its first decode step overwrites the entry of position 1024,
-    inside the window, and keeps 512, outside it. ROADMAP.md Queue 3.)"""
-    cache_len = cache["k"].shape[1]
+    inside the window, and keeps 512, outside it. ROADMAP.md Queue 3.)
+
+    Slots are global (``cache_slots``): a rank holding a sequence-shard
+    writes only the entries whose slots it owns, and the ring wraps at
+    the global length."""
+    off, cache_len = cache_slots(cache)
+    held = cache["k"].shape[1]
     sq = k_new.shape[1]
     if sq >= cache_len and sq > 1:            # prefill into a window cache
         shift = sq % cache_len
@@ -226,9 +282,12 @@ def _cache_insert(cache, k_new, v_new, positions):
         idx = cache["index"] % cache_len
     n = k_new.shape[1]
     idx = min(idx, cache_len - n)     # a dynamic_update_slice clamps likewise
-    cache["k"][:, idx:idx + n] = k_new
-    cache["v"][:, idx:idx + n] = v_new
-    cache["pos"][:, idx:idx + n] = positions
+    lo, hi = max(idx, off), min(idx + n, off + held)
+    if lo < hi:
+        new = slice(lo - idx, hi - idx)
+        cache["k"][:, lo - off:hi - off] = k_new[:, new]
+        cache["v"][:, lo - off:hi - off] = v_new[:, new]
+        cache["pos"][:, lo - off:hi - off] = positions[:, new]
     cache["index"] += sq
     return cache
 
@@ -244,34 +303,113 @@ def _norm_scale(params, name, tp):
     return C.copy_to(scale, "model") if tp else scale
 
 
-def _kv(params, src, cfg, tp=False):
-    """Keys and values of `src` [B, S, D]: [B, S, K, hd] each (this rank's
-    K/m heads under the program)."""
-    k = _proj(src, C.gather_param(params["wk"]))
-    v = _proj(src, C.gather_param(params["wv"]))
+def _kv(params, src, cfg):
+    """Keys and values of `src` [B, S, D]: [B, S, K, hd] each."""
+    k = _proj(src, params["wk"])
+    v = _proj(src, params["wv"])
     if cfg.qkv_bias:
         k = k + params["bk"].to(src.dtype)
         v = v + params["bv"].to(src.dtype)
     if cfg.qk_norm:
-        k = layers.rms_norm(k, _norm_scale(params, "k_norm", tp))
+        k = layers.rms_norm(k, params["k_norm"]["scale"])
     return k, v
 
 
-def _tensor_parallel(params) -> bool:
-    """Whether the heads lie on `model` (raises where only some do: the
-    rule table's fallbacks are not in the program)."""
-    tp = C.model_parallel(params["wq"])
-    if tp != C.model_parallel(params["wk"]):
-        raise NotImplementedError(
-            "query heads and KV heads laid out apart on the model axis (a "
-            "KV head count that does not divide it): ROADMAP.md Queue 1 "
-            "item 7")
-    return tp
+def model_layout(params) -> str:
+    """Where the attention weights lie under the SPMD program: "heads"
+    (the query and KV heads on `model`), "mixed" (the query heads on
+    `model`, the KV heads' wk / wv on D: a KV head count that does not
+    divide the axis beside a query head count that does), "dboth" (every
+    weight's D on `model`, with or without `data`: neither count divides
+    it) or "replicated" (nothing on `model`)."""
+    wq, wk = params["wq"], params["wk"]
+    if not (C.model_parallel(wq) or C.model_parallel(wk)):
+        return "replicated"
+    q_heads = "model" in C.dim_axes(wq, 1)
+    kv_heads = "model" in C.dim_axes(wk, 1)
+    kv_rows = "model" in C.dim_axes(wk, 0)
+    if q_heads and kv_heads:
+        return "heads"
+    if q_heads and kv_rows:
+        return "mixed"
+    if kv_rows and "model" in C.dim_axes(wq, 0):
+        return "dboth"
+    raise NotImplementedError(
+        f"attention weights laid out wq {C.spec_of(wq)}, wk "
+        f"{C.spec_of(wk)}: ROADMAP.md Queue 1 item 7")
+
+
+def _row_parallel(params, names, x):
+    """The projections [B, S, N, hd] of x by the weights `names`, each
+    with its D on `model` (the dboth layout), whole heads on every model
+    rank: this rank's columns of x contract its rows of each weight (their
+    D's data part gathered), and the partial products leave by one
+    all-reduce over `model`."""
+    ws = [C.gather_param(params[n]) for n in names]
+    xl = C.model_cols(x, C.spec_of(params[names[0]])[0])
+    flat = torch.cat([w.reshape(w.shape[0], -1) for w in ws], dim=1)
+    y = C.reduce_from(xl @ flat.to(x.dtype), "model")
+    return [t.reshape(*x.shape[:-1], *w.shape[1:]) for t, w in zip(
+        y.split([w.shape[1] * w.shape[2] for w in ws], dim=-1), ws)]
+
+
+def _for_heads(t, hq):
+    """The KV heads [B, S, ., hd] that this model rank's hq query heads
+    (r hq .. (r+1) hq of H = m hq) read, from every KV head `t`: a slice
+    where each of its KV heads' query groups lies whole on the rank (G
+    kept), else one KV head a query head (G 1)."""
+    g = hq * C.size("model") // t.shape[2]
+    first = C.index("model") * hq
+    if hq % g == 0:
+        return t[:, :, first // g:(first + hq) // g]
+    idx = torch.arange(first, first + hq, device=t.device) // g
+    return t.index_select(2, idx)
+
+
+def _merged_attention(q, k, v, q_pos, k_pos, causal, window, k_valid, impl):
+    """Attention of q (every head) over a sequence-sharded KV cache: each
+    model rank attends over its own slots (the flash kernel's split route
+    where impl is "kernel", its plain version otherwise), returning o and
+    lse; a row with no valid key among them (o = 0, lse = 0 from the
+    kernel) is marked lse = -inf, so that it weighs nothing; the ranks'
+    o (in f32) and lse are all-gathered over `model` in one tensor and
+    merged by lse (``flash_attention.merge_partials``, the split route's
+    combine). Inference only: no gradient flows through it."""
+    if impl == "kernel":
+        o, lse = kops.flash_attention_partial(q, k, v, q_pos, k_pos, causal,
+                                              window, k_valid)
+    else:
+        o, lse = _fa.flash_attention_plain(q, k, v, q_pos, k_pos,
+                                           causal=causal, window=window,
+                                           k_valid=k_valid)
+    seen = _fa.pair_mask(q_pos, k_pos, k_valid, causal, int(window)).any(-1)
+    lse = torch.where(seen[:, None, :], lse, float("-inf"))
+    b, sq, h, hd = o.shape
+    packed = torch.cat([o.float().reshape(b, sq, h * hd),
+                        lse.transpose(1, 2)], dim=-1)
+    parts = C.all_gather(packed[None], 0, "model")
+    o_parts = parts[..., :h * hd].reshape(-1, b, sq, h, hd)
+    lse_parts = parts[..., h * hd:].transpose(2, 3)
+    return _fa.merge_partials(o_parts, lse_parts, q.dtype)[0]
+
+
+def _core(q, k, v, q_pos, k_pos, causal, window, k_valid, impl, block):
+    if impl == "naive":
+        bias = _mask_bias(q_pos, k_pos, causal, window, k_valid)
+        return _naive_attention(q, k, v, bias)
+    if impl == "blockwise":
+        return _blockwise_attention(q, k, v, q_pos, k_pos, causal, window,
+                                    k_valid, block=block)
+    if impl == "kernel":
+        return kops.flash_attention(q, k, v, q_pos, k_pos, causal=causal,
+                                    window=window, k_valid=k_valid)
+    raise ValueError(f"unknown attention impl {impl!r} "
+                     f"(naive | blockwise | auto | kernel)")
 
 
 def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
                     cache=None, impl="naive", block=1024, kv_x=None,
-                    precomputed_kv=None):
+                    precomputed_kv=None, x_entered=False):
     """x [B, S, D] -> (out [B, S, D], cache).
 
     positions: [B, S] int32 absolute positions, or [B, 3, S] for M-RoPE.
@@ -282,24 +420,49 @@ def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
     precomputed_kv: {"k", "v", "pos"} of ``compute_cross_kv``: decode-time
       cross-attention, every key valid.
     impl: naive | blockwise | auto | kernel; block: blockwise's KV block.
+    x_entered: x has entered the model-parallel region already (the
+      hybrid block's ``copy_to``, shared by both branches).
     Self-attention rotates q and k by the config's rope / mrope;
     attention over outside keys (``kv_x`` or ``precomputed_kv``) rotates
     neither."""
     hd = cfg.resolved_head_dim
     flat_pos = positions[:, 0] if positions.dim() == 3 else positions
-    tp = _tensor_parallel(params)
-    if tp:
+    layout = model_layout(params)
+    q_tp = layout in ("heads", "mixed")       # this rank's query heads
+    if layout != "replicated" and not x_entered:
         x = C.copy_to(x, "model")
         if kv_x is not None:
             kv_x = C.copy_to(kv_x, "model")
-    q = _proj(x, C.gather_param(params["wq"]))
+    if layout in ("dboth", "mixed") and (kv_x is not None
+                                         or precomputed_kv is not None):
+        raise NotImplementedError(
+            f"cross-attention under the {layout} layout: ROADMAP.md Queue 1 "
+            f"item 7")
+    k = v = None
+    if layout == "dboth":
+        q, k, v = _row_parallel(params, ("wq", "wk", "wv"), x)
+    else:
+        q = _proj(x, C.gather_param(params["wq"]))
+        if layout == "mixed":
+            k, v = _row_parallel(params, ("wk", "wv"), x)
+        elif precomputed_kv is None:
+            src = x if kv_x is None else kv_x.to(x.dtype)
+            k = _proj(src, C.gather_param(params["wk"]))
+            v = _proj(src, C.gather_param(params["wv"]))
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
+        if k is not None:
+            k = k + params["bk"].to(x.dtype)
+            v = v + params["bv"].to(x.dtype)
     if cfg.qk_norm:
-        q = layers.rms_norm(q, _norm_scale(params, "q_norm", tp))
-    k = v = None
-    if precomputed_kv is None:
-        k, v = _kv(params, x if kv_x is None else kv_x.to(x.dtype), cfg, tp)
+        q = layers.rms_norm(q, _norm_scale(params, "q_norm", q_tp))
+        if k is not None:
+            k = layers.rms_norm(k, _norm_scale(params, "k_norm",
+                                               layout == "heads"))
+    if layout == "mixed":
+        # whole KV heads, read by this rank's query heads only: their
+        # gradients are the sum of the ranks' parts
+        k, v = C.copy_to(k, "model"), C.copy_to(v, "model")
 
     cross = kv_x is not None or precomputed_kv is not None
     if not cross and cfg.pos_embed in ("rope", "mrope"):
@@ -313,6 +476,7 @@ def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
         q = layers.apply_rope(q, cos, sin)
         k = layers.apply_rope(k, cos, sin)
 
+    out = None
     if precomputed_kv is not None:
         k_all = precomputed_kv["k"].to(x.dtype)
         v_all = precomputed_kv["v"].to(x.dtype)
@@ -327,6 +491,13 @@ def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
         cache = _cache_insert(cache, k, v, flat_pos)
         k_all, v_all = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
         k_pos, k_valid = cache["pos"], cache["pos"] >= 0
+        if cache_slots(cache)[1] != k_all.shape[1]:
+            # every head over this rank's slots, merged over the ranks
+            q_all = C.all_gather(q, 2, "model") if q_tp else q
+            out = _merged_attention(q_all, k_all, v_all, flat_pos, k_pos,
+                                    causal, window, k_valid, impl)
+            if q_tp:
+                out = out.chunk(C.size("model"), 2)[C.index("model")]
     elif kv_x is not None:
         k_all, v_all, k_valid = k, v, None
         k_pos = layers.positions_from_shape(kv_x.shape[0], kv_x.shape[1],
@@ -334,25 +505,25 @@ def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
     else:
         k_all, v_all, k_pos, k_valid = k, v, flat_pos, None
 
-    impl = resolve_impl(impl, q.shape[1], k_all.shape[1])
-    if impl == "naive":
-        bias = _mask_bias(flat_pos, k_pos, causal, window, k_valid)
-        out = _naive_attention(q, k_all, v_all, bias)
-    elif impl == "blockwise":
-        out = _blockwise_attention(q, k_all, v_all, flat_pos, k_pos, causal,
-                                   window, k_valid, block=block)
-    elif impl == "kernel":
-        out = kops.flash_attention(q, k_all, v_all, flat_pos, k_pos,
-                                   causal=causal, window=window,
-                                   k_valid=k_valid)
-    else:
-        raise ValueError(f"unknown attention impl {impl!r} "
-                         f"(naive | blockwise | auto | kernel)")
+    if out is None:
+        if layout == "mixed":
+            k_all, v_all = (_for_heads(t, q.shape[2]) for t in (k_all, v_all))
+        out = _core(q, k_all, v_all, flat_pos, k_pos, causal, window,
+                    k_valid, resolve_impl(impl, q.shape[1], k_all.shape[1]),
+                    block)
 
     b, s, h, _ = out.shape
+    if layout == "dboth":
+        # every rank's wo columns read the whole out: its gradient is the
+        # sum of their parts
+        out = C.copy_to(out, "model")
     wo = C.gather_param(params["wo"])
     y = out.reshape(b, s, h * hd) @ wo.reshape(h * hd, -1).to(x.dtype)
-    return (C.reduce_from(y, "model") if tp else y), cache
+    if q_tp:
+        y = C.reduce_from(y, "model")
+    elif layout == "dboth":
+        y = C.join_model_parts(y, C.spec_of(params["wo"])[2])
+    return y, cache
 
 
 def compute_cross_kv(params, enc_out, cfg):

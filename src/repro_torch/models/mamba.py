@@ -25,6 +25,19 @@ Numerics kept from the JAX package:
     the JAX package's order, not ``F.conv1d`` (cuDNN would run it in TF32
     unless ``cudnn.allow_tf32`` were off);
   * the conv cache is in the compute dtype, the state h always f32.
+
+Under the SPMD program (``parallel.collectives``) d_inner lies on
+`model`, as the rule table lays it: in_proj [D, 2 di] is column-parallel,
+cut section by section (``sharding.Paired``: rank r holds x's and z's
+channel slice r, so the block's split of xz is local); the conv, conv_b,
+dt_bias, D, A_log and the scan run on the rank's di/m channels, the scan
+kernels at that width; x_proj [di, dtr + 2 ds] is row-parallel, its
+partial sums leaving by one all-reduce, and dt_in, B and C re-enter the
+channel-parallel region by ``copy_to`` (each rank's dt_proj columns and
+scan give their gradients for its own channels only, summed over
+`model` in the backward); dt_proj is column-parallel; out_proj [di, D] is
+row-parallel and leaves by one all-reduce. The decode caches hold the
+rank's channels of h and conv. Each weight's fsdp dim is gathered at use.
 """
 from __future__ import annotations
 
@@ -35,6 +48,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
+from repro_torch.parallel import collectives as C
 
 
 def init_mamba(generator, cfg, device=None):
@@ -158,13 +172,34 @@ def selective_scan_step(x, dt, b_in, c_in, a_log, h):
 
 def init_mamba_cache(cfg, batch: int, dtype=torch.bfloat16, device=None):
     """The SSM cache of one layer: the state h (f32) and the last
-    d_conv - 1 conv inputs (compute dtype)."""
-    return {
-        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm.d_state),
+    d_conv - 1 conv inputs (compute dtype). Under the SPMD program, this
+    rank's batch rows and channels (``sharding.cache_dims``), marked with
+    that spec."""
+    di = C.local(cfg.d_inner, "model")
+    cache = {
+        "h": torch.zeros((batch, di, cfg.ssm.d_state),
                          dtype=torch.float32, device=device),
-        "conv": torch.zeros((batch, cfg.ssm.d_conv - 1, cfg.d_inner),
+        "conv": torch.zeros((batch, cfg.ssm.d_conv - 1, di),
                             dtype=dtype, device=device),
     }
+    if C.active() is not None:
+        rows = "data" if C.size("data") > 1 else None
+        ch = "model" if di != cfg.d_inner else None
+        C.set_spec(cache["h"], (rows, ch, None))
+        C.set_spec(cache["conv"], (rows, None, ch))
+    return cache
+
+
+def model_parallel(params) -> bool:
+    """Whether the block's d_inner lies on `model` (raises where in_proj
+    and the channel leaves are laid out apart)."""
+    tp = C.model_parallel(params["x_proj"])
+    if tp != C.model_parallel(params["in_proj"]):
+        raise NotImplementedError(
+            "a Mamba block whose in_proj and channel leaves lie apart on "
+            "the model axis (a d_inner that does not divide it): ROADMAP.md "
+            "Queue 1 item 7")
+    return tp
 
 
 # ---------------------------------------------------------------------------
@@ -184,18 +219,24 @@ def _causal_depthwise_conv(x, w, b):
 
 
 def apply_mamba(params, x, cfg, cache=None, impl="kernel", chunk=256,
-                bwd_impl="fused"):
+                bwd_impl="fused", x_entered=False):
     """x [B, S, D] -> (y [B, S, D], cache). A given cache is updated in
     place and returned.
 
     impl: "kernel" | "plain" | "assoc" (the scan of the prefill / train
     path; ``assoc_selective_scan`` is the dry run's);
-    bwd_impl: the kernel path's backward, "fused" | "recompute"."""
-    di, ds = cfg.d_inner, cfg.ssm.d_state
+    bwd_impl: the kernel path's backward, "fused" | "recompute";
+    x_entered: x has entered the model-parallel region already (the
+    hybrid block's shared ``copy_to``)."""
+    ds = cfg.ssm.d_state
+    di = params["D"].shape[0]                 # this rank's channels
     dtr = params["dt_proj"].shape[0]
     dtype = x.dtype
+    tp = model_parallel(params)
+    if tp and not x_entered:
+        x = C.copy_to(x, "model")
 
-    xz = x @ params["in_proj"].to(dtype)
+    xz = x @ C.gather_param(params["in_proj"]).to(dtype)
     xin, z = xz[..., :di], xz[..., di:]
 
     if cache is None:
@@ -210,10 +251,12 @@ def apply_mamba(params, x, cfg, cache=None, impl="kernel", chunk=256,
 
     xc = F.silu(xc)
 
-    proj = xc @ params["x_proj"].to(dtype)
+    proj = xc @ C.gather_param(params["x_proj"]).to(dtype)
+    if tp:
+        proj = C.copy_to(C.reduce_from(proj, "model"), "model")
     dt_in, b_in, c_in = (proj[..., :dtr], proj[..., dtr:dtr + ds],
                          proj[..., dtr + ds:])
-    dt = dt_in @ params["dt_proj"].to(dtype)
+    dt = dt_in @ C.gather_param(params["dt_proj"]).to(dtype)
     dt = F.softplus(dt.float() + params["dt_bias"]).to(dtype)
 
     if cache is None or xc.shape[1] > 1:
@@ -247,4 +290,5 @@ def apply_mamba(params, x, cfg, cache=None, impl="kernel", chunk=256,
 
     y = y + xc * params["D"].to(dtype)
     y = y * F.silu(z)
-    return y @ params["out_proj"].to(dtype), cache
+    y = y @ C.gather_param(params["out_proj"]).to(dtype)
+    return (C.reduce_from(y, "model") if tp else y), cache

@@ -124,11 +124,13 @@ def apply_block(params, x, cfg, kind: BlockKind, *, positions, cache=None,
     A cross block attends over `cross_kv` (this layer's precomputed K/V)
     where given, else over `enc_out` [B, Sk, D]."""
     impls = impls or {}
-    if C.active() is not None and kind.family not in ("dense", "moe"):
+    if C.active() is not None and (
+            kind.family not in ("dense", "moe", "ssm", "hybrid")
+            or cfg.family in ("vit", "audio", "vlm")):
         raise NotImplementedError(
-            f"{kind.family} blocks under the SPMD program (Mamba and hybrid "
-            f"under TP, the vit, whisper and qwen2-vl stacks on a mesh): "
-            f"ROADMAP.md Queue 1 item 7")
+            f"{cfg.family} ({kind.family} blocks) under the SPMD program "
+            f"(the vit, whisper and qwen2-vl stacks on a mesh): ROADMAP.md "
+            f"Queue 1 item 7")
     h = layers.apply_norm(x, params["norm1"], cfg.norm)
     ssm_kw = dict(ssm_impl=impls.get("ssm", "kernel"),
                   ssm_chunk=impls.get("ssm_chunk", 256),

@@ -35,6 +35,16 @@ Autograd pairs (each identity, in both directions, on an axis of size 1):
   gather_from(x, dim, axis) all-gather forward, reduce-scatter backward:
                             an fsdp weight gathered at use, its gradient
                             summed over the axis and cut back to the shard
+  gather_to(x, dim, axis)   all-gather forward, this rank's slice backward
+                            (no sum): a region's output parts joined into
+                            the replicated whole, whose gradient every rank
+                            holds whole already (Megatron's gather/split)
+
+A weight dim on (data, model), the rule table's ``dboth`` fallback, is
+gathered over `data` only (``gather_param``); its model part stays, and
+the user runs row-parallel over it (``model_cols`` picks the matching
+input columns) or, on an output dim, joins the ranks' parts by
+``gather_to``.
 
 ``COUNTS`` records every collective that moves data, by (op, axis): calls
 and bytes (an all-reduce counts its tensor, an all-gather its output, a
@@ -341,6 +351,18 @@ class _GatherFrom(torch.autograd.Function):
         return reduce_scatter(g.contiguous(), ctx.dim, ctx.axis), None, None
 
 
+class _GatherTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return all_gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        part = g.chunk(size(ctx.axis), ctx.dim)[index(ctx.axis)]
+        return part.contiguous(), None, None
+
+
 def copy_to(x, axis: str = "model"):
     """Identity forward, all-reduce backward over `axis`."""
     return x if size(axis) == 1 else _CopyTo.apply(x, axis)
@@ -355,6 +377,12 @@ def gather_from(x, dim: int, axis: str = "data"):
     """All-gather forward along `dim` over `axis`, reduce-scatter
     backward."""
     return x if size(axis) == 1 else _GatherFrom.apply(x, dim, axis)
+
+
+def gather_to(x, dim: int, axis: str = "model"):
+    """All-gather forward along `dim` over `axis`, this rank's slice of
+    the gradient backward (every rank holds the same whole gradient)."""
+    return x if size(axis) == 1 else _GatherTo.apply(x, dim, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -380,6 +408,13 @@ def _entry_axes(entry) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def dim_axes(t, dim: int) -> Tuple[str, ...]:
+    """The mesh axes `t`'s spec lays its dim `dim` on (() unsharded or
+    with no spec)."""
+    spec = spec_of(t)
+    return _entry_axes(spec[dim]) if spec and dim < len(spec) else ()
+
+
 def spec_axes(spec) -> Tuple[str, ...]:
     """Every mesh axis a spec lays a dim on."""
     return tuple(a for e in (spec or ()) for a in _entry_axes(e))
@@ -388,21 +423,53 @@ def spec_axes(spec) -> Tuple[str, ...]:
 def gather_param(w):
     """The weight a rank computes with: each dim of `w` that its spec lays
     on `data` (fsdp) all-gathered (``gather_from``: its gradient is
-    reduce-scattered back); a dim on `model` stays local. A dim on two
-    axes (the rule table's `dboth` fallback) or on `pod` is not in the
-    program yet (ROADMAP.md Queue 1 item 7)."""
+    reduce-scattered back); a dim on `model` stays local, and so does the
+    model part of a dim on (data, model) (the rule table's `dboth`
+    fallback: its data part gathered, the ranks' parts in data order, this
+    model rank's among each). A dim on `pod` is not in the program yet
+    (ROADMAP.md Queue 1 item 7)."""
     spec = spec_of(w)
     if spec is None or _ACTIVE is None:
         return w
     for dim, entry in enumerate(spec):
         axes = _entry_axes(entry)
-        if len(axes) > 1 or "pod" in axes:
+        if axes not in ((), ("data",), ("model",), ("data", "model")):
             raise NotImplementedError(
-                f"a weight laid out {spec}: the dboth and pod layouts are "
-                f"not in the SPMD program yet (ROADMAP.md Queue 1 item 7)")
-        if axes == ("data",):
+                f"a weight laid out {spec}: the pod axis is not in the "
+                f"SPMD program yet (ROADMAP.md Queue 1 item 7)")
+        if axes[:1] == ("data",):
             w = gather_from(w, dim, "data")
     return w
+
+
+def model_cols(x, entry):
+    """The slice of x's last dim that a weight's contraction dim laid on
+    `entry` holds on this rank once ``gather_param`` gathered its `data`
+    part: with the dim cut row-major over (data, model) into d x m parts,
+    the parts (i, this model rank) for every i, in order; on `model`
+    alone, this rank's contiguous part. x whole where the entry has no
+    `model` (or its size is 1)."""
+    axes = _entry_axes(entry)
+    m = size("model")
+    if "model" not in axes or m == 1:
+        return x
+    d = size("data") if "data" in axes else 1
+    j = index("model")
+    parts = x.unflatten(-1, (d, m, -1))[..., j:j + 1, :]
+    return parts.flatten(-3)
+
+
+def join_model_parts(y, entry):
+    """The whole last dim from this rank's output part of a weight whose
+    output dim lies on `entry` (``model_cols``' layout): the model ranks'
+    parts all-gathered and interleaved back into row-major order
+    (``gather_to``: the gradient's own slice backward)."""
+    axes = _entry_axes(entry)
+    if "model" not in axes or size("model") == 1:
+        return y
+    d = size("data") if "data" in axes else 1
+    whole = gather_to(y.unflatten(-1, (d, -1)), y.dim(), "model")
+    return whole.flatten(-2)
 
 
 def model_parallel(w) -> bool:

@@ -15,7 +15,12 @@ unsharded. Logical axes resolve against whatever axes the active mesh
   seq_model     -> (model,)      sequence parallelism
 
 A spec is a tuple with one entry a dim: None, a mesh axis name, or a
-tuple of them (the JAX package's ``PartitionSpec`` entries).
+tuple of them (the JAX package's ``PartitionSpec`` entries). One entry
+is the port's own: Mamba's in_proj [D, 2 di] holds x's channels and then
+z's, and its 2 di dim is cut section by section (``Paired``: rank r holds
+x's r-th channel slice and z's r-th), so that every model rank splits its
+xz where the block does; the entry still equals the rule table's axis
+name.
 ``shard_shape`` gives a leaf's per-device shape under a spec, as
 ``NamedSharding.shard_shape`` does; the dry run counts bytes with it.
 The port keeps per-layer lists where the JAX package stacks [L, ...]
@@ -258,13 +263,48 @@ def _model_size() -> int:
         and "model" in mesh.axis_names else 1
 
 
+class Paired(str):
+    """A spec entry: the mesh axis `axis` (and equal to its name, as the
+    rule table's entry), for a dim that holds `sections` equal sections
+    side by side, each cut over the axis on its own. Part i of the dim is
+    the i-th slice of every section, joined in order: Mamba's in_proj
+    [D, 2 di] on `model` gives rank r x's channels r di/m .. (r+1) di/m
+    and z's same channels, so the block's split of xz into (x, z) is the
+    same on every rank and needs no data movement."""
+
+    def __new__(cls, axis: str, sections: int = 2):
+        self = super().__new__(cls, axis)
+        self.sections = int(sections)
+        return self
+
+    def __reduce__(self):
+        return (Paired, (str(self), self.sections))
+
+    def __repr__(self):
+        return f"Paired({str(self)!r}, {self.sections})"
+
+
+def _sections(entry) -> int:
+    return getattr(entry, "sections", 1)
+
+
+# leaves whose dim (by index) holds equal sections, each cut on its own
+PAIRED = {"in_proj": (1, 2)}          # Mamba's [D, 2 di]: (x | z)
+
+
 def param_specs(params, mesh):
     """A tree of specs mirroring `params` (tensors, meta tensors or
-    anything with a ``.shape``)."""
+    anything with a ``.shape``); a ``PAIRED`` leaf's sectioned dim gets a
+    ``Paired`` entry."""
     def rule(path, leaf):
         shape = _shape(leaf)
         with use_mesh(mesh):
-            return resolve_spec(mesh, shape, _param_dims(path, shape))
+            spec = resolve_spec(mesh, shape, _param_dims(path, shape))
+        if path and path[-1] in PAIRED:
+            dim, n = PAIRED[path[-1]]
+            if isinstance(spec[dim], str):
+                spec = spec[:dim] + (Paired(spec[dim], n),) + spec[dim + 1:]
+        return spec
     return _map_with_path(rule, params)
 
 
@@ -336,26 +376,40 @@ def _part(prog, axes) -> Tuple[int, int]:
     return idx, n
 
 
+def _cut(x, dim: int, i: int, n: int, sections: int = 1):
+    """Part i of n of `x`'s dim `dim`: the i-th of n equal slices of
+    each of its `sections` equal sections, joined in order."""
+    shape = tuple(x.shape)
+    if shape[dim] % (n * sections):
+        raise ValueError(f"dim {dim} of {shape} does not split into {n} "
+                         f"parts of {sections} sections")
+    step = shape[dim] // sections // n
+    lead = (slice(None),) * dim
+    if sections == 1:
+        return x[lead + (slice(i * step, (i + 1) * step),)]
+    y = x.reshape(shape[:dim] + (sections, shape[dim] // sections)
+                  + shape[dim + 1:])
+    y = y[lead + (slice(None), slice(i * step, (i + 1) * step))]
+    return y.reshape(shape[:dim] + (sections * step,) + shape[dim + 1:])
+
+
 def shard_leaf(x, spec, prog=None):
     """This rank's slice of `x` (a tensor or a numpy array) laid out by
     `spec`: each dim cut into equal parts by its axes, the part at this
-    rank's coordinates. A tensor slice is a contiguous copy marked with
-    its spec (``collectives.set_spec``)."""
+    rank's coordinates (a ``Paired`` dim section by section). A tensor
+    slice is a contiguous copy marked with its spec
+    (``collectives.set_spec``)."""
     from repro_torch.parallel import collectives
     prog = _program(prog)
     if prog is None or not hasattr(x, "shape"):
         return x
-    index = []
+    out = x
     for dim, entry in enumerate(spec or ()):
         i, n = _part(prog, _entry(entry))
-        if x.shape[dim] % n:
-            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
-                             f"into {n} parts ({spec})")
-        step = x.shape[dim] // n
-        index.append(slice(i * step, (i + 1) * step))
-    out = x[tuple(index)]
+        if n > 1:
+            out = _cut(out, dim, i, n, _sections(entry))
     if torch.is_tensor(out):
-        out = out.contiguous() if index else out
+        out = out.contiguous()
         out = out.clone() if out.data_ptr() == x.data_ptr() else out
         collectives.set_spec(out, spec)
         return out
@@ -384,8 +438,13 @@ def gather_leaf(x, spec=None):
     if not torch.is_tensor(x) or not spec or collectives.active() is None:
         return x
     for dim, entry in enumerate(spec):
+        k = _sections(entry)
+        if k > 1:
+            x = x.unflatten(dim, (k, -1))
         for a in reversed(_entry(entry)):     # the inner axis first
-            x = collectives.all_gather(x, dim, a)
+            x = collectives.all_gather(x, dim + (k > 1), a)
+        if k > 1:
+            x = x.flatten(dim, dim + 1)
     return x
 
 

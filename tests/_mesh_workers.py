@@ -12,9 +12,9 @@ import numpy as np
 import torch
 
 from repro_torch import bridge, tree
-from repro_torch.configs import (MPSLConfig, RunConfig, get_config,
-                                 reduced)
-from repro_torch.core import compression, losses, mpsl
+from repro_torch.configs import (MPSLConfig, RunConfig, ShapeConfig,
+                                 get_config, reduced)
+from repro_torch.core import compression, losses, mpsl, split
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import serve, steps, train
 from repro_torch.models import model as M
@@ -26,6 +26,13 @@ from repro_torch.parallel import sharding
 
 def port_config(arch, **kw):
     return reduced(get_config(arch), **kw)
+
+
+def _config(cfg_kw):
+    """The reduced config of ``cfg_kw``'s "arch" (minitron-4b by default)
+    with the rest of its keys as overrides."""
+    kw = dict(cfg_kw)
+    return port_config(kw.pop("arch", "minitron-4b"), **kw)
 
 
 def _np(t):
@@ -182,7 +189,7 @@ def _port_run(cfg, n_clients, compress):
                     head_adapter_rank=4, compress_uplink=compress,
                     compress_downlink=compress)
     return RunConfig(model=cfg, shape=None, mpsl=mp, compute_dtype="float32",
-                     attn_impl="kernel", ce_impl="kernel")
+                     attn_impl="kernel", ce_impl="kernel", ssm_impl="kernel")
 
 
 def _batch(batch_np, prog):
@@ -195,7 +202,7 @@ def mpsl_step(cfg_kw, params_np, frozen_np, batch_np, draws_np, lr):
     rank's part, summed over `data` by ``reduce_grads``, gathered), then
     one ``make_train_step`` (the loss fed `draws_np`, the JAX uniforms of
     both links) and the gathered state after it."""
-    cfg = port_config("minitron-4b", **cfg_kw)
+    cfg = _config(cfg_kw)
     prog = C.active()
     run = _port_run(cfg, batch_np["mask"].shape[0], True)
     state = mpsl.init_state(bridge.from_repro(params_np),
@@ -228,7 +235,7 @@ def mpsl_step(cfg_kw, params_np, frozen_np, batch_np, draws_np, lr):
 def adapter_grads(cfg_kw, params_np, frozen_np, batches_np):
     """The adapter gradients (gathered, [N, ...]) of each batch, links
     off, rng 0."""
-    cfg = port_config("minitron-4b", **cfg_kw)
+    cfg = _config(cfg_kw)
     prog = C.active()
     run = _port_run(cfg, batches_np[0]["mask"].shape[0], False)
     state = mpsl.place_state(mpsl.init_state(
@@ -263,7 +270,7 @@ def served(cfg_kw, params_np, tokens_np, steps_):
     shards (the TP-only serving layout: weights on `model`, replicated
     over `data`; the batch on `data`): every step's logits and tokens,
     gathered."""
-    cfg = port_config("minitron-4b", **cfg_kw)
+    cfg = _config(cfg_kw)
     prog = C.active()
     params = bridge.from_repro(params_np)
     params = sharding.shard_tree(params, steps._drop_fsdp(
@@ -343,3 +350,204 @@ def restore(argv, directory, step):
     return {p: _np(sharding.gather_leaf(x))
             for p, x in zip(tree.paths(restored), tree.leaves(restored))
             if torch.is_tensor(x)}
+
+
+# ---------------------------------------------------------------------------
+# the Mamba and hybrid families (tests/test_torch_mesh_ssm.py)
+
+
+def shards(trees):
+    """{name: {"local", "specs", "equal"}}: each tree cut by
+    ``param_specs`` on the active mesh (this rank's shard of every leaf,
+    numpy, and its spec) and whether ``gather_tree`` gives it back."""
+    prog = C.active()
+    out = {}
+    for name, t in trees.items():
+        params = bridge.from_repro(t)
+        local = sharding.shard_tree(params,
+                                    sharding.param_specs(params, prog.mesh))
+        back = sharding.gather_tree(local)
+        out[name] = {
+            "local": [_np(x) for x in tree.leaves(local)],
+            "specs": [C.spec_of(x) for x in tree.leaves(local)],
+            "equal": all(torch.equal(a, b) for a, b in zip(
+                tree.leaves(params), tree.leaves(back)))}
+    return out
+
+
+def _rows(x_np):
+    """This data rank's rows of a whole [B, ...] array (batch on `data`)."""
+    t = torch.from_numpy(np.ascontiguousarray(x_np))
+    return sharding.shard_leaf(t, sharding.resolve_spec(
+        C.active().mesh, t.shape, ("batch",) + (None,) * (t.dim() - 1)))
+
+
+def ssm_block(cfg_kw, kind, block_np, x_np, pos_np, cot_np):
+    """One Mamba or hybrid block (a global ``M.BlockKind(kind)``) under the
+    active program, the batch on `data`: its output and x's gradient
+    (gathered over `data`), and every param's gradient (summed over
+    `data` by ``reduce_grads``, gathered)."""
+    cfg = _config(cfg_kw)
+    prog = C.active()
+    params = bridge.from_repro(block_np)
+    local = sharding.shard_tree(params,
+                                sharding.param_specs(params, prog.mesh))
+    leaves = tree.leaves(local)
+    for p in leaves:
+        p.requires_grad_(True)
+    x = _rows(x_np).requires_grad_()
+    y, _, _ = M.apply_block(local, x, cfg, M.BlockKind(kind),
+                            positions=_rows(pos_np),
+                            impls={"attn": "kernel", "ssm": "kernel",
+                                   "ssm_chunk": 8})
+    (y * _rows(cot_np)).sum().backward()
+    grads = [p.grad for p in leaves]
+    C.reduce_grads(leaves, grads)
+    return {"y": _np(C.all_gather(y.detach(), 0, "data")),
+            "dx": _np(C.all_gather(x.grad, 0, "data")),
+            "grads": _gathered(grads, local)}
+
+
+def _kv_caches(cache):
+    """The KV caches of a body cache, in layer order."""
+    return [layer["kv"] if "kv" in layer else layer
+            for seg in cache for layer in seg if "pos" in layer
+            or "kv" in layer]
+
+
+def ssm_served(cfg_kw, params_np, tokens_np, steps_, slots):
+    """``launch.serve``'s prefill and `steps_` greedy decode steps on this
+    rank's shards of the serving layout (``_drop_fsdp``: weights on
+    `model`, the batch on `data`), `slots` decode slots: every step's
+    logits and tokens (gathered), and before each decode step the fewest
+    valid slots in any of this rank's KV caches (0: a shard holding only
+    empty slots)."""
+    cfg = _config(cfg_kw)
+    prog = C.active()
+    params = bridge.from_repro(params_np)
+    params = sharding.shard_tree(params, steps._drop_fsdp(
+        sharding.param_specs(params, prog.mesh)))
+    tokens = _rows(tokens_np)
+    b, s = tokens.shape
+    prefill, decode = serve.build_serving_fns(cfg, device="cpu",
+                                              decode_slots=slots)
+    logits, cache = prefill(params, tokens)
+    decode.check_room(cache, steps_)
+    kvs = _kv_caches(cache)
+    out_logits, toks = [logits[:, -1]], [decode.greedy(logits[:, -1])]
+    fewest = []
+    for i in range(steps_):
+        fewest.append(min((int((kv["pos"] >= 0).sum()) for kv in kvs),
+                          default=None))
+        logits, cache = decode(params, cache, toks[-1][:, None],
+                               decode.positions(b, s, None, i))
+        out_logits.append(logits[:, -1])
+        toks.append(decode.greedy(logits[:, -1]))
+    logits = torch.stack(out_logits, dim=1)
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = C.all_gather(logits, 2, "model")
+    return {"logits": _np(C.all_gather(logits, 0, "data")),
+            "tokens": _np(C.all_gather(torch.stack(toks, 1), 0, "data")),
+            "fewest_valid": fewest,
+            "kv_slots": [tuple(kv["k"].shape[1:3]) for kv in kvs],
+            "kv_specs": [C.spec_of(kv["k"]) for kv in kvs]}
+
+
+def merged(q_np, k_np, v_np, q_pos_np, k_pos_np, valid_np, window):
+    """``attention._merged_attention`` of q over this model rank's slice
+    of the slots of k, v (the kernel route: its plain version here)."""
+    from repro_torch.models import attention
+    spec = (None, "model", None, None)
+    k, v = (sharding.shard_leaf(torch.from_numpy(a), spec)
+            for a in (k_np, v_np))
+    k_pos, valid = (sharding.shard_leaf(torch.from_numpy(a), spec[:2])
+                    for a in (k_pos_np, valid_np))
+    out = attention._merged_attention(
+        torch.from_numpy(q_np), k, v, torch.from_numpy(q_pos_np), k_pos,
+        True, window, valid, "kernel")
+    return {"o": _np(out), "valid_here": valid.sum(-1).tolist()}
+
+
+def prefill_cell(cfg_kw, params_np, tokens_np):
+    """``steps.build_prefill``'s function on this rank's shards of its
+    in_specs (the rule table's layout: weights' D on `data` too, the
+    batch on `data`): the last logits and every cache leaf, gathered."""
+    cfg = _config(cfg_kw)
+    prog = C.active()
+    b, s = tokens_np.shape
+    run = steps.default_run(cfg, ShapeConfig("prefill", s, b, "prefill"),
+                            prog.mesh, attn_impl="kernel", ssm_impl="kernel",
+                            compute_dtype="float32")
+    fn, _, in_specs = steps.build_prefill(cfg, run, prog.mesh)
+    params, batch = steps.shard_inputs(
+        (bridge.from_repro(params_np),
+         {"tokens": torch.from_numpy(tokens_np)}), in_specs)
+    logits, cache = fn(params, batch)
+    whole = sharding.gather_tree(cache)
+    if logits.shape[-1] != cfg.vocab_size:           # the vocab shards
+        logits = C.all_gather(logits, 2, "model")
+    return {"logits": _np(C.all_gather(logits, 0, "data")),
+            "cache": {p: _np(x) for p, x in zip(tree.paths(whole),
+                                                 tree.leaves(whole))
+                      if torch.is_tensor(x)}}
+
+
+def _cell_batch(cfg_kw):
+    """A train cell's batch: 4 clients x 2 x 12 tokens, every client in."""
+    vocab = _config(cfg_kw).vocab_size
+    rng = np.random.default_rng(8)
+    return {"tokens": rng.integers(0, vocab, (4, 2, 12)).astype(np.int32),
+            "labels": rng.integers(0, vocab, (4, 2, 12)).astype(np.int32),
+            "mask": np.ones(4, np.float32)}
+
+
+def _train_cell_run(cfg, mesh, n_clients, seq):
+    return steps.default_run(cfg, ShapeConfig("train", seq, 2 * n_clients,
+                                              "train"), mesh,
+                             n_clients=n_clients, trainable_blocks=1,
+                             attn_impl="kernel", ssm_impl="kernel",
+                             ce_impl="kernel", compute_dtype="float32")
+
+
+def train_cell(cfg_kw, n_clients, batch_np, seed):
+    """Two steps of ``steps.build_train``'s function on this rank's shards
+    of its in_specs (the state drawn whole from `seed` by the port's
+    init): each step's loss and grad norm."""
+    cfg = _config(cfg_kw)
+    prog = C.active()
+    run = _train_cell_run(cfg, prog.mesh, n_clients,
+                          batch_np["tokens"].shape[-1])
+    step_fn, _, _, in_specs = steps.build_train(cfg, run, prog.mesh)
+    params, frozen, _ = split.init_mpsl_lm(
+        torch.Generator().manual_seed(seed), cfg, run)
+    state, batch = steps.shard_inputs(
+        (mpsl.init_state(params, frozen, seed),
+         {k: torch.from_numpy(v) for k, v in batch_np.items()}), in_specs)
+    out = []
+    for _ in range(2):
+        state, met = step_fn(state, batch)
+        out.append((float(met["loss"]), float(met["grad_norm"])))
+    return out
+
+
+def ssm_cases(meshes, trees, blocks, steps_args, props, serves, merges,
+              prefills):
+    """On each mesh: the shards of `trees`, every block of `blocks`, the
+    MPSL step of each of `steps_args`, (with a data axis above 1) the
+    adapter gradients of each of `props`, (with a model axis above 1)
+    serving each of `serves`, the merged attention of each of `merges`
+    and the prefill cell of each of `prefills`."""
+    def one():
+        out = {"shards": shards(trees),
+               "blocks": [ssm_block(*a) for a in blocks],
+               "steps": [mpsl_step(*a) for a in steps_args]}
+        if C.size("data") > 1:
+            out["props"] = [[adapter_grads(*a) for a in p] for p in props]
+        if C.size("model") > 1:
+            out["serve"] = [ssm_served(*a) for a in serves]
+            out["merged"] = [merged(*a) for a in merges]
+            out["prefill"] = [prefill_cell(*a) for a in prefills]
+            out["train_cell"] = [train_cell(kw, 4, _cell_batch(kw), 0)
+                                 for kw, _, _ in prefills]
+        return out
+    return _with_meshes(meshes, one)
