@@ -157,7 +157,7 @@
    mesh_train    the SPMD program (``parallel.collectives``) as 4 rank
                  processes sharing the card over gloo
                  (``launch.spmd.spawn``), mesh (data 2, model 2): train's
-                 spec at 16 of 32 layers, 2 steps (the run's time) with
+                 spec at 8 of 32 layers, 2 steps (the run's time) with
                  client 1 masked out, each rank 2 clients, 12
                  of 24 heads on 4 of 8 KV heads, d_ff 4608 and 128000
                  vocab columns (the vocab-parallel CE kernel on its
@@ -166,10 +166,10 @@
                  run first on the card (each loss, the first step's
                  gradients from each rank's shards, the masked client's
                  adapter gradient exactly 0);
-   mesh_serve    serve's spec on (2, 2), the TP-only layout (batch 2 a
-                 data rank), teacher-forced with the one-rank serve path's
-                 tokens: logits, greedy tokens (argmax over the vocab
-                 shards) up to a near tie;
+   mesh_serve    serve's spec at 16 of 32 layers on (2, 2), the TP-only
+                 layout (batch 2 a data rank), teacher-forced with the
+                 one-rank serve path's tokens: logits, greedy tokens
+                 (argmax over the vocab shards) up to a near tie;
    mesh_ep       qwen3-moe-235b-a22b (2 of 94 layers, bf16) prefill of 1 x
                  4096 tokens through ``steps.build_prefill`` on (1, 4): 32
                  of 128 experts, 16 of 64 heads on 1 of 4 KV heads a
@@ -185,7 +185,7 @@
                  channels, in_proj cut x's and z's channels alike, the
                  vocab-parallel CE; each part against its one-rank path
                  run first, at mesh_train's and mesh_serve's limits;
-   mesh_hybrid   hymba-1.5b at full width, 16 of 32 layers, as mesh_ssm
+   mesh_hybrid   hymba-1.5b at full width, 8 of 32 layers, as mesh_ssm
                  (prompt 1536): 25 heads on 5 KV heads divide no model axis, so
                  every attention weight's D lies on (data, model) (dboth)
                  and each rank computes every head; 1600 local channels;
@@ -199,7 +199,24 @@
                  one-rank kernel path's tokens (DECODE_CELL_TOL,
                  ``_token_deficit``); the seeded cache's shards gathered
                  back bitwise on every rank.
-   Each mesh path requires every rank's launches and collectives (by op
+   mesh_encdec   whisper-tiny at full width, 2 + 2 of its 4 + 4 layers,
+                 on (1, 4), as mesh_ssm: 6 heads divide no model axis of
+                 4, so every encoder, self- and cross-attention block runs
+                 dboth
+                 (the cross block's q from x, k and v from the encoder
+                 output, two row-parallel products); encdec_train's spec
+                 (2 steps, client 1 masked), then 4 x (1500 frames + 227
+                 tokens) in 448 text slots (112 a rank), 16 steps; the
+                 prefill's cross K/V every head on every rank, the same
+                 bits on each, within SERVE_TOL of the one-rank prefill's;
+   mesh_vlm      qwen2-vl-72b at its published widths, 2 of 80 layers
+                 (`reduced` says why), on (2, 2): 32 of 64 heads and 4 of
+                 8 KV heads a rank, the vocab-parallel CE at 76032
+                 columns, fsdp over `data`; vlm_train's spec (2 steps,
+                 client 1 masked), then 4 x (256 patches + 256 tokens),
+                 16 steps.
+   The paths of one mesh share one world (``MESH_GROUPS``). Each mesh
+   path requires every rank's launches and collectives (by op
    and axis) exactly as derived from the code (``mesh_*_collectives``),
    and the ranks' peaks to sum under 80 GB; the collectives' times on
    this transport are not recorded as speed.
@@ -468,13 +485,16 @@ PATHS = {
     # the SPMD program (parallel.collectives): 4 ranks sharing the card
     # over gloo, each holding its shards of the rule table's layout,
     # against the one-rank path; the new paths at full width
-    "mesh_train": dict(TRAIN, mesh=(2, 2), masked_client=1, layers=16,
+    "mesh_train": dict(TRAIN, mesh=(2, 2), masked_client=1, layers=8,
                        steps=2,
-                       reduced="depth 32 -> 16 layers, 3 -> 2 steps since "
-                       "PR 25: the run's 1200 s, beside three more mesh "
-                       "paths; every shape a rank gives the kernels is the "
+                       reduced="depth 32 -> 16 layers and 3 -> 2 steps in "
+                       "PR 25, -> 8 layers in PR 26: the run's 1200 s, "
+                       "beside five more mesh paths; every shape a rank "
+                       "gives the kernels is the full width's"),
+    "mesh_serve": dict(SERVE, mesh=(2, 2), layers=16,
+                       reduced="depth 32 -> 16 layers in PR 26: the run's "
+                       "1200 s; every shape a rank gives the kernels is the "
                        "full width's"),
-    "mesh_serve": dict(SERVE, mesh=(2, 2)),
     "mesh_ep": dict(
         arch="qwen3-moe-235b-a22b", layers=2, mesh=(1, 4),
         shape=("prefill_4k", 4096, 1, "prefill"), seed=0,
@@ -490,14 +510,44 @@ PATHS = {
                      reduced="depth 64 -> 8 layers: the run's time (each "
                      "layer's collectives cross gloo's host buffers); every "
                      "shape a rank gives the kernels is the full width's"),
-    "mesh_hybrid": dict(TRAIN, arch="hymba-1.5b", layers=16, mesh=(2, 2),
+    "mesh_hybrid": dict(TRAIN, arch="hymba-1.5b", layers=8, mesh=(2, 2),
                         masked_client=1, steps=2, batch=4, prompt_len=1536,
                         decode_steps=16,
-                        reduced="depth 32 -> 16 layers (global layers 0 and "
-                        "15 kept): the run's 1200 s; every shape a rank "
-                        "gives the kernels is the full width's"),
+                        reduced="depth 32 -> 16 layers (PR 25), -> 8 (PR 26; "
+                        "global layer 0 beside 7 sliding-window layers): "
+                        "the run's 1200 s; every shape a rank gives the "
+                        "kernels is the full width's"),
 }
-PATHS["mesh_long_500k"] = dict(PATHS["cell_long_500k"], mesh=(1, 4))
+PATHS["mesh_long_500k"] = dict(
+    PATHS["cell_long_500k"], mesh=(1, 4), layers=16,
+    reduced="depth 32 -> 16 layers (global layers 0 and 15 kept) in PR 26: "
+    "the run's 1200 s; the caches (the global layers' 524280 of 524288 "
+    "slots) as cell_long_500k's")
+# the encoder-decoder and VLM stacks on the mesh, train then serve in one
+# world: whisper-tiny at full width and depth on (1, 4), its 6 heads on a
+# model axis of 4 (dboth in every encoder, self- and cross-attention
+# block), encdec_train's spec with client 1 masked, then 4 requests of
+# 1500 frames and 227 tokens in a 448-slot text context (221 decode
+# slots: 112 a rank); qwen2-vl-72b at its published widths on (2, 2)
+# (32 of 64 heads and 4 of 8 KV heads a rank, the vocab-parallel CE at
+# 76032 columns, fsdp over `data`), vlm_train's spec with client 1
+# masked, then 4 requests of 256 patches and 256 tokens
+PATHS["mesh_encdec"] = dict(
+    PATHS["encdec_train"], layers=2, encoder_layers=2, mesh=(1, 4),
+    masked_client=1, steps=2, batch=4, prompt_len=227, decode_steps=16,
+    decode_slots=221,
+    reduced="depth 4 + 4 -> 2 + 2 layers and 16 of the text context's 221 "
+    "decode steps: the run's 1200 s (a step's all-reduces, 5.66 GB a rank "
+    "at full depth, cross gloo's host buffers); every shape a rank gives "
+    "the kernels is the full model's")
+PATHS["mesh_vlm"] = dict(
+    PATHS["vlm_train"], layers=2, mesh=(2, 2), masked_client=1, steps=2,
+    batch=4, prompt_len=256, decode_steps=16,
+    reduced="depth 80 -> 2 layers (1 trainable): at vlm_train's 4 a "
+    "rank's step ran out of the 80 GB the 4 ranks share (~16 GB a rank "
+    "beside ~3.4 GB of allocator fragments: the lm_head's 76032-column "
+    "shard with its AdamW moments and gradient, its gathered copy and "
+    "the CE's scratch); 16 greedy steps")
 # every path's plain version: naive attention, the plain scan, chunked CE,
 # the dense expert dispatch
 PLAIN_IMPLS = {"attn": "naive", "ssm": "plain", "ce": "plain", "moe": "dense"}
@@ -880,6 +930,27 @@ def _attn_cases():
         k_pos=half[None].expand(2, 512),
         k_valid=torch.ones(2, 512, dtype=torch.bool), causal=True,
         window=1024), True))
+    # the encoder-decoder and VLM mesh paths: mesh_vlm's rank (2 clients x
+    # 2 sequences, 32 of 64 heads on 4 of 8 KV heads: G 8, causal on
+    # M-RoPE's row 0), and mesh_encdec's decode (dboth: all 6 heads over
+    # one rank's 112 of the 448 text slots: rank 2's holds the prompt's
+    # last 3 positions and the step's, rank 3's only empty slots until
+    # step 109). Its cross-attention decode over the 1500 frames, every
+    # head on every rank, is encdec_cross_decode's shape.
+    vp = layers.build_positions(get_config("qwen2-vl-72b"), 4, 512, 256)[:, 0]
+    cases.append(("mesh_vlm_train", dict(b=4, sq=512, sk=512, h=32, kh=4,
+                                         hd=hd),
+                  dict(q_pos=vp, k_pos=vp,
+                       k_valid=torch.ones(4, 512, dtype=torch.bool),
+                       causal=True, window=0), True))
+    wslots = torch.arange(224, 336, dtype=torch.int32)
+    wslots = torch.where(wslots <= 227, wslots, -1)[None].expand(4, 112)
+    wempty = torch.full((4, 112), -1, dtype=torch.int32)
+    for name, kp, main in (("mesh_encdec_decode", wslots, True),
+                           ("mesh_encdec_empty_decode", wempty, False)):
+        cases.append((name, dict(b=4, sq=1, sk=112, **wh), dict(
+            q_pos=torch.full((4, 1), 227, dtype=torch.int32), k_pos=kp,
+            k_valid=kp >= 0, causal=True, window=0), main))
     shard = torch.arange(393216, 524288, dtype=torch.int32)[None].clone()
     shard[:, 524280 - 393216:] = -1
     empty = torch.full((1, 131072), -1, dtype=torch.int32)
@@ -922,7 +993,8 @@ FULL_ATTN = (*VIT_ATTN, *ENCDEC_ATTN)
 # the cases no bf16 path runs
 F32_ONLY = (*(n for n in FULL_ATTN if n != "vit_early"), "vlm_train",
             "mesh_train", "mesh_hybrid_train", "mesh_hybrid_prefill",
-            "mesh_hybrid_decode")
+            "mesh_hybrid_decode", "mesh_vlm_train", "mesh_encdec_decode",
+            "mesh_encdec_empty_decode")
 
 
 def _attn_dtypes(name):
@@ -1348,7 +1420,12 @@ def kernels_softmax_xent():
              # over the whole 256000 and shifted: about half lie outside
              # the shard (no gold logit, no one-hot)
              ("mesh_train", 2044, 3072, 128000, f32, f32, True, 256000,
-              128000)]
+              128000),
+             # mesh_vlm's rank: its 2 clients' 2 x 2 x 255 text tokens on
+             # the second half of qwen2-vl's vocab (76032 columns from
+             # 76032)
+             ("mesh_vlm", 1020, 8192, 76032, f32, f32, True, 152064,
+              76032)]
     fwd_res, bwd_res = [], []
     for name, t, d, v, h_dtype, w_dtype, main_path, *shard in cases:
         v_all, v0 = shard or (v, 0)
@@ -1495,6 +1572,9 @@ QUANT8_CASES = [
     # mesh_train's data rank: its 2 clients' 2 x 2 x 512 rows (row0 2048
     # on the second)
     ("mesh_train", 2048, 3072, torch.float32, "vector", 0),
+    # mesh_vlm's data rank: 2 clients x 2 x (256 patches + 256 tokens) at
+    # d 8192 (row0 2048 on the second)
+    ("mesh_vlm", 2048, 8192, torch.float32, "vector", 0),
     ("ssm_train", 4096, 4096, torch.float32, "vector", 0),
     ("train_bf16", 4096, 3072, torch.bfloat16, "vector", 0),
     *[("wide", 4096, d, dt, "vector", 0) for d in (6144, 12288)
@@ -1562,6 +1642,15 @@ def _hold_quant8_bits(rec, x, u):
         device="cuda").manual_seed(41), row0=half)
     routes["row0"] = (torch.cat(parts), whole)
     routes["row0_plain"] = (plain, parts[1])
+    if rec["case"].startswith("mesh_"):
+        # a second data rank's call at row0 = its rank's first row (the
+        # case's row count), against the rows of one call over both
+        rank1 = q8.quant_dequant(x, torch.Generator(
+            device="cuda").manual_seed(41), row0=x.shape[0])
+        both = q8.quant_dequant(torch.cat([x, x]), torch.Generator(
+            device="cuda").manual_seed(41))
+        routes["row0_rank"] = (rank1, both[x.shape[0]:])
+        del both
     bits = torch.int32 if x.dtype == torch.float32 else torch.int16
     for route, (got, want) in routes.items():
         rec[f"max_abs_err_{route}"] = _max_err(got, want)
@@ -1584,7 +1673,8 @@ def _hold_quant8_bits(rec, x, u):
     torch.cuda.synchronize()
     rec["philox_in_range"] = in_range
     ok = in_range and all(rec[f"bitwise_{r}"] for r in (
-        "nearest", "streamed", "philox", "row0", "row0_plain"))
+        "nearest", "streamed", "philox", "row0", "row0_plain",
+        *(("row0_rank",) if rec["case"].startswith("mesh_") else ())))
     if x.dtype == torch.float32:
         # a draw errs by less than a level and on average by nothing: the
         # mean of 64 draws spreads by at most 1/16 of a level
@@ -1908,9 +1998,15 @@ def _config(spec):
     cfg = get_config(spec["arch"])
     if "layers" not in spec:
         return cfg, {"layers": cfg.num_layers}
-    cut = dataclasses.replace(cfg, num_layers=spec["layers"])
-    return cut, {"layers": f"{cut.num_layers} of {cfg.num_layers}",
-                 "reduced": spec["reduced"]}
+    cut = dataclasses.replace(cfg, num_layers=spec["layers"],
+                              encoder_layers=spec.get("encoder_layers",
+                                                      cfg.encoder_layers))
+    depth = {"layers": f"{cut.num_layers} of {cfg.num_layers}",
+             "reduced": spec["reduced"]}
+    if cut.encoder_layers != cfg.encoder_layers:
+        depth["encoder_layers"] = (f"{cut.encoder_layers} of "
+                                   f"{cfg.encoder_layers}")
+    return cut, depth
 
 
 def _frontend(cfg) -> dict:
@@ -3529,13 +3625,52 @@ def _rank_init(make):
     return out
 
 
-def _spawn(path, fn, mesh, *args):
-    """fn(*args) on every rank of `mesh` on the card; each rank's record."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    t = time.perf_counter()
-    res = spmd.spawn(fn, mesh, "cuda", MESH_TIMEOUT, args=args)
-    return res, time.perf_counter() - t
+def _run_tasks(tasks):
+    """A group's rank side (``phase_mesh_group``): each (rank function
+    name, arguments) of `tasks` in turn, the card's cache emptied between;
+    each one's record and its seconds on this rank."""
+    out = []
+    for name, args in tasks:
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        t = time.perf_counter()
+        out.append((globals()[name](*args), time.perf_counter() - t))
+    return out
+
+
+def phase_mesh_group(paths):
+    """The mesh paths `paths` (on one mesh) in one world of 4 ranks on the
+    card: each path's phase (a generator) computes its one-rank reference
+    on the card and yields its rank function, mesh and arguments; one
+    world (``launch.spmd.spawn``: a rank's start costs ~13 s) runs them in
+    order; each phase is then sent its ranks' records and the task's
+    seconds on rank 0 (its `world_s`) and holds them. Returns each path's
+    launches."""
+    gens, tasks, meshes, counts = [], [], set(), {}
+    try:
+        for path in paths:
+            g = MESH_PHASES[path](path, PATHS[path])
+            fn, mesh, args = next(g)
+            gens.append(g)
+            tasks.append((fn.__name__, args))
+            meshes.add(mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if len(meshes) != 1:
+            raise ValueError(f"{paths}: one world runs one mesh, not "
+                             f"{meshes}")
+        res = spmd.spawn(_run_tasks, mesh, "cuda", MESH_TIMEOUT,
+                         args=(tasks,))
+        for i, (path, g) in enumerate(zip(paths, gens)):
+            try:
+                g.send(([r[i][0] for r in res], res[0][i][1]))
+            except StopIteration as done:
+                counts[path] = done.value
+    finally:
+        for g in gens:
+            g.close()
+    return counts
 
 
 def _collectives_step():
@@ -3557,7 +3692,8 @@ def _sharded_rel_l2(local, ref_full, spec) -> float:
     ref = sharding.shard_leaf(ref_full, spec).to(local.device, torch.float32)
     w = collectives.replica_weight(local)
     sums = torch.stack([(local.float() - ref).square().sum() * w,
-                        ref.square().sum() * w])
+                        ref.square().sum() * w]).to(
+                            collectives.active().device)
     num, den = collectives.all_reduce(sums, collectives.WORLD).tolist()
     return math.sqrt(num) / math.sqrt(den) if den else math.sqrt(num)
 
@@ -3663,10 +3799,7 @@ def mesh_train_collectives(cfg, spec) -> dict:
     elif fam == "hybrid":
         n_w, leaves, final, ar_m, ag_m = 9, 13, 1, 11 * L, 2 * L
     else:
-        n_w = 4 + (3 if layers.gated_activation(cfg.activation) else 2)
-        leaves = 2 * (2 if cfg.norm == "layernorm" else 1)
-        final = 2 if cfg.norm == "layernorm" else 1
-        ar_m, ag_m = 5 * L, 0
+        return _attn_train_collectives(cfg, out, L, T, d, m)
     out["all_gather/data"] += 2 * n_w * L
     out["reduce_scatter/data"] += n_w * T
     out["all_reduce/data"] += leaves * T + final
@@ -3675,7 +3808,58 @@ def mesh_train_collectives(cfg, spec) -> dict:
     return out
 
 
-def mesh_serve_collectives(cfg, steps_, mesh=(2, 2)) -> dict:
+def _attn_layout(cfg, m) -> str:
+    """``attention.model_layout``'s layout of cfg's weights on a model
+    axis of m (the rule table's: heads where H and K divide it, dboth
+    where neither does)."""
+    h, k = cfg.num_heads % m == 0, cfg.num_kv_heads % m == 0
+    return "heads" if h and k else ("dboth" if not (h or k) else "mixed")
+
+
+def _attn_train_collectives(cfg, out, L, T, d, m) -> dict:
+    """``mesh_train_collectives`` of a dense, VLM or encoder-decoder LM
+    (every block's d_ff on `model`; block remat, whose recompute stops
+    before the MLP's reduction). Over `model`, a block's attention under
+    heads: its output's all-reduce in the forward and the recompute, x's
+    gradient entering the region (3); under dboth: the q|k|v partial sums
+    in both, x's and the attention output's gradients (4), wo's output
+    parts all-gathered in both (2 all-gathers); the MLP's output and its
+    input's gradient (2). A decoder block's cross-attention under heads:
+    its output in both passes, x's and the encoder output's gradients
+    (4); under dboth: q's and k|v's partial sums in both passes, the
+    gradients of x, the encoder output and the attention output (7), wo's
+    output parts in both (2 all-gathers). The learned positions (the
+    decoder's and the encoder's, their D on `model`) are all-gathered
+    once each. Over `data` (fsdp): each block's attention (4), cross (4)
+    and MLP (2 or 3) weights gathered in both passes, the trainable
+    blocks' reduce-scattered; the trainable blocks' norms (1 or 2 leaves
+    each) and qkv biases and the final norm all-reduced. The frozen
+    encoder's blocks gather likewise and take no weight gradient. The
+    collectives over an axis of size 1 are none."""
+    lay = _attn_layout(cfg, m)
+    if lay == "mixed":
+        raise ValueError(f"{cfg.name}: no path trains the mixed layout")
+    cross = cfg.family == "audio"
+    mlp_w = 3 if layers.gated_activation(cfg.activation) else 2
+    norm = 2 if cfg.norm == "layernorm" else 1
+    attn_ar, attn_ag = (3, 0) if lay == "heads" else (4, 2)
+    cross_ar, cross_ag = (4, 0) if lay == "heads" else (7, 2)
+    block_ar = attn_ar + 2 + (cross_ar if cross else 0)
+    block_ag = attn_ag + (cross_ag if cross else 0)
+    n_w = 4 + mlp_w + (4 if cross else 0)
+    leaves = norm * (3 if cross else 2) + (3 if cfg.qkv_bias else 0)
+    E = cfg.encoder_layers
+    out["all_reduce/model"] += block_ar * L + (attn_ar + 2) * E
+    out["all_gather/model"] += (block_ag * L + attn_ag * E
+                                + (2 if cfg.pos_embed == "learned" else 0))
+    out["all_gather/data"] += 2 * n_w * L + 2 * (4 + mlp_w) * E
+    out["reduce_scatter/data"] += n_w * T
+    out["all_reduce/data"] += leaves * T + norm
+    return {k: v for k, v in out.items() if v and (
+        k.endswith("/world") or {"data": d, "model": m}[k.split("/")[1]] > 1)}
+
+
+def mesh_serve_collectives(cfg, steps_, mesh=(2, 2), cache_len=None) -> dict:
     """The collectives of one serve call (prefill and `steps_` greedy
     steps) on the TP-only layout (weights on `model`, replicated over
     `data`, which only splits the batch): each forward all-gathers the
@@ -3690,7 +3874,10 @@ def mesh_serve_collectives(cfg, steps_, mesh=(2, 2)) -> dict:
     fwd = 1 + steps_
     m = mesh[1]
     L = cfg.num_layers
-    per = {"dense": 2, "moe": 2, "ssm": 2, "hybrid": 4}[cfg.family]
+    if cfg.family == "audio":
+        return _encdec_serve_collectives(cfg, steps_, mesh, cache_len)
+    per = {"dense": 2, "moe": 2, "ssm": 2, "hybrid": 4,
+           "vlm": 2}[cfg.family]
     ag = 1 + 2 * (cfg.vocab_size % m == 0)
     merged = 0
     if cfg.family == "hybrid":
@@ -3698,6 +3885,31 @@ def mesh_serve_collectives(cfg, steps_, mesh=(2, 2)) -> dict:
         merged = L * steps_ if cfg.num_kv_heads % m else 0
     return {"all_gather/model": ag * fwd + merged,
             "all_reduce/model": per * L * fwd}
+
+
+def _encdec_serve_collectives(cfg, steps_, mesh, cache_len) -> dict:
+    """``mesh_serve_collectives`` of whisper (TP-only: weights on `model`;
+    the vocabulary divides no axis, so the logits and the greedy token
+    are whole on every rank). Each forward all-gathers the token lookup's
+    and the learned positions' columns (2); each decoder layer's self- and
+    cross-attention leave by one all-reduce each under heads, or enter by
+    one (the q|k|v, or q's, partial sums) and leave by an all-gather of
+    wo's output parts under dboth, its MLP by one all-reduce. The prefill
+    also all-gathers the encoder's positions (1), runs each encoder layer
+    (2 all-reduces, and under dboth 1 all-gather) and makes each decoder
+    layer's cross K/V (under dboth one all-reduce of the k|v partial sums;
+    under heads one all-gather of this rank's heads). A decode step over
+    a sequence-sharded self cache (dboth, its `cache_len` slots dividing
+    the model axis) all-gathers each layer's o and lse (L a step)."""
+    m = mesh[1]
+    L, E = cfg.num_layers, cfg.encoder_layers
+    dboth = _attn_layout(cfg, m) == "dboth"
+    ar_fwd, ag_fwd = 3 * L, 2 + 2 * L * dboth
+    merged = L * (dboth and cache_len % m == 0)
+    ar = ar_fwd * (1 + steps_) + 2 * E + L * dboth
+    ag = (ag_fwd * (1 + steps_) + 1 + E * dboth + L * (not dboth)
+          + merged * steps_)
+    return {"all_gather/model": ag, "all_reduce/model": ar}
 
 
 def mesh_decode_collectives(cfg) -> dict:
@@ -3739,10 +3951,12 @@ def _train_setup(cfg, spec, device):
     first = []
 
     def keep_first(step, grads):
-        # the first step's gradients, kept for the comparison after the
-        # run (copied on the card: the hook adds no collective)
+        # the first step's gradients, kept on the host for the comparison
+        # after the run (the hook adds no collective; on the card a
+        # qwen2-vl rank's copy, 2.1 GB, would not fit beside four ranks'
+        # steps)
         if step == 0:
-            first.extend(g.clone() for g in grads)
+            first.extend(g.detach().cpu() for g in grads)
 
     step_fn = mpsl.make_train_step(
         loss_fn, run, schedules.warmup_cosine(spec["lr"], 10, spec["steps"]),
@@ -3818,8 +4032,8 @@ def phase_mesh_train(path, spec):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     try:
         ref_file, one = _mesh_train_ref(cfg, spec, device, tmp)
-        ranks, world_s = _spawn(path, _mesh_train_rank, _mesh(spec), spec,
-                                ref_file, one["losses"])
+        ranks, world_s = yield (_mesh_train_rank, _mesh(spec),
+                                (spec, ref_file, one["losses"]))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return _hold_mesh_train(path, spec, cfg, depth, ranks, one, world_s)
@@ -3900,18 +4114,35 @@ def _mesh(spec):
     return mesh_lib.Mesh(("data", "model"), tuple(spec["mesh"]))
 
 
+def _decode_slots(spec) -> int:
+    return spec.get("decode_slots", 512)
+
+
+def _cross_kvs(cache) -> list:
+    """The cross K/V that prefill kept beside each decoder layer's cache."""
+    return [layer["cross"] for seg in cache for layer in seg
+            if "cross" in layer]
+
+
 def _mesh_serve_ref(cfg, spec, device, tmp):
     """The one-rank serve path on the card (a warm-up call, then the
-    call): (the file in `tmp` holding its logits and tokens, the
-    record's one-rank times)."""
+    call; an encoder-decoder's prefill once more for its cross K/V): (the
+    file in `tmp` holding its logits, tokens and cross K/V, the record's
+    one-rank times)."""
     steps_ = spec["decode_steps"]
-    params, tokens = _serve_inputs(cfg, spec, device)
-    prefill, decode = serve.build_serving_fns(cfg, torch.float32, device)
-    serve.generate(prefill, decode, params, tokens, 1)          # warm-up
-    one = serve.generate(prefill, decode, params, tokens, steps_)
+    params, tokens, stub = _serve_inputs(cfg, spec, device)
+    prefill, decode = serve.build_serving_fns(
+        cfg, torch.float32, device, decode_slots=_decode_slots(spec))
+    serve.generate(prefill, decode, params, tokens, 1, **stub)  # warm-up
+    one = serve.generate(prefill, decode, params, tokens, steps_, **stub)
+    ref = {"logits": one["logits"].cpu(), "tokens": one["tokens"].cpu()}
+    if cfg.encoder_layers:
+        _, cache = prefill(params, tokens, **stub)
+        ref["cross"] = [{k: c[k].cpu() for k in ("k", "v")}
+                        for c in _cross_kvs(cache)]
+        del cache
     ref_file = os.path.join(tmp, "ref.pt")
-    torch.save({"logits": one["logits"].cpu(),
-                "tokens": one["tokens"].cpu()}, ref_file)
+    torch.save(ref, ref_file)
     return ref_file, {"one_rank_prefill_ms": one["prefill_s"] * 1e3,
                       "one_rank_decode_ms_per_token":
                       one["decode_s"] / steps_ * 1e3}
@@ -3924,8 +4155,9 @@ def _hold_mesh_serve(path, spec, cfg, depth, ranks, rec_one, world_s):
     the one-rank token or a near tie."""
     steps_ = spec["decode_steps"]
     expected = {"launches": serve_launches(cfg, steps_),
-                "collectives": mesh_serve_collectives(cfg, steps_,
-                                                      spec["mesh"])}
+                "collectives": mesh_serve_collectives(
+                    cfg, steps_, spec["mesh"],
+                    spec["prompt_len"] + _decode_slots(spec))}
     rec = {"phase": path, "part": "serve", **depth, "arch": cfg.name,
            "mesh": spec["mesh"], "program": ranks[0]["program"],
            "batch": spec["batch"], "prompt_len": spec["prompt_len"],
@@ -3940,6 +4172,14 @@ def _hold_mesh_serve(path, spec, cfg, depth, ranks, rec_one, world_s):
                 f"{path} rank {r['rank']}: logits {r['max_logit_diff']} "
                 f"off the one-rank path's, or a greedy token off by more "
                 f"than a near tie ({r['token_deficit_max']})")
+        if "cross_kv_close" in r and not (
+                r["cross_kv_close"] and r["cross_kv_same_on_model_ranks"]
+                and set(r["cross_kv_heads"]) == {cfg.num_kv_heads}):
+            raise AssertionError(
+                f"{path} rank {r['rank']}: cross K/V {r['cross_kv_max_diff']}"
+                f" off the one-rank prefill's, the same bits on every model "
+                f"rank: {r['cross_kv_same_on_model_ranks']}, heads "
+                f"{r['cross_kv_heads']}")
     return _mesh_counts(ranks)
 
 
@@ -3954,19 +4194,21 @@ def phase_mesh_serve(path, spec):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     try:
         ref_file, rec_one = _mesh_serve_ref(cfg, spec, device, tmp)
-        ranks, world_s = _spawn(path, _mesh_serve_rank, _mesh(spec), spec,
-                                ref_file)
+        ranks, world_s = yield (_mesh_serve_rank, _mesh(spec),
+                                (spec, ref_file))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return _hold_mesh_serve(path, spec, cfg, depth, ranks, rec_one, world_s)
 
 
 def phase_mesh_family(path, spec):
-    """A Mamba or hybrid LM as the SPMD program on a (2, 2) mesh, train
-    then serve in one world (4 ranks sharing the card over gloo), each
-    part against its one-rank path run first: ``phase_mesh_train``'s and
-    ``phase_mesh_serve``'s checks, limits and exact counts. Returns the
-    launches of both parts."""
+    """A Mamba, hybrid, encoder-decoder or VLM LM as the SPMD program on
+    its mesh, train then serve in one world (4 ranks sharing the card
+    over gloo), each part against its one-rank path run first:
+    ``phase_mesh_train``'s and ``phase_mesh_serve``'s checks, limits and
+    exact counts; an encoder-decoder's cross K/V every KV head on every
+    model rank, the same bits on each, within SERVE_TOL of the one-rank
+    prefill's. Returns the launches of both parts."""
     cfg, depth = _config(spec)
     device = serve.resolve_device("cuda")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
@@ -3975,8 +4217,8 @@ def phase_mesh_family(path, spec):
         gc.collect()
         torch.cuda.empty_cache()
         serve_ref, rec_one = _mesh_serve_ref(cfg, spec, device, tmp)
-        ranks, world_s = _spawn(path, _mesh_family_rank, _mesh(spec), spec,
-                                train_ref, one["losses"], serve_ref)
+        ranks, world_s = yield (_mesh_family_rank, _mesh(spec),
+                                (spec, train_ref, one["losses"], serve_ref))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     counts = _hold_mesh_train(path, spec, cfg, depth,
@@ -3995,13 +4237,15 @@ def _mesh_family_rank(spec, train_ref, losses, serve_ref):
 
 
 def _serve_inputs(cfg, spec, device):
-    """serve's params and prompt from the seed (``phase_serve``'s)."""
+    """serve's params, prompt and stub frames or patches from the seed
+    (``phase_serve``'s)."""
     gen = torch.Generator(device=device).manual_seed(spec["seed"])
     params = M.init_lm(cfg, gen, device)
     tokens = torch.randint(0, cfg.vocab_size,
                            (spec["batch"], spec["prompt_len"]),
                            generator=gen, device=device)
-    return params, tokens
+    return params, tokens, serve.stub_inputs(cfg, spec["batch"],
+                                             spec["seed"], device)
 
 
 def _mesh_serve_rank(spec, ref_file):
@@ -4011,28 +4255,54 @@ def _mesh_serve_rank(spec, ref_file):
     mesh = prog.mesh
     steps_ = spec["decode_steps"]
 
+    def rows(t):
+        # this data rank's requests: the rows of the one-rank draw
+        return sharding.shard_leaf(t, sharding.resolve_spec(
+            mesh, t.shape, ("batch",) + (None,) * (t.dim() - 1)))
+
     def make():
-        params, tokens = _serve_inputs(cfg, spec, device)
+        params, tokens, stub = _serve_inputs(cfg, spec, device)
         specs = steps._drop_fsdp(sharding.param_specs(params, mesh))
-        rows = sharding.resolve_spec(mesh, tokens.shape, ("batch", None))
-        return sharding.shard_tree(params, specs), \
-            sharding.shard_leaf(tokens, rows)
+        return sharding.shard_tree(params, specs), rows(tokens), \
+            {k: rows(v) for k, v in stub.items()}
 
     t0 = time.perf_counter()
-    params, tokens = _rank_init(make)
+    params, tokens, stub = _rank_init(make)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     ref = torch.load(ref_file)
     b = tokens.shape[0]
     r0 = prog.index("data") * b
     forced = ref["tokens"][r0:r0 + b, :steps_].to(device)
-    prefill, decode = serve.build_serving_fns(cfg, torch.float32, device)
-    serve.generate(prefill, decode, params, tokens, 1)          # warm-up
+    prefill, decode = serve.build_serving_fns(
+        cfg, torch.float32, device, decode_slots=_decode_slots(spec))
+    cross = {}
+    if cfg.encoder_layers:
+        # the prefill's cross K/V: every KV head on every model rank, the
+        # same bits on each, against the one-rank prefill's
+        _, cache = prefill(params, tokens, **stub)
+        kvs = _cross_kvs(cache)
+        same, diff, close = True, 0.0, True
+        for c, want in zip(kvs, ref["cross"]):
+            for k in ("k", "v"):
+                parts = collectives.all_gather(c[k][None], 0, "model")
+                same &= all(torch.equal(x, c[k]) for x in parts.unbind(0))
+                got, w = c[k].cpu(), want[k][r0:r0 + b]
+                diff = max(diff, (got - w).abs().max().item())
+                close &= torch.allclose(got, w, atol=SERVE_TOL,
+                                        rtol=SERVE_TOL)
+        cross = {"cross_kv_heads": [c["k"].shape[2] for c in kvs],
+                 "cross_kv_shape": list(kvs[0]["k"].shape),
+                 "cross_kv_same_on_model_ranks": bool(same),
+                 "cross_kv_max_diff": diff, "cross_kv_close": bool(close),
+                 "self_cache_slots_here": cache[0][0]["k"].shape[1]}
+        del cache, kvs, parts
+    serve.generate(prefill, decode, params, tokens, 1, **stub)  # warm-up
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     collectives.reset_counts()
     out = serve.generate(prefill, decode, params, tokens, steps_,
-                         forced_tokens=forced)
+                         forced_tokens=forced, **stub)
     launches, colls = read_counts(), _collectives_step()
     nbytes = _collective_bytes()
     peak = torch.cuda.max_memory_allocated()
@@ -4060,7 +4330,7 @@ def _mesh_serve_rank(spec, ref_file):
         tokens_equal=int((toks == ref["tokens"][r0:r0 + b]).sum()),
         tokens=int(toks.numel()),
         token_deficit_max=deficit.max().item(),
-        tokens_ok=bool((deficit <= slack).all()))
+        tokens_ok=bool((deficit <= slack).all()), **cross)
 
 
 def phase_mesh_ep(path, spec):
@@ -4097,8 +4367,8 @@ def phase_mesh_ep(path, spec):
                     "cache": [{k: lay[k].cpu() for k in ("k", "v")}
                               for seg in cache for lay in seg]}, ref_file)
         del params, batch, logits, cache, tape
-        ranks, world_s = _spawn(path, _mesh_ep_rank, _mesh(spec), spec,
-                                ref_file)
+        ranks, world_s = yield (_mesh_ep_rank, _mesh(spec),
+                                (spec, ref_file))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     want = dict.fromkeys(COUNTERS, 0)
@@ -4180,8 +4450,8 @@ def phase_mesh_long(path, spec):
         torch.save({"logits": outs, "tokens": [t.cpu() for t in toks]},
                    ref_file)
         del params, cache, logits
-        ranks, world_s = _spawn(path, _mesh_long_rank, _mesh(spec), spec,
-                                ref_file)
+        ranks, world_s = yield (_mesh_long_rank, _mesh(spec),
+                                (spec, ref_file))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     want = dict.fromkeys(COUNTERS, 0)
@@ -4339,6 +4609,20 @@ def _mesh_ep_rank(spec, ref_file):
         cache_rel_l2_worst=worst)
 
 
+# each mesh path's phase, and the groups whose paths share one world (one
+# mesh each), in the order they run
+MESH_PHASES = {"mesh_train": phase_mesh_train, "mesh_serve": phase_mesh_serve,
+               "mesh_ep": phase_mesh_ep, "mesh_ssm": phase_mesh_family,
+               "mesh_hybrid": phase_mesh_family,
+               "mesh_long_500k": phase_mesh_long,
+               "mesh_encdec": phase_mesh_family,
+               "mesh_vlm": phase_mesh_family}
+MESH_GROUPS = (("mesh_train", "mesh_serve"),
+               ("mesh_ep", "mesh_long_500k", "mesh_encdec"),
+               ("mesh_ssm",), ("mesh_hybrid",), ("mesh_vlm",))
+MESH_PATHS = {p for group in MESH_GROUPS for p in group}
+
+
 def dryrun_cells() -> list:
     """``dryrun.run_cell`` on the host mesh for each cell path, at its cut
     size: argument and temp bytes, flops (no card touched)."""
@@ -4401,23 +4685,39 @@ def phase_dryrun(proc, out_path, peaks, timeout=900):
                                           else peak / predicted)})
 
 
-def phase_examples():
+def phase_examples(timeout=600):
     """The port's three examples on the card at their defaults, each in a
-    process of its own; each must exit 0."""
+    process of its own, the three at once (each holds a few GB); each must
+    exit 0."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    for name in ("quickstart", "train_lm_mpsl", "serve_batched"):
-        t = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m",
-                               f"repro_torch.examples.{name}"], env=env,
-                              cwd=ROOT, capture_output=True, text=True,
-                              timeout=600)
-        tail = (proc.stdout + proc.stderr).strip().splitlines()[-3:]
-        emit({"phase": "examples", "example": name, "rc": proc.returncode,
-              "s": time.perf_counter() - t, "tail": tail})
-        if proc.returncode:
-            raise AssertionError(f"example {name} exited "
-                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
-
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    runs = []
+    try:
+        for name in ("quickstart", "train_lm_mpsl", "serve_batched"):
+            out = open(os.path.join(tmp, name + ".log"), "w+")
+            proc = subprocess.Popen([sys.executable, "-m",
+                                     f"repro_torch.examples.{name}"],
+                                    env=env, cwd=ROOT, stdout=out,
+                                    stderr=subprocess.STDOUT, text=True)
+            runs.append((name, proc, out, time.perf_counter()))
+        deadline = time.perf_counter() + timeout
+        for name, proc, out, t in runs:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            s = time.perf_counter() - t
+            out.seek(0)
+            text = out.read()
+            emit({"phase": "examples", "example": name, "rc": rc, "s": s,
+                  "tail": text.strip().splitlines()[-3:]})
+            if rc:
+                raise AssertionError(f"example {name} exited {rc}: "
+                                     f"{text[-2000:]}")
+    finally:
+        for _, proc, out, _ in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -4454,16 +4754,8 @@ def _main(smi, dry, dry_out) -> int:
             counts[path], driven = phase_cell_prefill(path, spec)
             peaks[path] = driven[-1]["peak_mem_bytes"]
             phase_cell_profile(*driven)
-        elif path == "mesh_train":
-            counts[path] = phase_mesh_train(path, spec)
-        elif path == "mesh_serve":
-            counts[path] = phase_mesh_serve(path, spec)
-        elif path == "mesh_ep":
-            counts[path] = phase_mesh_ep(path, spec)
-        elif path in ("mesh_ssm", "mesh_hybrid"):
-            counts[path] = phase_mesh_family(path, spec)
-        elif path == "mesh_long_500k":
-            counts[path] = phase_mesh_long(path, spec)
+        elif path in MESH_PATHS:
+            continue
         elif path.startswith("cell_"):
             counts[path], driven = phase_cell_decode(path, spec)
             peaks[path] = driven[-1]["peak_mem_bytes"]
@@ -4486,6 +4778,9 @@ def _main(smi, dry, dry_out) -> int:
             counts[path], driven = phase_train(path, spec)
             recs[path] = (driven[-1], phase_train_profile(*driven))
         del driven
+        torch.cuda.empty_cache()
+    for group in MESH_GROUPS:
+        counts.update(phase_mesh_group(group))
         torch.cuda.empty_cache()
     for name, entry in kernels.items():
         entry["launches_by_path"] = {p: c[name] for p, c in counts.items()}

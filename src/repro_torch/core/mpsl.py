@@ -213,7 +213,8 @@ def make_lm_loss(cfg, run, impls=None):
         # ---- 1. client forward: frozen tokenizer + per-client adapter ----
         h = layers.embed_lookup(frozen["embed"]["table"], tokens).to(cdt)
         if cfg.pos_embed == "learned":
-            h = h + frozen["embed"]["pos"][:s_text].to(cdt)
+            h = h + layers.learned_positions(frozen["embed"]["pos"],
+                                             s_text).to(cdt)
         patches = batch.get("patch_embeds")
         if patches is not None:
             h = torch.cat([patches.to(cdt), h], dim=2)

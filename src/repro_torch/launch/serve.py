@@ -254,8 +254,7 @@ def main(argv=None):
                         "(render with `python -m repro_torch.obs.report`)")
     args = p.parse_args(argv)
 
-    prog, device = spmd.start_world(resolve_device(args.device))
-    with collectives.program(prog):
+    with spmd.world(resolve_device(args.device)) as (prog, device):
         return _main(args, device, prog)
 
 

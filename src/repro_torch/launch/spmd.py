@@ -39,25 +39,37 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.parallel import collectives
 
 
-def start_world(device):
-    """(the SPMD program or None, the rank's device) of a CLI. Under
-    ``torchrun`` (WORLD_SIZE > 1) this joins its process group (env://
-    rendezvous; rank r on card LOCAL_RANK) and starts the program on the
-    host mesh (``mesh.make_host_mesh()``); in a world that ``spawn``
-    started, the program is already active."""
+@contextlib.contextmanager
+def world(device):
+    """A CLI's world: yields (the SPMD program or None, the rank's
+    device), the program active while open. Under ``torchrun``
+    (WORLD_SIZE > 1) this joins its process group (env:// rendezvous;
+    rank r on card LOCAL_RANK), starts the program on the host mesh
+    (``mesh.make_host_mesh()``) and, on a clean exit, waits for every
+    rank and leaves the group (a rank that exits while still in it can
+    abort in gloo's teardown, another rank's pairs closing under it). In
+    a world that ``spawn`` started, the program is already active and
+    the group is spawn's to end."""
+    joined = False
     if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE",
                                                         "1")) > 1:
-        world = int(os.environ["WORLD_SIZE"])
+        world_size = int(os.environ["WORLD_SIZE"])
         if device.type == "cuda":
             device = torch.device("cuda", int(os.environ.get(
                 "LOCAL_RANK", os.environ["RANK"])) % torch.cuda.device_count())
             torch.cuda.set_device(device)
-        dist.init_process_group(collectives.default_backend(device, world),
-                                init_method="env://")
+        dist.init_process_group(
+            collectives.default_backend(device, world_size),
+            init_method="env://")
+        joined = True
     prog = collectives.active()
     if prog is None and dist.is_initialized():
         prog = mesh_lib.init_device_mesh(mesh_lib.make_host_mesh(), device)
-    return prog, device
+    with collectives.program(prog):
+        yield prog, device
+    if joined:
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 class WorldFailed(RuntimeError):

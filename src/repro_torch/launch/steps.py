@@ -35,7 +35,7 @@ from repro_torch.configs import MPSLConfig, RunConfig
 from repro_torch.core import mpsl, split
 from repro_torch.models import layers, model as M
 from repro_torch.optim import adamw_init, schedules
-from repro_torch.parallel import sharding
+from repro_torch.parallel import collectives, sharding
 
 VLM_PATCH_TOKENS = 256
 # Per-device activation-stash budget for the microbatch heuristic (the
@@ -200,8 +200,11 @@ def abstract_serve_params(cfg, dtype="bfloat16"):
 
 def abstract_serve_cache(cfg, batch: int, cache_len: int,
                          dtype="bfloat16"):
+    """The whole body cache on the meta device (made with no program
+    active: under one, ``init_cache`` would make this rank's part)."""
     dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
-    return M.init_body_cache(cfg, batch, cache_len, dt, device="meta")
+    with collectives.program(None):
+        return M.init_body_cache(cfg, batch, cache_len, dt, device="meta")
 
 
 def abstract_cross_kv(cfg, batch: int, dtype="bfloat16"):

@@ -193,8 +193,7 @@ def parser():
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    prog, device = spmd.start_world(resolve_device(args.device))
-    with collectives.program(prog):
+    with spmd.world(resolve_device(args.device)) as (prog, device):
         return _main(args, device, prog)
 
 

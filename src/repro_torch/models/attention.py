@@ -50,9 +50,20 @@ rule table lays them (``model_layout``):
     under dboth; a decode step over a sequence-sharded cache all-gathers
     the query heads first.
 
-Each weight's fsdp dim is gathered at use. Cross-attention under dboth
-or mixed, and sequence sharding (``seq_model``) are not in the program
-yet (ROADMAP.md Queue 1 item 7).
+Cross-attention (the whisper decoder) under heads projects x and
+``kv_x`` through this rank's heads; under dboth q comes from x and k, v
+from ``kv_x`` through two row-parallel products (``_row_parallel``), one
+all-reduce each, ``kv_x`` having entered the region by ``copy_to`` (so
+the encoder output's gradient is the sum of the ranks' parts). The cross
+K/V kept for decode (``compute_cross_kv``) hold every KV head on every
+model rank, the batch on `data` (``steps.cross_kv_specs``): under dboth
+the row-parallel products give them, under heads this rank's heads are
+all-gathered over `model`, and a decode step's cross-attention reads
+its query heads' KV heads (``_for_heads``).
+
+Each weight's fsdp dim is gathered at use. Cross-attention under mixed,
+and sequence sharding (``seq_model``) are not in the program yet
+(ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -303,18 +314,6 @@ def _norm_scale(params, name, tp):
     return C.copy_to(scale, "model") if tp else scale
 
 
-def _kv(params, src, cfg):
-    """Keys and values of `src` [B, S, D]: [B, S, K, hd] each."""
-    k = _proj(src, params["wk"])
-    v = _proj(src, params["wv"])
-    if cfg.qkv_bias:
-        k = k + params["bk"].to(src.dtype)
-        v = v + params["bv"].to(src.dtype)
-    if cfg.qk_norm:
-        k = layers.rms_norm(k, params["k_norm"]["scale"])
-    return k, v
-
-
 def model_layout(params) -> str:
     """Where the attention weights lie under the SPMD program: "heads"
     (the query and KV heads on `model`), "mixed" (the query heads on
@@ -429,18 +428,24 @@ def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
     flat_pos = positions[:, 0] if positions.dim() == 3 else positions
     layout = model_layout(params)
     q_tp = layout in ("heads", "mixed")       # this rank's query heads
+    cross = kv_x is not None or precomputed_kv is not None
+    if layout == "mixed" and cross:
+        raise NotImplementedError(
+            "cross-attention under the mixed layout: ROADMAP.md Queue 1 "
+            "item 7")
     if layout != "replicated" and not x_entered:
         x = C.copy_to(x, "model")
         if kv_x is not None:
             kv_x = C.copy_to(kv_x, "model")
-    if layout in ("dboth", "mixed") and (kv_x is not None
-                                         or precomputed_kv is not None):
-        raise NotImplementedError(
-            f"cross-attention under the {layout} layout: ROADMAP.md Queue 1 "
-            f"item 7")
     k = v = None
-    if layout == "dboth":
+    if layout == "dboth" and not cross:
         q, k, v = _row_parallel(params, ("wq", "wk", "wv"), x)
+    elif layout == "dboth":
+        # two row-parallel products, one all-reduce each: q of x, k and v
+        # of the encoder output (at decode, kept by compute_cross_kv)
+        q, = _row_parallel(params, ("wq",), x)
+        if kv_x is not None:
+            k, v = _row_parallel(params, ("wk", "wv"), kv_x.to(x.dtype))
     else:
         q = _proj(x, C.gather_param(params["wq"]))
         if layout == "mixed":
@@ -464,7 +469,6 @@ def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
         # gradients are the sum of the ranks' parts
         k, v = C.copy_to(k, "model"), C.copy_to(v, "model")
 
-    cross = kv_x is not None or precomputed_kv is not None
     if not cross and cfg.pos_embed in ("rope", "mrope"):
         if cfg.pos_embed == "mrope":
             pos3 = positions if positions.dim() == 3 else \
@@ -478,8 +482,10 @@ def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
 
     out = None
     if precomputed_kv is not None:
-        k_all = precomputed_kv["k"].to(x.dtype)
-        v_all = precomputed_kv["v"].to(x.dtype)
+        # every KV head (compute_cross_kv): this rank's query heads' own
+        k_all, v_all = (precomputed_kv[n].to(x.dtype) for n in ("k", "v"))
+        if q_tp:
+            k_all, v_all = (_for_heads(t, q.shape[2]) for t in (k_all, v_all))
         k_pos, k_valid = precomputed_kv["pos"], None
     elif cache is not None and q.shape[1] > 1:
         # PREFILL: attend over the full fresh sequence (an empty/stale ring
@@ -527,9 +533,35 @@ def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
 
 
 def compute_cross_kv(params, enc_out, cfg):
-    """Cross-attention K/V of the encoder output, computed once for every
-    decode step: {"k", "v" [B, Sk, K, hd], "pos" [B, Sk] (0..Sk-1)}."""
-    k, v = _kv(params, enc_out, cfg)
+    """Cross-attention K/V of the encoder output [B, Sk, D], computed once
+    for every decode step: {"k", "v" [B, Sk, K, hd], "pos" [B, Sk]
+    (0..Sk-1)}. Under the SPMD program every model rank holds every KV
+    head and its own batch rows, the spec ``steps.cross_kv_specs`` gives
+    them (the JAX ``cross_kv_shardings``): under dboth from the
+    row-parallel products, under heads this rank's heads all-gathered
+    over `model` in one collective. Inference only."""
+    layout = model_layout(params)
+    if layout == "mixed":
+        raise NotImplementedError(
+            "cross-attention under the mixed layout: ROADMAP.md Queue 1 "
+            "item 7")
+    if layout == "dboth":
+        k, v = _row_parallel(params, ("wk", "wv"), enc_out)
+    else:
+        k = _proj(enc_out, C.gather_param(params["wk"]))
+        v = _proj(enc_out, C.gather_param(params["wv"]))
+    if cfg.qkv_bias:
+        k = k + params["bk"].to(enc_out.dtype)
+        v = v + params["bv"].to(enc_out.dtype)
+    if cfg.qk_norm:
+        k = layers.rms_norm(k, params["k_norm"]["scale"])
+    if layout == "heads":
+        k, v = C.all_gather(torch.stack([k, v]), 3, "model").unbind(0)
     pos = layers.positions_from_shape(enc_out.shape[0], enc_out.shape[1],
                                       device=enc_out.device)
-    return {"k": k, "v": v, "pos": pos}
+    out = {"k": k, "v": v, "pos": pos}
+    if C.active() is not None:
+        rows = "data" if C.size("data") > 1 else None
+        for name, t in out.items():
+            C.set_spec(t, (rows,) + (None,) * (t.dim() - 1))
+    return out

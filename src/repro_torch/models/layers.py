@@ -68,6 +68,19 @@ def embed_lookup(table, ids):
     return e
 
 
+def learned_positions(table, n=None):
+    """The first `n` rows (every row by default) of a learned position
+    table [S, D], whole. Under the SPMD program the rule table lays its D
+    on `model` ((None, "model")): the ranks' columns are all-gathered
+    (``collectives.gather_to``: a rank's gradient of the whole is its
+    columns')."""
+    from repro_torch.parallel import collectives as C
+    rows = table if n is None else table[:n]
+    if C.model_parallel(table):
+        rows = C.gather_to(rows, rows.dim() - 1, "model")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Norms (computed in f32, cast back to input dtype)
 

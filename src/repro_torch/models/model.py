@@ -125,12 +125,11 @@ def apply_block(params, x, cfg, kind: BlockKind, *, positions, cache=None,
     where given, else over `enc_out` [B, Sk, D]."""
     impls = impls or {}
     if C.active() is not None and (
-            kind.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.family in ("vit", "audio", "vlm")):
+            kind.family not in ("dense", "moe", "ssm", "hybrid", "enc", "dec")
+            or cfg.family == "vit"):
         raise NotImplementedError(
             f"{cfg.family} ({kind.family} blocks) under the SPMD program "
-            f"(the vit, whisper and qwen2-vl stacks on a mesh): ROADMAP.md "
-            f"Queue 1 item 7")
+            f"(the vit stack on a mesh): ROADMAP.md Queue 1 item 7")
     h = layers.apply_norm(x, params["norm1"], cfg.norm)
     ssm_kw = dict(ssm_impl=impls.get("ssm", "kernel"),
                   ssm_chunk=impls.get("ssm_chunk", 256),
@@ -293,9 +292,11 @@ def embed_tokens(params, tokens, cfg, positions=None, dtype=torch.bfloat16):
 
 def run_encoder(params, frame_embeds, cfg, impls=None, remat=False):
     """Whisper encoder over precomputed (stub) frame embeddings [B, F, D]:
-    the learned positions added, the bidirectional blocks, the norm."""
+    the learned positions added (whole: ``layers.learned_positions``),
+    the bidirectional blocks, the norm."""
     enc = params["encoder"]
-    h = frame_embeds + enc["pos"].to(frame_embeds.dtype)[None]
+    pos = layers.learned_positions(enc["pos"])
+    h = frame_embeds + pos.to(frame_embeds.dtype)[None]
     positions = layers.positions_from_shape(h.shape[0], h.shape[1],
                                             device=h.device)
     for seg_params, seg in zip(enc["segments"], encoder_segments(cfg)):

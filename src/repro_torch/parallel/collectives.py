@@ -210,9 +210,12 @@ def _count(op: str, axis: str, t) -> None:
 # runs as an all-reduce (sum) of the ranks' words, each rank's placed in a
 # zero buffer at its own offset: every word is one rank's bits plus
 # zeros, so the sum is the gather bit for bit (gloo's all-reduce moved
-# bytes faster than its all-gather, 2 ranks on the CPU). A CUDA tensor is
-# laid out, cast and cut on the card; only the collective's own buffer
-# crosses to the host (pinned) and back. NCCL takes each tensor whole.
+# bytes faster than its all-gather, 2 ranks on the CPU). The zero buffer
+# is made on the host (pinned for a CUDA tensor), so a gather's device
+# memory is its output alone (and one copy more where it joins on a dim
+# other than 0). A CUDA tensor is otherwise laid out, cast and cut on the
+# card; only the collective's own buffer crosses to the host and back.
+# NCCL takes each tensor whole.
 GLOO_SPLIT_BYTES = 1 << 22
 GLOO_PIECES = 2
 
@@ -283,12 +286,14 @@ def all_gather(x, dim: int, axis: str):
         nbytes = x.numel() * x.element_size()
         word = torch.int32 if nbytes % 4 == 0 else torch.uint8
         own = x.reshape(-1).view(torch.uint8).view(word)
-        buf = torch.zeros((n, own.numel()), dtype=word, device=x.device)
-        buf[_ACTIVE.index(axis)] = own
-        h = _host(buf, fresh=True)
+        h = torch.zeros((n, own.numel()), dtype=word, pin_memory=x.is_cuda)
+        h[_ACTIVE.index(axis)].copy_(own)
         _gloo_all_reduce(h, dist.ReduceOp.SUM, group)
         full = h.to(x.device).view(torch.uint8).view(x.dtype)
-        out = torch.cat(full.view(n, *x.shape).unbind(0), dim=dim)
+        if dim == 0 and x.dim() > 0:
+            out = full.view(n * x.shape[0], *x.shape[1:])
+        else:
+            out = torch.cat(full.view(n, *x.shape).unbind(0), dim=dim)
     _count("all_gather", axis, out)
     return out
 

@@ -382,11 +382,15 @@ def _rows(x_np):
         C.active().mesh, t.shape, ("batch",) + (None,) * (t.dim() - 1)))
 
 
-def ssm_block(cfg_kw, kind, block_np, x_np, pos_np, cot_np):
-    """One Mamba or hybrid block (a global ``M.BlockKind(kind)``) under the
-    active program, the batch on `data`: its output and x's gradient
-    (gathered over `data`), and every param's gradient (summed over
-    `data` by ``reduce_grads``, gathered)."""
+def mesh_block(cfg_kw, kind, block_np, x_np, pos_np, cot_np, enc_np=None):
+    """One block of kind `kind` under the active program, the batch on
+    `data`: a Mamba or hybrid block (a global ``M.BlockKind(kind)``), a
+    whisper encoder block ("enc", bidirectional) or decoder block ("dec":
+    causal self-attention, then cross-attention over `enc_np`), a dense
+    block (qwen2-vl's under M-RoPE positions [B, 3, S]). Its output, x's
+    and the encoder output's gradients (gathered over `data`), and every
+    param's gradient (summed over `data` by ``reduce_grads``,
+    gathered)."""
     cfg = _config(cfg_kw)
     prog = C.active()
     params = bridge.from_repro(block_np)
@@ -396,16 +400,21 @@ def ssm_block(cfg_kw, kind, block_np, x_np, pos_np, cot_np):
     for p in leaves:
         p.requires_grad_(True)
     x = _rows(x_np).requires_grad_()
-    y, _, _ = M.apply_block(local, x, cfg, M.BlockKind(kind),
-                            positions=_rows(pos_np),
+    enc = None if enc_np is None else _rows(enc_np).requires_grad_()
+    bk = M.BlockKind(kind, causal=kind != "enc", cross=kind == "dec")
+    y, _, _ = M.apply_block(local, x, cfg, bk, positions=_rows(pos_np),
+                            enc_out=enc,
                             impls={"attn": "kernel", "ssm": "kernel",
                                    "ssm_chunk": 8})
     (y * _rows(cot_np)).sum().backward()
     grads = [p.grad for p in leaves]
     C.reduce_grads(leaves, grads)
-    return {"y": _np(C.all_gather(y.detach(), 0, "data")),
-            "dx": _np(C.all_gather(x.grad, 0, "data")),
-            "grads": _gathered(grads, local)}
+    out = {"y": _np(C.all_gather(y.detach(), 0, "data")),
+           "dx": _np(C.all_gather(x.grad, 0, "data")),
+           "grads": _gathered(grads, local)}
+    if enc is not None:
+        out["denc"] = _np(C.all_gather(enc.grad, 0, "data"))
+    return out
 
 
 def _kv_caches(cache):
@@ -415,23 +424,28 @@ def _kv_caches(cache):
             or "kv" in layer]
 
 
-def ssm_served(cfg_kw, params_np, tokens_np, steps_, slots):
+def ssm_served(cfg_kw, params_np, tokens_np, steps_, slots, stub_np=None):
     """``launch.serve``'s prefill and `steps_` greedy decode steps on this
     rank's shards of the serving layout (``_drop_fsdp``: weights on
-    `model`, the batch on `data`), `slots` decode slots: every step's
-    logits and tokens (gathered), and before each decode step the fewest
-    valid slots in any of this rank's KV caches (0: a shard holding only
-    empty slots)."""
+    `model`, the batch on `data`), `slots` decode slots, `stub_np` the
+    whole frame or patch embeddings (this rank takes its rows): every
+    step's logits and tokens (gathered), and before each decode step the
+    fewest valid slots in any of this rank's KV caches (0: a shard holding
+    only empty slots); with an encoder, each layer's cross K/V (kept by
+    the prefill) gathered over `data`, its head count on this rank and
+    whether every model rank holds the same bits."""
     cfg = _config(cfg_kw)
     prog = C.active()
     params = bridge.from_repro(params_np)
     params = sharding.shard_tree(params, steps._drop_fsdp(
         sharding.param_specs(params, prog.mesh)))
     tokens = _rows(tokens_np)
+    stub = {k: _rows(v) for k, v in (stub_np or {}).items()}
     b, s = tokens.shape
+    n_p = stub["patch_embeds"].shape[1] if "patch_embeds" in stub else None
     prefill, decode = serve.build_serving_fns(cfg, device="cpu",
                                               decode_slots=slots)
-    logits, cache = prefill(params, tokens)
+    logits, cache = prefill(params, tokens, **stub)
     decode.check_room(cache, steps_)
     kvs = _kv_caches(cache)
     out_logits, toks = [logits[:, -1]], [decode.greedy(logits[:, -1])]
@@ -440,17 +454,28 @@ def ssm_served(cfg_kw, params_np, tokens_np, steps_, slots):
         fewest.append(min((int((kv["pos"] >= 0).sum()) for kv in kvs),
                           default=None))
         logits, cache = decode(params, cache, toks[-1][:, None],
-                               decode.positions(b, s, None, i))
+                               decode.positions(b, s, n_p, i))
         out_logits.append(logits[:, -1])
         toks.append(decode.greedy(logits[:, -1]))
     logits = torch.stack(out_logits, dim=1)
     if logits.shape[-1] != cfg.vocab_size:
         logits = C.all_gather(logits, 2, "model")
-    return {"logits": _np(C.all_gather(logits, 0, "data")),
-            "tokens": _np(C.all_gather(torch.stack(toks, 1), 0, "data")),
-            "fewest_valid": fewest,
-            "kv_slots": [tuple(kv["k"].shape[1:3]) for kv in kvs],
-            "kv_specs": [C.spec_of(kv["k"]) for kv in kvs]}
+    out = {"logits": _np(C.all_gather(logits, 0, "data")),
+           "tokens": _np(C.all_gather(torch.stack(toks, 1), 0, "data")),
+           "fewest_valid": fewest,
+           "kv_slots": [tuple(kv["k"].shape[1:3]) for kv in kvs],
+           "kv_specs": [C.spec_of(kv["k"]) for kv in kvs]}
+    crosses = [kv["cross"] for kv in kvs if "cross" in kv]
+    if crosses:
+        out["cross"] = [{n: _np(sharding.gather_leaf(c[n])) for n in c}
+                        for c in crosses]
+        out["cross_heads"] = [c["k"].shape[2] for c in crosses]
+        out["cross_specs"] = [C.spec_of(c["k"]) for c in crosses]
+        out["cross_same_on_model_ranks"] = all(
+            all(torch.equal(part, c[n]) for part in C.all_gather(
+                c[n][None], 0, "model").unbind(0))
+            for c in crosses for n in ("k", "v"))
+    return out
 
 
 def merged(q_np, k_np, v_np, q_pos_np, k_pos_np, valid_np, window):
@@ -468,20 +493,24 @@ def merged(q_np, k_np, v_np, q_pos_np, k_pos_np, valid_np, window):
     return {"o": _np(out), "valid_here": valid.sum(-1).tolist()}
 
 
-def prefill_cell(cfg_kw, params_np, tokens_np):
+def prefill_cell(cfg_kw, params_np, tokens_np, stub_np=None):
     """``steps.build_prefill``'s function on this rank's shards of its
     in_specs (the rule table's layout: weights' D on `data` too, the
-    batch on `data`): the last logits and every cache leaf, gathered."""
+    batch on `data`; `stub_np` the whole frame or patch embeddings): the
+    last logits and every cache leaf, gathered."""
     cfg = _config(cfg_kw)
     prog = C.active()
     b, s = tokens_np.shape
+    stub = {k: torch.from_numpy(v) for k, v in (stub_np or {}).items()}
+    if "patch_embeds" in stub:
+        s += stub["patch_embeds"].shape[1]
     run = steps.default_run(cfg, ShapeConfig("prefill", s, b, "prefill"),
                             prog.mesh, attn_impl="kernel", ssm_impl="kernel",
                             compute_dtype="float32")
     fn, _, in_specs = steps.build_prefill(cfg, run, prog.mesh)
     params, batch = steps.shard_inputs(
         (bridge.from_repro(params_np),
-         {"tokens": torch.from_numpy(tokens_np)}), in_specs)
+         {"tokens": torch.from_numpy(tokens_np), **stub}), in_specs)
     logits, cache = fn(params, batch)
     whole = sharding.gather_tree(cache)
     if logits.shape[-1] != cfg.vocab_size:           # the vocab shards
@@ -493,15 +522,28 @@ def prefill_cell(cfg_kw, params_np, tokens_np):
 
 
 def _cell_batch(cfg_kw):
-    """A train cell's batch: 4 clients x 2 x 12 tokens, every client in."""
-    vocab = _config(cfg_kw).vocab_size
+    """A train cell's batch: 4 clients x 2 x 12 tokens, every client in;
+    16 frames (audio) or 4 patches (vlm) a sample, 0.02 x N(0, 1)."""
+    cfg = _config(cfg_kw)
+    vocab = cfg.vocab_size
     rng = np.random.default_rng(8)
-    return {"tokens": rng.integers(0, vocab, (4, 2, 12)).astype(np.int32),
-            "labels": rng.integers(0, vocab, (4, 2, 12)).astype(np.int32),
-            "mask": np.ones(4, np.float32)}
+    out = {"tokens": rng.integers(0, vocab, (4, 2, 12)).astype(np.int32),
+           "labels": rng.integers(0, vocab, (4, 2, 12)).astype(np.int32),
+           "mask": np.ones(4, np.float32)}
+    n = {"audio": cfg.encoder_seq, "vlm": 4}.get(cfg.family)
+    if n:
+        key = "frame_embeds" if cfg.family == "audio" else "patch_embeds"
+        out[key] = (0.02 * rng.standard_normal(
+            (4, 2, n, cfg.d_model))).astype(np.float32)
+    return out
 
 
 def _train_cell_run(cfg, mesh, n_clients, seq):
+    """The train cell's RunConfig for `seq` text tokens (a VLM cell's
+    shape counts the 256 patches of ``train_batch_specs`` as well: the
+    specs read only its batch's ranks, the batch may hold fewer)."""
+    if cfg.family == "vlm":
+        seq += steps.VLM_PATCH_TOKENS
     return steps.default_run(cfg, ShapeConfig("train", seq, 2 * n_clients,
                                               "train"), mesh,
                              n_clients=n_clients, trainable_blocks=1,
@@ -539,7 +581,7 @@ def ssm_cases(meshes, trees, blocks, steps_args, props, serves, merges,
     and the prefill cell of each of `prefills`."""
     def one():
         out = {"shards": shards(trees),
-               "blocks": [ssm_block(*a) for a in blocks],
+               "blocks": [mesh_block(*a) for a in blocks],
                "steps": [mpsl_step(*a) for a in steps_args]}
         if C.size("data") > 1:
             out["props"] = [[adapter_grads(*a) for a in p] for p in props]
@@ -549,5 +591,61 @@ def ssm_cases(meshes, trees, blocks, steps_args, props, serves, merges,
             out["prefill"] = [prefill_cell(*a) for a in prefills]
             out["train_cell"] = [train_cell(kw, 4, _cell_batch(kw), 0)
                                  for kw, _, _ in prefills]
+        return out
+    return _with_meshes(meshes, one)
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder and VLM stacks (tests/test_torch_mesh_encdec.py)
+
+
+def decode_cell(cfg_kw, params_np, cache, ckv, tokens_np, pos_np, steps_):
+    """`steps_` steps of ``steps.build_decode``'s function on this rank's
+    shards of its in_specs (the whole `cache` and cross K/V `ckv` cut by
+    them), each fed `tokens_np` [B, steps_] and positions from `pos_np`
+    on: every step's logits and the cache after them, gathered."""
+    cfg = _config(cfg_kw)
+    prog = C.active()
+    b, cache_len = tokens_np.shape[0], _kv_caches(cache)[0]["k"].shape[1]
+    run = steps.default_run(cfg, ShapeConfig("decode", cache_len, b,
+                                             "decode"), prog.mesh,
+                            attn_impl="kernel", compute_dtype="float32")
+    fn, _, in_specs, _ = steps.build_decode(cfg, run, prog.mesh)
+    params, cache, ckv = steps.shard_inputs(
+        (bridge.from_repro(params_np), cache, ckv), in_specs[:3])
+    logits = []
+    for i in range(steps_):
+        tok, pos = (sharding.shard_leaf(torch.from_numpy(a), sp) for a, sp
+                    in ((tokens_np[:, i:i + 1], in_specs[3]),
+                        (pos_np + i, in_specs[4])))
+        out, cache = fn(params, cache, ckv, tok, pos)
+        if out.shape[-1] != cfg.vocab_size:
+            out = C.all_gather(out, 2, "model")
+        logits.append(_np(C.all_gather(out[:, -1], 0, "data")))
+    whole = sharding.gather_tree(cache)
+    return {"logits": np.stack(logits, 1),
+            "cache": {p: _np(x) for p, x in zip(tree.paths(whole),
+                                                 tree.leaves(whole))
+                      if torch.is_tensor(x)}}
+
+
+def encdec_cases(meshes, trees, blocks, steps_args, props, serves, prefills,
+                 decodes):
+    """On each mesh: the shards of `trees`, every block of `blocks`, the
+    MPSL step of each of `steps_args`, (with a data axis above 1) the
+    adapter gradients of each of `props`, (with a model axis above 1)
+    serving each of `serves`, and the prefill, decode and train cells."""
+    def one():
+        out = {"shards": shards(trees),
+               "blocks": [mesh_block(*a) for a in blocks],
+               "steps": [mpsl_step(*a) for a in steps_args]}
+        if C.size("data") > 1:
+            out["props"] = [[adapter_grads(*a) for a in p] for p in props]
+        if C.size("model") > 1:
+            out["serve"] = [ssm_served(*a) for a in serves]
+            out["prefill"] = [prefill_cell(*a) for a in prefills]
+            out["decode"] = [decode_cell(*a) for a in decodes]
+            out["train_cell"] = [train_cell(a[0], 4, _cell_batch(a[0]), 0)
+                                 for a in prefills]
         return out
     return _with_meshes(meshes, one)
