@@ -45,14 +45,15 @@
                  4096, d_inner 8192, d_state 16, vocab 65024), as serve:
                  the scan forward in every layer's prefill (decode is the
                  recurrence step, outside any kernel);
-   ssm_train     falcon-mamba-7b at 16 of its 64 layers (`reduced` says
+   ssm_train     falcon-mamba-7b at 8 of its 64 layers (`reduced` says
                  why), as train: the scan forward (block and remat
                  recompute) and backward in every block, 3 steps;
    hybrid_serve  full-width hymba-1.5b (32 hybrid blocks: parallel
                  attention, 25 heads / 5 KV heads, hd 64, window 1024 on
                  local layers, and Mamba heads), prompt 1536 (past the
                  window: local caches wrap their ring), 16 decode steps;
-   hybrid_train  hymba-1.5b, as train, 2 steps;
+   hybrid_train  hymba-1.5b at 16 of its 32 layers (global layers 0 and
+                 15), as train, 2 steps;
    serve_bf16    minitron-4b as serve, at the JAX package's default bf16
                  compute: the tensor-core flash forward in prefill, its
                  split-KV route in decode;
@@ -126,16 +127,18 @@
                  8192-wide f32 link (the widest row held in registers).
    cell_train_4k  the JAX package's train_4k cell through launch.steps
                  (default_run, build_train) on the host mesh, bf16 compute:
-                 full-width minitron-4b at seq 4096, 4 clients x 2, the
-                 last 4 blocks trainable, int8 links, mu = 2 microbatches
+                 full-width minitron-4b, 16 of 32 layers, at seq 4096, 4
+                 clients x 2, the last 4 blocks trainable, int8 links, mu =
+                 2 microbatches
                  (choose_microbatches), 2 steps: the tensor-core flash
                  forward and backward at S 4096, CE over a microbatch's
                  16380 tokens (bf16 h, f32 head), quant8; held against
                  default_run's own impls (blockwise attention, the plain
                  CE) through _grad_agg's microbatches;
-   cell_prefill_32k  prefill_32k through build_prefill: minitron-4b,
-                 batch 1, 32768 tokens, bf16 weights: the flash forward at
-                 S 32768 in every layer against blockwise attention (last
+   cell_prefill_32k  prefill_32k through build_prefill: minitron-4b, 8
+                 of 32 layers, batch 1, 32768 tokens, bf16 weights: the
+                 flash forward at S 32768 in every layer against blockwise
+                 attention (last
                  logits and every layer's cache K/V);
    cell_decode_32k  decode_32k through build_decode: minitron-4b, batch
                  4, 32768-slot caches filled to 32760 from the seed, 8
@@ -157,7 +160,8 @@
    mesh_train    the SPMD program (``parallel.collectives``) as 4 rank
                  processes sharing the card over gloo
                  (``launch.spmd.spawn``), mesh (data 2, model 2): train's
-                 spec at 8 of 32 layers, 2 steps (the run's time) with
+                 spec at 4 of 32 layers (the last 2 trainable), 2 steps
+                 (the run's time) with
                  client 1 masked out, each rank 2 clients, 12
                  of 24 heads on 4 of 8 KV heads, d_ff 4608 and 128000
                  vocab columns (the vocab-parallel CE kernel on its
@@ -165,8 +169,13 @@
                  gathered at use; its steps against the one-rank train path
                  run first on the card (each loss, the first step's
                  gradients from each rank's shards, the masked client's
-                 adapter gradient exactly 0);
-   mesh_serve    serve's spec at 16 of 32 layers on (2, 2), the TP-only
+                 adapter gradient exactly 0); then its per-client leg:
+                 one ``backward_mode="per_client"`` step (vanilla PSL,
+                 4 passes) from the first state and batch against the
+                 aggregated first step (loss, every gradient, the masked
+                 client's adapter gradient exactly 0; its host ms beside
+                 the aggregated step's, a count of passes);
+   mesh_serve    serve's spec at 8 of 32 layers on (2, 2), the TP-only
                  layout (batch 2 a data rank), teacher-forced with the
                  one-rank serve path's tokens: logits, greedy tokens
                  (argmax over the vocab shards) up to a near tie;
@@ -177,15 +186,21 @@
                  path's expert choices: every rank's dropped slots joined
                  bitwise the one-rank ``ep_drop_mask``, last logits and
                  cache K/V against it.
+   mesh_ep_ragged  the same prefill under the ragged dispatch: each rank
+                 the (token, k) slots of its 32 experts, a GEMM a
+                 non-empty local expert, replaying the one-rank ragged
+                 path's choices: every slot run by exactly one rank
+                 (nothing dropped), last logits and cache K/V against it.
    mesh_ssm      falcon-mamba-7b at full width (d_model 4096, d_inner
-                 8192: 4096 channels a rank), 8 of 64 layers, on (2, 2):
-                 mesh_train's spec (2 steps, the last 4 blocks trainable,
+                 8192: 4096 channels a rank), 4 of 64 layers, on (2, 2):
+                 train's spec (2 steps, the last 2 blocks trainable,
                  client 1 masked, int8 links), then serve's (prompt 512, 16
                  steps), in one world: the scan kernels at 4096 local
                  channels, in_proj cut x's and z's channels alike, the
                  vocab-parallel CE; each part against its one-rank path
                  run first, at mesh_train's and mesh_serve's limits;
-   mesh_hybrid   hymba-1.5b at full width, 8 of 32 layers, as mesh_ssm
+   mesh_hybrid   hymba-1.5b at full width, 8 of 32 layers (the last 4
+                 blocks trainable), as mesh_ssm
                  (prompt 1536): 25 heads on 5 KV heads divide no model axis, so
                  every attention weight's D lies on (data, model) (dboth)
                  and each rank computes every head; 1600 local channels;
@@ -215,7 +230,20 @@
                  columns, fsdp over `data`; vlm_train's spec (2 steps,
                  client 1 masked), then 4 x (256 patches + 256 tokens),
                  16 steps.
-   The paths of one mesh share one world (``MESH_GROUPS``). Each mesh
+   mesh_moe      qwen2-moe-a2.7b at its published widths, 2 of 24 layers
+                 (the last trainable), on the production (1, 8) model
+                 axis: 8 ranks sharing the card; its 60 experts divide no
+                 model axis of 8, so each expert's F lies on `model` (176
+                 of 1408 columns a rank; the shared expert's 704 of
+                 5632), 2 of 16 heads, the CE on 18992 of 151936
+                 columns; moe_train's batch (2 steps, client 1 masked:
+                 the router's aux loss, over every client's tokens, gives
+                 it an adapter gradient, held to the one-rank path's),
+                 then serve's (prompt 512, 16 steps), in one world, the
+                 ragged dispatch replaying the one-rank path's expert
+                 choices.
+   The paths of one mesh share one world (``MESH_GROUPS``), a rank a
+   device of the mesh. Each mesh
    path requires every rank's launches and collectives (by op
    and axis) exactly as derived from the code (``mesh_*_collectives``),
    and the ranks' peaks to sum under 80 GB; the collectives' times on
@@ -293,7 +321,7 @@ from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import tokenizers  # noqa: E402
 from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
 from repro_torch.obs import comm, report  # noqa: E402
-from repro_torch.optim import schedules  # noqa: E402
+from repro_torch.optim import adamw_init, schedules  # noqa: E402
 from repro_torch.parallel import collectives, sharding  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.train.trainer import to_host  # noqa: E402
@@ -403,14 +431,19 @@ PATHS = {
     # and the Trainer (telemetry on), held bitwise to it
     "trainer": TRAIN,
     "ssm_serve": dict(SERVE, arch="falcon-mamba-7b"),
-    "ssm_train": dict(TRAIN, arch="falcon-mamba-7b", layers=16,
-                      reduced="depth 64 -> 16 layers: the plain "
-                      "path's Python-stepped scan took 108 s of the run at "
-                      "64 and 55 s at 32 (PR 24's cut), and the mesh paths "
-                      "needed the time; every kernel shape is the full "
-                      "width's"),
+    "ssm_train": dict(TRAIN, arch="falcon-mamba-7b", layers=8,
+                      reduced="depth 64 -> 16 layers (PR 24), -> 8 (PR 27): "
+                      "the plain path's Python-stepped scan took 108 s of "
+                      "the run at 64, 55 s at 32 and 28 s at 16, and the "
+                      "script must end within 1200 s on a slower machine; "
+                      "every kernel shape is the full width's"),
     "hybrid_serve": dict(SERVE, arch="hymba-1.5b", prompt_len=1536),
-    "hybrid_train": dict(TRAIN, arch="hymba-1.5b", steps=2),
+    "hybrid_train": dict(TRAIN, arch="hymba-1.5b", steps=2, layers=16,
+                         reduced="depth 32 -> 16 layers (global layers 0 "
+                         "and 15 kept) in PR 27: the plain path's "
+                         "Python-stepped scan took 27 s of the run at 32, "
+                         "and the script must end within 1200 s on a slower "
+                         "machine; every kernel shape is the full width's"),
     "serve_bf16": dict(SERVE, compute_dtype="bfloat16"),
     "train_bf16": dict(TRAIN, compute_dtype="bfloat16"),
     "moe_serve": dict(SERVE, arch="qwen2-moe-a2.7b"),
@@ -456,14 +489,19 @@ PATHS = {
     "cell_train_4k": dict(
         arch="minitron-4b", shape=("train_4k", 4096, 8, "train"),
         n_clients=4, batch_per_client=2, trainable_blocks=4, steps=2,
-        lr=3e-4, seed=0,
+        lr=3e-4, seed=0, layers=16,
         reduced="global batch 256 -> 8 (4 clients x 2, default_run's "
         "n_clients override: one card's mesh gives 1 client); "
         "trainable_blocks 16 -> 4 (two AdamW states of 16 blocks do not "
-        "fit beside the plain path); 2 steps"),
+        "fit beside the plain path); 2 steps; depth 32 -> 16 layers in "
+        "PR 27 (the plain path's step took 17.8 s at 32): the script must "
+        "end within 1200 s on a slower machine"),
     "cell_prefill_32k": dict(
         arch="minitron-4b", shape=("prefill_32k", 32768, 1, "prefill"),
-        seed=0, reduced="batch 32 -> 1"),
+        seed=0, layers=8,
+        reduced="batch 32 -> 1; depth 32 -> 8 layers in PR 27 (the plain "
+        "path's blockwise prefill took ~27 s at 32): the script must end "
+        "within 1200 s on a slower machine"),
     "cell_decode_32k": dict(
         arch="minitron-4b", shape=("decode_32k", 32768, 4, "decode"),
         filled=32760, decode_steps=8, seed=0,
@@ -485,16 +523,18 @@ PATHS = {
     # the SPMD program (parallel.collectives): 4 ranks sharing the card
     # over gloo, each holding its shards of the rule table's layout,
     # against the one-rank path; the new paths at full width
-    "mesh_train": dict(TRAIN, mesh=(2, 2), masked_client=1, layers=8,
-                       steps=2,
+    "mesh_train": dict(TRAIN, mesh=(2, 2), masked_client=1, layers=4,
+                       trainable_blocks=2, steps=2, per_client=True,
                        reduced="depth 32 -> 16 layers and 3 -> 2 steps in "
-                       "PR 25, -> 8 layers in PR 26: the run's 1200 s, "
-                       "beside five more mesh paths; every shape a rank "
-                       "gives the kernels is the full width's"),
-    "mesh_serve": dict(SERVE, mesh=(2, 2), layers=16,
-                       reduced="depth 32 -> 16 layers in PR 26: the run's "
-                       "1200 s; every shape a rank gives the kernels is the "
+                       "PR 25, -> 8 layers in PR 26, -> 4 (the last 2 "
+                       "trainable) in PR 27: the run's 1200 s, beside the "
+                       "per-client leg's 4 passes (47 s at 8 layers on the "
+                       "H100); every shape a rank gives the kernels is the "
                        "full width's"),
+    "mesh_serve": dict(SERVE, mesh=(2, 2), layers=8,
+                       reduced="depth 32 -> 16 layers in PR 26, -> 8 in PR "
+                       "27: the run's 1200 s; every shape a rank gives the "
+                       "kernels is the full width's"),
     "mesh_ep": dict(
         arch="qwen3-moe-235b-a22b", layers=2, mesh=(1, 4),
         shape=("prefill_4k", 4096, 1, "prefill"), seed=0,
@@ -504,12 +544,14 @@ PATHS = {
     # masked out (2 steps), then serve's (prompt 512, hymba 1536: its
     # sequence-sharded rings wrap), in one world; and long_500k's decode
     # on (1, 4)
-    "mesh_ssm": dict(TRAIN, arch="falcon-mamba-7b", layers=8, mesh=(2, 2),
-                     masked_client=1, steps=2, batch=4, prompt_len=512,
-                     decode_steps=16,
-                     reduced="depth 64 -> 8 layers: the run's time (each "
-                     "layer's collectives cross gloo's host buffers); every "
-                     "shape a rank gives the kernels is the full width's"),
+    "mesh_ssm": dict(TRAIN, arch="falcon-mamba-7b", layers=4, mesh=(2, 2),
+                     trainable_blocks=2, masked_client=1, steps=2, batch=4,
+                     prompt_len=512, decode_steps=16,
+                     reduced="depth 64 -> 8 layers (PR 25), -> 4 (PR 27): "
+                     "the run's 1200 s (each layer's collectives cross "
+                     "gloo's host buffers), the last 2 blocks trainable; "
+                     "every shape a rank gives the kernels is the full "
+                     "width's"),
     "mesh_hybrid": dict(TRAIN, arch="hymba-1.5b", layers=8, mesh=(2, 2),
                         masked_client=1, steps=2, batch=4, prompt_len=1536,
                         decode_steps=16,
@@ -548,6 +590,23 @@ PATHS["mesh_vlm"] = dict(
     "beside ~3.4 GB of allocator fragments: the lm_head's 76032-column "
     "shard with its AdamW moments and gradient, its gathered copy and "
     "the CE's scratch); 16 greedy steps")
+# mesh_ep's prefill again under the ragged dispatch (the kernel impl):
+# each rank its 32 of 128 experts' slots, one GEMM a non-empty local
+# expert and projection, nothing dropped
+PATHS["mesh_ep_ragged"] = dict(PATHS["mesh_ep"], moe="ragged")
+# qwen2-moe-a2.7b on the production (1, 8) model axis, 8 ranks sharing the
+# card: its 60 experts divide no model axis of 8, so each expert's F lies
+# on `model` (176 of 1408 columns a rank; the shared expert's 704 of 5632,
+# 2 of 16 heads, 18992 of 151936 vocab columns); moe_train's spec with
+# client 1 masked (2 steps), then serve's (prompt 512, 16 steps)
+PATHS["mesh_moe"] = dict(
+    PATHS["moe_train"], layers=2, trainable_blocks=1, mesh=(1, 8),
+    masked_client=1, steps=2, batch=4, prompt_len=512, decode_steps=16,
+    reduced="depth 24 -> 2 layers, the last trainable (moe_train's 2 would "
+    "leave no frozen bf16 block on the path): the run's 1200 s; at 4 "
+    "layers the whole script took 1060.9 s on the H100, and machines "
+    "10-30 % slower in every phase occur; every shape a rank gives the "
+    "kernels is the full width's")
 # every path's plain version: naive attention, the plain scan, chunked CE,
 # the dense expert dispatch
 PLAIN_IMPLS = {"attn": "naive", "ssm": "plain", "ce": "plain", "moe": "dense"}
@@ -903,8 +962,11 @@ def _attn_cases():
     # the mesh paths' local head counts: mesh_train's rank (2 clients x 2
     # sequences, 12 of 24 heads on 4 of 8 KV heads, f32) and mesh_ep's
     # (16 of 64 heads on 1 of 4 KV heads: G 16, 4096 tokens, bf16)
+    # mesh_moe's rank: every client (the data axis is 1), 2 of 16 heads on
+    # 2 of 16 KV heads (G 1), f32
     for name, bb, ss, hh, kk in (("mesh_train", 4, 512, 12, 4),
-                                 ("mesh_ep_prefill", 1, 4096, 16, 1)):
+                                 ("mesh_ep_prefill", 1, 4096, 16, 1),
+                                 ("mesh_moe_train", 8, 512, 2, 2)):
         cp = torch.arange(ss, dtype=torch.int32)[None].expand(bb, ss)
         cases.append((name, dict(b=bb, sq=ss, sk=ss, h=hh, kh=kk, hd=hd), dict(
             q_pos=cp, k_pos=cp, k_valid=torch.ones(bb, ss, dtype=torch.bool),
@@ -994,7 +1056,7 @@ FULL_ATTN = (*VIT_ATTN, *ENCDEC_ATTN)
 F32_ONLY = (*(n for n in FULL_ATTN if n != "vit_early"), "vlm_train",
             "mesh_train", "mesh_hybrid_train", "mesh_hybrid_prefill",
             "mesh_hybrid_decode", "mesh_vlm_train", "mesh_encdec_decode",
-            "mesh_encdec_empty_decode")
+            "mesh_encdec_empty_decode", "mesh_moe_train")
 
 
 def _attn_dtypes(name):
@@ -1060,7 +1122,7 @@ def _bound(q, k, q_pos, k_pos, k_valid, causal, window, dtype):
 # mask: SDPA takes them with is_causal; the vit cases attend every key
 PLAIN_CAUSAL = ("prefill", "train", "moe_prefill", "moe_train",
                 "cell_prefill", "cell_train", "cell_moe_prefill",
-                "mesh_train", "mesh_ep_prefill")
+                "mesh_train", "mesh_ep_prefill", "mesh_moe_train")
 # a plain version's [heads x queries x keys] f32 scores stay under this
 # many bytes a query chunk (a 32k prefill's would be 103-275 GB at once)
 PLAIN_CHUNK_BYTES = 2 ** 31
@@ -1191,8 +1253,9 @@ def kernels_flash_fwd():
             it = _iters(q, k)
             rec["ms"] = device_ms(run_kernel, iters=it)
             rec["wall_ms"] = time_ms(run_kernel, iters=it)
+            # (the comparison's plain call above was its warm-up)
             rec["plain_ms"] = device_ms(run_plain, iters=min(it, 5),
-                                        warmup=1)
+                                        warmup=0)
             lib = _library_call(q, k, v, qp, kp, kv, m, name)
             rows = fa.pair_mask(qp, kp, kv, m["causal"], m["window"]).any(-1)
             if rows.any():
@@ -1312,7 +1375,7 @@ def kernels_flash_bwd():
             rec["ms"] = sum(by.values())
             rec["plain_ms"] = device_ms(lambda: _plain_bwd(*args, **kw),
                                         iters=min(_iters(q, k), 5),
-                                        warmup=1)
+                                        warmup=0)
             # the backward of SDPA (a yardstick only), held to the plain
             # version first
             qt, kt, vt, skw = _sdpa_inputs(q, k, v, qp, kp, kv, m["causal"],
@@ -1425,7 +1488,12 @@ def kernels_softmax_xent():
              # the second half of qwen2-vl's vocab (76032 columns from
              # 76032)
              ("mesh_vlm", 1020, 8192, 76032, f32, f32, True, 152064,
-              76032)]
+              76032),
+             # mesh_moe's rank: every client's 4 x 2 x 511 tokens on the
+             # second eighth of qwen2-moe's vocab (18992 columns from
+             # 18992): 7 labels in 8 outside the shard
+             ("mesh_moe", 4088, 2048, 18992, f32, f32, True, 151936,
+              18992)]
     fwd_res, bwd_res = [], []
     for name, t, d, v, h_dtype, w_dtype, main_path, *shard in cases:
         v_all, v0 = shard or (v, 0)
@@ -1467,13 +1535,20 @@ def kernels_softmax_xent():
                            pieces_fwd(h, w, lab)))
         rec["ms"] = device_ms(lambda: sx.softmax_xent_fwd(h, w, lab),
                               iters=iters, warmup=1)
+        # (the comparison's plain call above was its warm-up)
         rec["plain_ms"] = device_ms(lambda: plain_fwd(h, w, lab),
-                                    iters=iters, warmup=1)
+                                    iters=iters, warmup=0)
         # (no single PyTorch call computes a vocab shard's CE: its labels
-        # outside the shard have no gold logit)
+        # outside the shard have no gold logit; beside it, the same call
+        # on the shard's work with every label moved into the shard)
         rec["library_ms"] = None if shard else device_ms(
             lambda: F.cross_entropy(hl @ wl, lab.long(), reduction="none"),
             iters=iters, warmup=1)
+        inside = lab.long().clamp(0, v - 1)
+        if shard:
+            rec["library_in_shard_labels_ms"] = device_ms(
+                lambda: F.cross_entropy(hl @ wl, inside, reduction="none"),
+                iters=iters, warmup=1)
         rec["bound_ms"], rec["bound_by"], rec["bound_f32_cuda_core_ms"] = \
             _ce_bound(t, d, v, h_dtype, w_dtype, backward=False)
         _hold_to_bound("softmax_xent_fwd", rec)
@@ -1496,15 +1571,16 @@ def kernels_softmax_xent():
         rec["ms"] = device_ms(lambda: sx.softmax_xent_bwd(h, w, lab, lse, gg),
                               iters=iters, warmup=1)
         rec["plain_ms"] = device_ms(
-            lambda: plain_bwd(h, w, lab, lse, gg), iters=iters, warmup=1)
+            lambda: plain_bwd(h, w, lab, lse, gg), iters=iters, warmup=0)
         rec["library_ms"] = None
-        if not shard:
-            hg = hl.clone().requires_grad_()
-            wg = wl.clone().requires_grad_()
-            lib = F.cross_entropy(hg @ wg, lab.long(), reduction="none")
-            rec["library_ms"] = device_ms(lambda: torch.autograd.grad(
-                lib, (hg, wg), gg, retain_graph=True), iters=iters, warmup=1)
-            del lib, hg, wg
+        hg = hl.clone().requires_grad_()
+        wg = wl.clone().requires_grad_()
+        lib = F.cross_entropy(hg @ wg, inside if shard else lab.long(),
+                              reduction="none")
+        lib_ms = device_ms(lambda: torch.autograd.grad(
+            lib, (hg, wg), gg, retain_graph=True), iters=iters, warmup=1)
+        rec["library_in_shard_labels_ms" if shard else "library_ms"] = lib_ms
+        del lib, hg, wg
         rec["bound_ms"], rec["bound_by"], rec["bound_f32_cuda_core_ms"] = \
             _ce_bound(t, d, v, h_dtype, w_dtype, backward=True)
         _hold_to_bound("softmax_xent_bwd", rec)
@@ -1722,7 +1798,10 @@ def kernels_quant8():
     drain after it, so only the rest of y must have reached HBM (the
     durations came in up to 1.7 % under the full bound on 300-600 MB
     streams). ``share_of_bound_rate`` may so exceed 1 by at most that
-    allowance."""
+    allowance. A reading under the guard (a profile that lost part of its
+    window, as one on the H100 read 0.0483 ms for a 0.1015 ms call) is
+    taken again, up to PROFILE_TRIES readings, each recorded
+    (``retaken_ms_*``)."""
     g = torch.Generator(device="cuda").manual_seed(3)
     results = []
     for name, rows, d, dtype, route, offset in QUANT8_CASES:
@@ -1742,12 +1821,31 @@ def kernels_quant8():
         gen = torch.Generator(device="cuda").manual_seed(5)
         rngs = {"nearest": lambda u: None, "streamed": lambda u: u,
                 "philox": lambda u: gen}
+        io = 2 * xb / PEAK_BYTES * 1e3              # x in, y out
+        rec["bound_ms_nearest"] = rec["bound_ms_philox"] = io
+        rec["bound_ms_streamed"] = io + rows * d * 4 / PEAK_BYTES * 1e3
+        drain = min(xb, L2_BYTES) / PEAK_BYTES * 1e3  # y left in L2
         iters = 20
         for r, rng in rngs.items():
-            times = _ring_ms(q8.quant_dequant, xs, us, rng, iters)
-            # where no profile caught a kernel, the whole call's time
-            own = {k: v for k, v in times.items()
-                   if "quant8" in k or k == EVENTS_KEY}
+            guard = rec[f"guard_bound_ms_{r}"] = rec[f"bound_ms_{r}"] - drain
+            # a reading under the guard is a time no kernel can take: the
+            # profile lost part of the window (the dropped launches
+            # ``device_ms_by_kernel`` describes), so it is taken again, up
+            # to PROFILE_TRIES readings; the kept one is held to the guard
+            retaken = []
+            for _ in range(PROFILE_TRIES):
+                times = _ring_ms(q8.quant_dequant, xs, us, rng, iters)
+                # where no profile caught a kernel, the whole call's time
+                own = {k: v for k, v in times.items()
+                       if "quant8" in k or k == EVENTS_KEY}
+                if sum(own.values()) >= guard:
+                    break
+                retaken.append(sum(own.values()))
+            if retaken:
+                emit({"phase": "timing_retaken", "kernel": "quant_dequant",
+                      "case": f"{name} ({r})", "readings_ms": retaken,
+                      "guard_bound_ms": guard})
+            rec[f"retaken_ms_{r}"] = retaken
             rec[f"ms_{r}"] = sum(own.values())
             rec[f"kernels_{r}"] = sorted(own)
             if r == "philox":
@@ -1755,12 +1853,7 @@ def kernels_quant8():
             rec[f"plain_ms_{r}"] = sum(_ring_ms(
                 q8.quant_dequant_plain, xs, us, rng, 5).values())
         rec["library_ms"] = None    # no single PyTorch call computes it
-        io = 2 * xb / PEAK_BYTES * 1e3              # x in, y out
-        rec["bound_ms_nearest"] = rec["bound_ms_philox"] = io
-        rec["bound_ms_streamed"] = io + rows * d * 4 / PEAK_BYTES * 1e3
-        drain = min(xb, L2_BYTES) / PEAK_BYTES * 1e3  # y left in L2
         for r in rngs:
-            rec[f"guard_bound_ms_{r}"] = rec[f"bound_ms_{r}"] - drain
             _hold_to_bound("quant_dequant", {
                 "case": f"{name} ({r})", "dtype": rec["dtype"],
                 "ms": rec[f"ms_{r}"], "bound_ms": rec[f"guard_bound_ms_{r}"]})
@@ -1903,9 +1996,14 @@ def kernels_scan():
         del got, want
         _hold_bitwise("selective_scan_fwd", name, dtype, fwd, rec)
         rec["ms"] = device_ms(fwd, iters=iters)
-        # (one profiled call: the plain scans launch thousands of kernels)
-        rec["plain_ms"] = device_ms(lambda: ss.selective_scan_fwd_plain(
-            x, dt, bm, cm, a_log, h0, chunk=chunk), iters=1, warmup=1)
+        # the plain scans launch a kernel an op a step, thousands a call:
+        # more than a profile holds (torch.profiler dropped launches of
+        # such calls and took up to 29 s a case), so one call's wall time
+        # by CUDA events, the host's launches included; the comparison's
+        # plain call above was its warm-up
+        rec["plain_ms"] = time_ms(lambda: ss.selective_scan_fwd_plain(
+            x, dt, bm, cm, a_log, h0, chunk=chunk), iters=1, warmup=0)
+        rec["plain_timed_by"] = "CUDA events (wall)"
         rec["library_ms"] = None        # no PyTorch call computes the scan
         rec["bound_ms"], rec["bound_by"] = _scan_bound(
             b, s, di, ds, nc_ref, x.element_size(), with_h0, backward=False)
@@ -1932,9 +2030,10 @@ def kernels_scan():
         del got, want
         _hold_bitwise("selective_scan_bwd", name, dtype, bwd, rec)
         rec["ms"] = device_ms(bwd, iters=iters)
-        rec["plain_ms"] = device_ms(
+        rec["plain_ms"] = time_ms(
             lambda: ss.selective_scan_bwd_plain(*args, chunk=chunk), iters=1,
-            warmup=1)
+            warmup=0)
+        rec["plain_timed_by"] = "CUDA events (wall)"
         rec["library_ms"] = None
         rec["bound_ms"], rec["bound_by"] = _scan_bound(
             b, s, di, ds, nc_ref, x.element_size(), with_h0, backward=True)
@@ -2427,9 +2526,9 @@ def phase_train_profile(path, step_fn, state, batch, train_rec, top=10,
         state, met = step_fn(state, batch)
         float(met["loss"])
         torch.cuda.synchronize()
-    times = _device_time_by_kernel(prof)
-    launched = sum(e.count for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    counts = {}
+    times = _device_time_by_kernel(prof, counts)
+    launched = sum(counts.values())
     busy = sum(times.values())
     wall = train_rec["median_step_ms"]
     ranked = sorted(times.items(), key=lambda kv: -kv[1])[:top]
@@ -3599,7 +3698,8 @@ def phase_cell_decode_profile(path, fn, params, cache, ckv, tok, positions,
 #
 # Each mesh path first runs its one-rank path on the card (the reference),
 # moves what it compares to the host (a file the ranks read) and frees the
-# card; then ``launch.spmd.spawn`` starts 4 rank processes on it (gloo:
+# card; then ``launch.spmd.spawn`` starts a rank process a device of its
+# mesh on it (4; mesh_moe's (1, 8) 8) (gloo:
 # NCCL will not put two ranks on one device; each collective staged
 # through pinned host memory). Every rank builds the whole tree from the
 # seed in turn (``_rank_init``: one rank's whole tree on the card at a
@@ -3640,8 +3740,9 @@ def _run_tasks(tasks):
 
 
 def phase_mesh_group(paths):
-    """The mesh paths `paths` (on one mesh) in one world of 4 ranks on the
-    card: each path's phase (a generator) computes its one-rank reference
+    """The mesh paths `paths` (on one mesh) in one world on the card, a
+    rank a device of the mesh (4, or mesh_moe's 8, sharing the card over
+    gloo): each path's phase (a generator) computes its one-rank reference
     on the card and yields its rank function, mesh and arguments; one
     world (``launch.spmd.spawn``: a rank's start costs ~13 s) runs them in
     order; each phase is then sent its ranks' records and the task's
@@ -3687,12 +3788,18 @@ def _collective_bytes():
 
 def _sharded_rel_l2(local, ref_full, spec) -> float:
     """The relative L2 gap of a whole leaf, from each rank's shard of it
-    and the matching slice of the whole reference: squared sums weighted
-    by 1 / the shard's replica count, all-reduced over the world."""
-    ref = sharding.shard_leaf(ref_full, spec).to(local.device, torch.float32)
-    w = collectives.replica_weight(local)
-    sums = torch.stack([(local.float() - ref).square().sum() * w,
-                        ref.square().sum() * w]).to(
+    and the matching slice of the whole reference."""
+    return _shards_rel_l2(local, sharding.shard_leaf(ref_full, spec), local)
+
+
+def _shards_rel_l2(got, want, leaf) -> float:
+    """The relative L2 gap of a whole leaf from each rank's shards of it
+    (`got` against `want`, cut as `leaf`): squared sums weighted by 1 /
+    the shard's replica count, all-reduced over the world."""
+    want = want.to(got.device, torch.float32)
+    w = collectives.replica_weight(leaf)
+    sums = torch.stack([(got.float() - want).square().sum() * w,
+                        want.square().sum() * w]).to(
                             collectives.active().device)
     num, den = collectives.all_reduce(sums, collectives.WORLD).tolist()
     return math.sqrt(num) / math.sqrt(den) if den else math.sqrt(num)
@@ -3844,9 +3951,18 @@ def _attn_train_collectives(cfg, out, L, T, d, m) -> dict:
     norm = 2 if cfg.norm == "layernorm" else 1
     attn_ar, attn_ag = (3, 0) if lay == "heads" else (4, 2)
     cross_ar, cross_ag = (4, 0) if lay == "heads" else (7, 2)
-    block_ar = attn_ar + 2 + (cross_ar if cross else 0)
+    ffn_ar, ffn_w = 2, mlp_w
+    if cfg.moe:
+        # the MoE FFN (experts on `model`, or each expert's F): its partial
+        # sums leave once, the routed experts' and the shared expert's
+        # joined; the gradients of the tokens and the combine weights
+        # entering the routed experts, of x entering the shared expert and
+        # of its gate enter (5); its weights: the router, the experts' 3,
+        # the shared expert's 3, shared_gate (8)
+        ffn_ar, ffn_w = 5, 8
+    block_ar = attn_ar + ffn_ar + (cross_ar if cross else 0)
     block_ag = attn_ag + (cross_ag if cross else 0)
-    n_w = 4 + mlp_w + (4 if cross else 0)
+    n_w = 4 + ffn_w + (4 if cross else 0)
     leaves = norm * (3 if cross else 2) + (3 if cfg.qkv_bias else 0)
     E = cfg.encoder_layers
     out["all_reduce/model"] += block_ar * L + (attn_ar + 2) * E
@@ -3854,9 +3970,33 @@ def _attn_train_collectives(cfg, out, L, T, d, m) -> dict:
                                 + (2 if cfg.pos_embed == "learned" else 0))
     out["all_gather/data"] += 2 * n_w * L + 2 * (4 + mlp_w) * E
     out["reduce_scatter/data"] += n_w * T
-    out["all_reduce/data"] += leaves * T + norm
+    # the router's density and mean probability summed over `data`, in
+    # the forward and the recompute
+    out["all_reduce/data"] += (4 * L if cfg.moe else 0) + leaves * T + norm
     return {k: v for k, v in out.items() if v and (
         k.endswith("/world") or {"data": d, "model": m}[k.split("/")[1]] > 1)}
+
+
+def mesh_per_client_collectives(cfg, spec) -> dict:
+    """The collectives of one ``backward_mode="per_client"`` step of a
+    dense LM: N passes of the aggregated step's loss and backward (its
+    collectives less ``reduce_grads``' and the global norm's), the mask
+    all-gathered over `data` once (the global client weights), one
+    ``reduce_grads`` (every trainable leaf off `data`: its norms, with
+    qkv biases theirs, and the final norm, all-reduced over `data`) and
+    the global norm."""
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(f"{cfg.name}: the per-client leg runs a dense LM")
+    T = split.resolve_trainable_blocks(cfg, MPSLConfig(
+        trainable_blocks=spec["trainable_blocks"]))
+    norm = 2 if cfg.norm == "layernorm" else 1
+    reduce_grads = (2 * norm + 3 * cfg.qkv_bias) * T + norm
+    n = spec["n_clients"]
+    out = {k: n * v for k, v in mesh_train_collectives(cfg, spec).items()}
+    out["all_reduce/data"] -= (n - 1) * reduce_grads
+    out["all_reduce/world"] = 1
+    out["all_gather/data"] += 1
+    return out
 
 
 def mesh_serve_collectives(cfg, steps_, mesh=(2, 2), cache_len=None) -> dict:
@@ -3956,30 +4096,40 @@ def _train_setup(cfg, spec, device):
         # qwen2-vl rank's copy, 2.1 GB, would not fit beside four ranks'
         # steps)
         if step == 0:
-            first.extend(g.detach().cpu() for g in grads)
+            first.extend(g.detach().to("cpu", copy=True) for g in grads)
 
-    step_fn = mpsl.make_train_step(
-        loss_fn, run, schedules.warmup_cosine(spec["lr"], 10, spec["steps"]),
-        grad_hook=keep_first)
-    return run, batch, step_fn, first
+    sched = schedules.warmup_cosine(spec["lr"], 10, spec["steps"])
+    step_fn = mpsl.make_train_step(loss_fn, run, sched, grad_hook=keep_first)
+    return run, batch, step_fn, first, (loss_fn, sched)
 
 
 def _mesh_train_ref(cfg, spec, device, tmp):
     """The one-rank train path on the card (``_train_setup``'s step on the
     same params and batches): (the file in `tmp` holding its first step's
-    gradients by leaf path, its ``_run_steps`` record)."""
-    run, batch, step_fn, first = _train_setup(cfg, spec, device)
+    gradients by leaf path and, for an MoE arch, its steps' expert choices
+    (``_tape``), its ``_run_steps`` record)."""
+    run, batch, step_fn, first, _ = _train_setup(cfg, spec, device)
     gen = torch.Generator(device=device).manual_seed(spec["seed"])
     params, frozen, _ = split.init_mpsl_lm(gen, cfg, run, device)
     state = mpsl.init_state(params, frozen, spec["seed"])
     batches = [train.to_device(batch(i), device)
                for i in range(spec["steps"])]
-    _, one = _run_steps(step_fn, state, batches,
-                        train_launches_per_step(cfg))
+    with _tape(cfg) as tape:
+        _, one = _run_steps(step_fn, state, batches,
+                            train_launches_per_step(cfg))
     ref_file = os.path.join(tmp, "grads.pt")
-    torch.save(dict(zip(tree.paths(state["params"]),
-                        (g.cpu() for g in first))), ref_file)
+    torch.save({"grads": dict(zip(tree.paths(state["params"]),
+                                  (g.cpu() for g in first))),
+                "idx": None if tape is None
+                else [i.cpu() for i in tape.idx]}, ref_file)
     return ref_file, one
+
+
+def _aux_couples_clients(cfg) -> bool:
+    """Whether the MPSL loss's router aux loss gives a masked client an
+    adapter gradient (``make_lm_loss``: aux is taken over every client's
+    tokens)."""
+    return bool(cfg.moe and cfg.moe.router_aux_coef)
 
 
 def _hold_mesh_train(path, spec, cfg, depth, ranks, one, world_s):
@@ -3987,9 +4137,15 @@ def _hold_mesh_train(path, spec, cfg, depth, ranks, one, world_s):
     and collectives exactly the code's, each step's loss within
     TRAIN_LOSS_TOL of the one-rank path's, every first-step gradient
     within TRAIN_GRAD_TOL in relative L2, the masked client's adapter
-    gradient exactly 0."""
+    gradient exactly 0 (where the router's aux loss, taken over every
+    client's tokens, gives it one: as the one-rank path's, within the
+    adapter leaves' TRAIN_GRAD_TOL); an MoE arch's routing flips under
+    ROUTING_FLIP_LIMIT of its decisions (each step's calls: every block's
+    forward and its remat recompute); the per-client leg
+    (``_hold_per_client``)."""
     expected = {"launches": train_launches_per_step(cfg),
                 "collectives": mesh_train_collectives(cfg, spec)}
+    zero_expected = not _aux_couples_clients(cfg)
     rec = {"phase": path, "part": "train", **depth, "arch": cfg.name,
            "mesh": spec["mesh"], "program": ranks[0]["program"],
            "d_model": cfg.d_model, "compute_dtype": spec["compute_dtype"],
@@ -4002,6 +4158,7 @@ def _hold_mesh_train(path, spec, cfg, depth, ranks, one, world_s):
            "one_rank_peak_mem_bytes": one["peak_mem_bytes"],
            "world_s": world_s, "expected_per_step": expected,
            "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL,
+           "masked_adapter_grad_zero_expected": zero_expected,
            "ranks": ranks}
     rec["ranks_peak_mem_bytes_sum"] = _hold_mesh(path, ranks, expected,
                                                  per="step")
@@ -4012,13 +4169,58 @@ def _hold_mesh_train(path, spec, cfg, depth, ranks, one, world_s):
                                                     one["losses"])]
         if not (max(errs) <= TRAIN_LOSS_TOL
                 and r["grad_rel_l2"][worst] <= TRAIN_GRAD_TOL
-                and r["masked_adapter_grad_zero"]):
+                and (r["masked_adapter_grad_zero"] or not zero_expected)):
             raise AssertionError(
                 f"{path} rank {r['rank']}: losses {r['losses']} vs "
                 f"{one['losses']}, gradient {worst} "
                 f"{r['grad_rel_l2'][worst]}, masked client's adapter "
                 f"gradient zero: {r['masked_adapter_grad_zero']}")
-    return _mesh_counts(ranks, "step")
+        _hold_flips(f"{path} rank {r['rank']}", r.get("routing"),
+                    2 * cfg.num_layers * spec["steps"])
+    counts = _mesh_counts(ranks, "step")
+    if spec.get("per_client"):
+        pc = _hold_per_client(path, spec, cfg, ranks)
+        counts = {k: counts[k] + pc[k] for k in counts}
+    return counts
+
+
+def _hold_per_client(path, spec, cfg, ranks):
+    """The per-client leg's record (emitted): one ``backward_mode=
+    "per_client"`` step (vanilla PSL: a forward and backward a client,
+    N = n_clients) from the aggregated path's first state and batch, its
+    launches and collectives exactly N passes' (``mesh_per_client_
+    collectives``), its loss within TRAIN_LOSS_TOL of the aggregated first
+    step's, every gradient within TRAIN_GRAD_TOL in relative L2 of the
+    aggregated first step's (the int8 downlink rounds each pass's scaled
+    cut-layer cotangent), the masked client's adapter gradient exactly 0.
+    Its host time beside the aggregated step's is a count of passes, not
+    a speed claim."""
+    legs = [r["per_client"] for r in ranks]
+    n = spec["n_clients"]
+    expected = {"launches": {k: n * v for k, v in
+                             train_launches_per_step(cfg).items()},
+                "collectives": mesh_per_client_collectives(cfg, spec)}
+    rec = {"phase": path, "part": "per_client", "arch": cfg.name,
+           "mesh": spec["mesh"], "passes": n,
+           "masked_client": spec["masked_client"],
+           "expected_per_step": expected, "loss_tol": TRAIN_LOSS_TOL,
+           "grad_tol": TRAIN_GRAD_TOL,
+           "aggregated_step_ms": [r["median_step_ms"] for r in ranks],
+           "per_client_step_ms": [x["step_ms"] for x in legs],
+           "ranks": legs}
+    _hold_mesh(f"{path} per_client", legs, expected, per="step")
+    emit(rec)
+    for x in legs:
+        worst = max(x["grad_rel_l2"], key=x["grad_rel_l2"].get)
+        if not (x["loss_rel_err"] <= TRAIN_LOSS_TOL
+                and x["grad_rel_l2"][worst] <= TRAIN_GRAD_TOL
+                and x["masked_adapter_grad_zero"]):
+            raise AssertionError(
+                f"{path} per_client rank {x['rank']}: loss "
+                f"{x['loss_rel_err']}, gradient {worst} "
+                f"{x['grad_rel_l2'][worst]}, masked client's adapter "
+                f"gradient zero: {x['masked_adapter_grad_zero']}")
+    return _mesh_counts(legs, "step")
 
 
 def phase_mesh_train(path, spec):
@@ -4040,11 +4242,22 @@ def phase_mesh_train(path, spec):
 
 
 def _mesh_train_rank(spec, ref_file, ref_losses):
+    """A rank of a mesh train path: its shards of the seed's state, the
+    path's steps (an MoE arch replaying the one-rank path's expert
+    choices: each step routes in every block's forward, 0 .. L-1, then in
+    each block's remat recompute, L-1 .. 0, as torch's non-reentrant
+    checkpoint recomputes a block when the backward first unpacks one of
+    its saved tensors, on the autograd thread, which reads the same
+    module-global tape; a recompute's choices are its forward's, so both
+    runs make the same calls in the same order), the first step's
+    gradients against the one-rank path's; with ``per_client``, that
+    leg (``_per_client_leg``) from the same first state and batch."""
     prog = collectives.active()
     device = prog.device
     cfg, _ = _config(spec)
     mesh = prog.mesh
-    run, batch, step_fn, first = _train_setup(cfg, spec, device)
+    run, batch, step_fn, first, (loss_fn, sched) = _train_setup(cfg, spec,
+                                                                device)
 
     def make():
         gen = torch.Generator(device=device).manual_seed(spec["seed"])
@@ -4059,55 +4272,124 @@ def _mesh_train_rank(spec, ref_file, ref_losses):
     state = mpsl.init_state(lp, lf, spec["seed"])
     batches = [sharding.take_batch(sharding.place_batch(
         batch(i), device, mesh), device) for i in range(spec["steps"])]
+    # the first state, for the per-client leg after the steps
+    start = [p.detach().to("cpu", copy=True)
+             for p in tree.leaves(state["params"])] \
+        if spec.get("per_client") else None
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    ref = torch.load(ref_file, mmap=True)
 
     # the steps, every counter set to 0 just before
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     collectives.reset_counts()
     losses, times, launches, colls, nbytes = [], [], [], [], []
-    for b in batches:
-        k0, c0, b0 = read_counts(), _collectives_step(), _collective_bytes()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        state, met = step_fn(state, b)
-        losses.append(float(met["loss"]))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        k1, c1, b1 = read_counts(), _collectives_step(), _collective_bytes()
-        launches.append({k: k1[k] - k0[k] for k in k1})
-        colls.append({k: c1[k] - c0.get(k, 0) for k in c1})
-        nbytes.append({k: b1[k] - b0.get(k, 0) for k in b1})
+    with _tape(cfg, ref["idx"]) as tape:
+        for b in batches:
+            k0, c0 = read_counts(), _collectives_step()
+            b0 = _collective_bytes()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, met = step_fn(state, b)
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            k1, c1 = read_counts(), _collectives_step()
+            b1 = _collective_bytes()
+            launches.append({k: k1[k] - k0[k] for k in k1})
+            colls.append({k: c1[k] - c0.get(k, 0) for k in c1})
+            nbytes.append({k: b1[k] - b0.get(k, 0) for k in b1})
     peak = torch.cuda.max_memory_allocated()
 
     # the first step's gradients (summed over `data`, before clipping)
     # against the one-rank path's
-    ref = torch.load(ref_file, mmap=True)
-    errs = {}
-    for name, p, g in zip(tree.paths(state["params"]),
-                          tree.leaves(state["params"]), first):
-        errs[name] = _sharded_rel_l2(g, ref[name], collectives.spec_of(p))
-    # the masked client's adapter gradient, on the data rank holding it
-    n_loc = spec["n_clients"] // prog.size("data")
-    c = spec["masked_client"] - prog.index("data") * n_loc
-    zero = True
-    for name, g in zip(tree.paths(state["params"]), first):
-        if "adapter" in name and 0 <= c < n_loc:
-            zero &= bool(g[c].abs().max().item() == 0.0)
-    flag = collectives.all_reduce(torch.tensor(
-        [0.0 if zero else 1.0], device=device), collectives.WORLD)
+    names, leaves = tree.paths(state["params"]), tree.leaves(state["params"])
+    errs = {n: _sharded_rel_l2(g, ref["grads"][n], collectives.spec_of(p))
+            for n, p, g in zip(names, leaves, first)}
+    zero = _masked_adapter_zero(spec, prog, names, first, device)
+    leg = None
+    if spec.get("per_client"):
+        for p, x in zip(leaves, start):
+            p.data.copy_(x)
+        del start
+        leg = _per_client_leg(spec, run, loss_fn, sched, state,
+                              batches[0], first, losses[0])
+        peak = max(peak, leg["peak_mem_bytes"])
     del ref, first[:]
-    return _rank_record(
+    rec = _rank_record(
         prog, peak, program=prog.record(),
         init_s=init_s, losses=losses,
         step_ms=[x * 1e3 for x in times],
         median_step_ms=statistics.median(times[1:]) * 1e3,
         launches_per_step=launches, collectives_per_step=colls,
         collective_bytes_per_step=nbytes, grad_rel_l2=errs,
-        masked_adapter_grad_zero=float(flag) == 0.0,
-        shard_params=sum(p.numel() for p in tree.leaves(state["params"])),
+        masked_adapter_grad_zero=zero, routing=_flips(tape),
+        shard_params=sum(p.numel() for p in leaves),
         shard_frozen=sum(p.numel() for p in tree.leaves(state["frozen"])))
+    if leg is not None:
+        rec["per_client"] = leg
+    return rec
+
+
+def _masked_adapter_zero(spec, prog, names, grads, device) -> bool:
+    """Whether the masked client's adapter gradient is exactly 0 on the
+    data rank holding it (every rank learns the answer)."""
+    n_loc = spec["n_clients"] // prog.size("data")
+    c = spec["masked_client"] - prog.index("data") * n_loc
+    zero = True
+    for name, g in zip(names, grads):
+        if "adapter" in name and 0 <= c < n_loc:
+            zero &= bool(g[c].abs().max().item() == 0.0)
+    flag = collectives.all_reduce(torch.tensor(
+        [0.0 if zero else 1.0], device=device), collectives.WORLD)
+    return float(flag) == 0.0
+
+
+def _per_client_leg(spec, run, loss_fn, sched, state, batch, agg_grads,
+                    agg_loss):
+    """One ``backward_mode="per_client"`` step (vanilla PSL: a forward and
+    backward a client, every rank running all N clients' passes) from the
+    aggregated path's first state (the params restored into `state`, the
+    AdamW moments fresh, as at the start) and batch, every counter set to
+    0 just before: its launches, collectives, host ms and peak, its loss
+    against the aggregated first step's `agg_loss`, its gradients (read by
+    its grad hook, kept on the card until the step ends) against
+    `agg_grads`, the masked client's adapter gradient."""
+    prog = collectives.active()
+    device = prog.device
+    grads = []
+    step_fn = mpsl.make_train_step(
+        loss_fn, run, sched, backward_mode="per_client",
+        grad_hook=lambda _, g: grads.extend(x.detach().clone() for x in g))
+    state = dict(state, opt=adamw_init(state["params"]), step=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    collectives.reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, met = step_fn(state, batch)
+    loss = float(met["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches, colls = read_counts(), _collectives_step()
+    nbytes = _collective_bytes()
+    peak = torch.cuda.max_memory_allocated()
+    grads = [g.cpu() for g in grads]
+    names, leaves = tree.paths(state["params"]), tree.leaves(state["params"])
+    errs = {n: _shards_rel_l2(g, a, p)
+            for n, p, g, a in zip(names, leaves, grads, agg_grads)}
+    return {"rank": prog.rank, "step_ms": ms, "loss": loss,
+            "aggregated_loss": agg_loss,
+            "loss_rel_err": abs(loss - agg_loss) / abs(agg_loss),
+            "per_client_losses": met["per_client"].tolist(),
+            "launches_per_step": [launches], "collectives_per_step": [colls],
+            "collective_bytes_per_step": [nbytes], "peak_mem_bytes": peak,
+            "grad_rel_l2": errs,
+            "masked_adapter_grad_zero": _masked_adapter_zero(
+                spec, prog, names, grads, device)}
 
 
 def _mesh(spec):
@@ -4134,8 +4416,11 @@ def _mesh_serve_ref(cfg, spec, device, tmp):
     prefill, decode = serve.build_serving_fns(
         cfg, torch.float32, device, decode_slots=_decode_slots(spec))
     serve.generate(prefill, decode, params, tokens, 1, **stub)  # warm-up
-    one = serve.generate(prefill, decode, params, tokens, steps_, **stub)
-    ref = {"logits": one["logits"].cpu(), "tokens": one["tokens"].cpu()}
+    with _tape(cfg) as tape:
+        one = serve.generate(prefill, decode, params, tokens, steps_,
+                             **stub)
+    ref = {"logits": one["logits"].cpu(), "tokens": one["tokens"].cpu(),
+           "idx": None if tape is None else [i.cpu() for i in tape.idx]}
     if cfg.encoder_layers:
         _, cache = prefill(params, tokens, **stub)
         ref["cross"] = [{k: c[k].cpu() for k in ("k", "v")}
@@ -4152,7 +4437,9 @@ def _hold_mesh_serve(path, spec, cfg, depth, ranks, rec_one, world_s):
     """The serve record of a mesh path (emitted): every rank's launches
     and collectives exactly the code's, every step's logits within
     SERVE_TOL (atol and rtol) of the one-rank path's, every greedy token
-    the one-rank token or a near tie."""
+    the one-rank token or a near tie; an MoE arch's routing flips under
+    ROUTING_FLIP_LIMIT (every layer routes in the prefill and in each
+    decode step)."""
     steps_ = spec["decode_steps"]
     expected = {"launches": serve_launches(cfg, steps_),
                 "collectives": mesh_serve_collectives(
@@ -4180,6 +4467,8 @@ def _hold_mesh_serve(path, spec, cfg, depth, ranks, rec_one, world_s):
                 f" off the one-rank prefill's, the same bits on every model "
                 f"rank: {r['cross_kv_same_on_model_ranks']}, heads "
                 f"{r['cross_kv_heads']}")
+        _hold_flips(f"{path} rank {r['rank']}", r.get("routing"),
+                    cfg.num_layers * (1 + steps_))
     return _mesh_counts(ranks)
 
 
@@ -4202,9 +4491,9 @@ def phase_mesh_serve(path, spec):
 
 
 def phase_mesh_family(path, spec):
-    """A Mamba, hybrid, encoder-decoder or VLM LM as the SPMD program on
-    its mesh, train then serve in one world (4 ranks sharing the card
-    over gloo), each part against its one-rank path run first:
+    """A Mamba, hybrid, encoder-decoder, VLM or MoE LM as the SPMD program
+    on its mesh, train then serve in one world (its mesh's ranks sharing
+    the card over gloo), each part against its one-rank path run first:
     ``phase_mesh_train``'s and ``phase_mesh_serve``'s checks, limits and
     exact counts; an encoder-decoder's cross K/V every KV head on every
     model rank, the same bits on each, within SERVE_TOL of the one-rank
@@ -4301,8 +4590,9 @@ def _mesh_serve_rank(spec, ref_file):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     collectives.reset_counts()
-    out = serve.generate(prefill, decode, params, tokens, steps_,
-                         forced_tokens=forced, **stub)
+    with _tape(cfg, ref["idx"]) as tape:
+        out = serve.generate(prefill, decode, params, tokens, steps_,
+                             forced_tokens=forced, **stub)
     launches, colls = read_counts(), _collectives_step()
     nbytes = _collective_bytes()
     peak = torch.cuda.max_memory_allocated()
@@ -4330,22 +4620,26 @@ def _mesh_serve_rank(spec, ref_file):
         tokens_equal=int((toks == ref["tokens"][r0:r0 + b]).sum()),
         tokens=int(toks.numel()),
         token_deficit_max=deficit.max().item(),
-        tokens_ok=bool((deficit <= slack).all()), **cross)
+        tokens_ok=bool((deficit <= slack).all()), routing=_flips(tape),
+        **cross)
 
 
 def phase_mesh_ep(path, spec):
     """qwen3-moe's prefill through ``steps.build_prefill`` as the SPMD
     program on a (1, 4) mesh (32 of 128 experts, 16 of 64 heads, 1 of 4
-    KV heads, a quarter of the vocab a rank; ep at capacity 2.0) against
-    the one-rank ep path (the 1 x 1 mesh), whose expert choices it
-    replays: each layer's dropped (token, k) slots over every rank's
-    experts bitwise the one-rank ``moe.ep_drop_mask``, the last logits
-    within SERVE_TOL_BF16 of the largest |logit|, each layer's cache K/V
-    within SERVE_TOL_BF16 in relative L2."""
+    KV heads, a quarter of the vocab a rank) against the one-rank path of
+    the same dispatch (the 1 x 1 mesh), whose expert choices it replays:
+    ep at capacity 2.0 (each layer's dropped (token, k) slots over every
+    rank's experts bitwise the one-rank ``moe.ep_drop_mask``) or, with
+    spec["moe"] "ragged", the ragged dispatch over each rank's experts
+    (each layer's every slot run by exactly one rank: nothing dropped);
+    the last logits within SERVE_TOL_BF16 of the largest |logit|, each
+    layer's cache K/V within SERVE_TOL_BF16 in relative L2."""
     cfg, depth = _config(spec)
     device = serve.resolve_device("cuda")
     one_mesh = mesh_lib.Mesh(("data", "model"), (1, 1))
-    run, krun = _cell_run(cfg, spec, one_mesh)
+    over = {"moe_impl": spec["moe"]} if "moe" in spec else {}
+    run, krun = _cell_run(cfg, spec, one_mesh, **over)
     cdt = getattr(torch, run.compute_dtype)
     fn = steps.build_prefill(cfg, krun, one_mesh)[0]
     params, batch = _ep_inputs(cfg, spec, device, cdt)
@@ -4357,8 +4651,12 @@ def phase_mesh_ep(path, spec):
             logits, cache = fn(params, batch)
             torch.cuda.synchronize()
             one_ms = (time.perf_counter() - t) * 1e3
+    if run.moe_impl not in ("ep", "ragged"):
+        raise ValueError(f"{path}: the ep or ragged dispatch, not "
+                         f"{run.moe_impl}")
+    ep = run.moe_impl == "ep"
     drops = [MOE.ep_drop_mask(idx, cfg.moe.num_experts, run.moe_capacity)
-             for idx in tape.idx]
+             for idx in tape.idx] if ep else []
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     try:
         ref_file = os.path.join(tmp, "ref.pt")
@@ -4378,18 +4676,24 @@ def phase_mesh_ep(path, spec):
            "program": ranks[0]["program"],
            "shape": dict(zip(("name", "seq_len", "global_batch", "kind"),
                              spec["shape"])),
-           "ep_capacity": run.moe_capacity, "compute_dtype":
-           run.compute_dtype, "one_rank_prefill_ms": one_ms,
-           "ep_dropped_slots_by_layer": [int(d.sum()) for d in drops],
-           "world_s": world_s, "expected_per_call": expected,
-           "tol": SERVE_TOL_BF16, "ranks": ranks}
+           "moe_impl": run.moe_impl, "compute_dtype": run.compute_dtype,
+           "one_rank_prefill_ms": one_ms, "world_s": world_s,
+           "expected_per_call": expected, "tol": SERVE_TOL_BF16,
+           "ranks": ranks}
+    if ep:
+        rec.update(ep_capacity=run.moe_capacity,
+                   ep_dropped_slots_by_layer=[int(d.sum()) for d in drops])
     rec["ranks_peak_mem_bytes_sum"] = _hold_mesh(path, ranks, expected)
     emit(rec)
     for r in ranks:
-        if not (r["drops_equal"] and r["last_logits_rel_err"] <= SERVE_TOL_BF16
+        slots = (r["drops_equal"] if ep else
+                 r["slots_run_once"] and r["hit_calls"] == cfg.num_layers
+                 and r["drop_calls"] == 0)
+        if not (slots and r["last_logits_rel_err"] <= SERVE_TOL_BF16
                 and r["cache_rel_l2_max"] <= SERVE_TOL_BF16):
             raise AssertionError(
-                f"{path} rank {r['rank']}: drops equal {r['drops_equal']}, "
+                f"{path} rank {r['rank']}: slots {slots} (drops equal "
+                f"{r['drops_equal']}, each run once {r['slots_run_once']}), "
                 f"logits {r['last_logits_rel_err']}, cache "
                 f"{r['cache_rel_l2_max']}")
     return _mesh_counts(ranks)
@@ -4557,7 +4861,8 @@ def _mesh_ep_rank(spec, ref_file):
     device = prog.device
     cfg, _ = _config(spec)
     mesh = prog.mesh
-    run, krun = _cell_run(cfg, spec, mesh)
+    run, krun = _cell_run(cfg, spec, mesh, **(
+        {"moe_impl": spec["moe"]} if "moe" in spec else {}))
     cdt = getattr(torch, run.compute_dtype)
     fn, _, in_specs = steps.build_prefill(cfg, krun, mesh)
 
@@ -4584,11 +4889,16 @@ def _mesh_ep_rank(spec, ref_file):
     launches, colls = read_counts(), _collectives_step()
     nbytes = _collective_bytes()
     peak = torch.cuda.max_memory_allocated()
-    # every rank's dropped slots among its own experts, joined
-    drops_equal = True
+    # every rank's dropped slots among its own experts, joined (ep); the
+    # ranks that ran each slot, added (ragged: exactly one each)
+    drops_equal = len(tape.drops) == len(ref["drops"])
     for mine, want in zip(tape.drops, ref["drops"]):
         joined = collectives.all_reduce(mine.int(), "model") > 0
         drops_equal &= torch.equal(joined.cpu(), want)
+    run_once = True
+    for hit in tape.hits:
+        ran = collectives.all_reduce(hit.int(), "model")
+        run_once &= bool((ran == 1).all().item())
     logits = collectives.all_gather(logits, 2, "model").float().cpu()
     want = ref["logits"].float()
     errs = {}
@@ -4603,6 +4913,7 @@ def _mesh_ep_rank(spec, ref_file):
         launches_per_call=[launches], collectives_per_call=[colls],
         collective_bytes_per_call=nbytes,
         drops_equal=bool(drops_equal), drop_calls=len(tape.drops),
+        slots_run_once=bool(run_once), hit_calls=len(tape.hits),
         routing_flips=int(tape.flips), routing_decisions=tape.decisions,
         last_logits_rel_err=_rel_max(logits, want),
         cache_rel_l2=errs, cache_rel_l2_max=errs[worst],
@@ -4610,16 +4921,20 @@ def _mesh_ep_rank(spec, ref_file):
 
 
 # each mesh path's phase, and the groups whose paths share one world (one
-# mesh each), in the order they run
+# mesh each), in the order they run: a world's start and the warm-up of
+# its first training step (on the H100 10-16 s over the second step for
+# a world's first path, ~2 s for a later one) come once a group
 MESH_PHASES = {"mesh_train": phase_mesh_train, "mesh_serve": phase_mesh_serve,
-               "mesh_ep": phase_mesh_ep, "mesh_ssm": phase_mesh_family,
+               "mesh_ep": phase_mesh_ep, "mesh_ep_ragged": phase_mesh_ep,
+               "mesh_ssm": phase_mesh_family,
                "mesh_hybrid": phase_mesh_family,
                "mesh_long_500k": phase_mesh_long,
                "mesh_encdec": phase_mesh_family,
-               "mesh_vlm": phase_mesh_family}
-MESH_GROUPS = (("mesh_train", "mesh_serve"),
-               ("mesh_ep", "mesh_long_500k", "mesh_encdec"),
-               ("mesh_ssm",), ("mesh_hybrid",), ("mesh_vlm",))
+               "mesh_vlm": phase_mesh_family, "mesh_moe": phase_mesh_family}
+MESH_GROUPS = (("mesh_train", "mesh_serve", "mesh_ssm", "mesh_hybrid",
+                "mesh_vlm"),
+               ("mesh_ep", "mesh_ep_ragged", "mesh_long_500k", "mesh_encdec"),
+               ("mesh_moe",))
 MESH_PATHS = {p for group in MESH_GROUPS for p in group}
 
 

@@ -19,7 +19,8 @@ client/server exchange:
      through it (int8-compressed when enabled).
 
 ``backward_mode='per_client'`` is the vanilla-PSL baseline: N backward
-passes, one per client, summed with the same weights.
+passes, one per client, summed with the same weights (under the SPMD
+program every rank runs all N, ``_per_client_grads``).
 
 Randomness. JAX threads a key; here a step's ``rng`` is an int derived
 from the state's seed and the step, and the loss draws the links'
@@ -449,18 +450,26 @@ def _grad_agg(loss_fn, params, frozen, batch, rng, microbatches):
 
 def _per_client_grads(loss_fn, params, frozen, batch, rng):
     """Vanilla PSL: one backward per client, combined with the same global
-    weights w_n the aggregated mode uses."""
-    if C.active() is not None:
-        raise NotImplementedError("the per-client backward baseline under "
-                                  "the SPMD program (ROADMAP.md Queue 1 "
-                                  "item 7)")
+    weights w_n the aggregated mode uses.
+
+    Under the SPMD program every rank runs the passes of all N global
+    clients, so that their collectives match across ranks: in pass i the
+    data rank holding client i keeps that client's mask entry and zeros
+    the rest (the JAX ``one(i)``: ``one_hot(i) * mask``), every other
+    rank's entries are 0. w_i is the global weight, from the mask
+    gathered over `data` (one all-gather); each pass's loss is the global
+    one (``value_and_grad``), and the summed gradients are this rank's
+    part, which the step sums over `data` (``reduce_grads``)."""
     mask = batch["mask"]
-    n = mask.shape[0]
-    w = _client_weights(mask, n)
+    n = mask.shape[0]                      # this data rank's clients
+    c0 = _client_offset(n)
+    mask_all = C.all_gather(mask, 0, "data")
+    w = mask_all.float() / torch.clamp(mask_all.float().sum(), min=1.0)
     grads, ls = None, []
-    for i in range(n):
+    for i in range(mask_all.shape[0]):
         m = torch.zeros_like(mask)
-        m[i] = mask[i]
+        if c0 <= i < c0 + n:
+            m[i - c0] = mask[i - c0]
         l, _, g = value_and_grad(loss_fn, params, frozen,
                                   dict(batch, mask=m), rng)
         g = [x * w[i] for x in g]
@@ -470,7 +479,7 @@ def _per_client_grads(loss_fn, params, frozen, batch, rng):
     loss = (w * ls).sum()
     return grads, loss, {"loss": loss, "per_client": ls,
                          "aux": torch.zeros((), device=loss.device),
-                         "participating": mask.sum()}
+                         "participating": mask_all.sum()}
 
 
 def make_train_step(loss_fn, run, sched, backward_mode: str = "aggregated",

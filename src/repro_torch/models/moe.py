@@ -35,7 +35,10 @@ the same function up to ep's capacity:
 Under the SPMD program the router and the load-balance loss are computed
 on every model rank from the same tokens (the loss's means over every
 data rank's tokens); the routed experts and the shared expert are a
-model-parallel region (``_moe_program``).
+model-parallel region (``_moe_program``), the experts on `model` (E/m a
+rank) where m divides E, else each expert's F (qwen2-moe's 60 experts
+on a model axis of 8 or 16). Every dispatch runs in both layouts; ep,
+where the experts do not divide the axis, as ragged.
 
 ``routing_tape`` is a check-only tool: a comparison of the kernel path
 with the plain path records the kernel path's expert choices and replays
@@ -91,11 +94,14 @@ class RoutingTape:
     uses them instead of its own top k, and counts the tokens whose own
     top-k set differs. Each ep ``local`` call (``_ep_local``) adds the
     (token, k) slots it dropped past capacity among its own experts'
-    (``drops``)."""
+    (``drops``); each ragged call over a rank's share of the experts the
+    slots routed to them (``hits``: over the model ranks, each slot is
+    one rank's)."""
 
     def __init__(self, replay=None):
         self.idx = []               # [T, k] per call, as recorded
         self.drops = []             # [T, k] bool per ep ``local`` call
+        self.hits = []              # [T, k] bool per ragged call on a share
         self.replay = replay
         self.calls = 0
         self.flips = 0              # a 0-d tensor once a call is replayed
@@ -194,30 +200,52 @@ def _apply_dense(params, x, cfg, weights, idx, eid0: int = 0):
     return torch.einsum("tef,efd->td", h, params["wo"].to(x.dtype))
 
 
-def _apply_ragged(params, x, cfg, weights, idx):
-    """Slots sorted by expert, one product per expert and projection."""
+def _apply_ragged(params, x, cfg, weights, idx, eid0: int = 0):
+    """Slots sorted by expert, one product per expert and projection.
+
+    With `eid0` and fewer experts in ``params`` than the config routes to
+    (this rank's E/m under the SPMD program), the slots routed to experts
+    eid0 .. eid0 + e_loc - 1 only: the others sort last and contribute
+    zeros (no capacity, so nothing is dropped). Weights whose F is this
+    rank's part give this rank's partial sums."""
     t, d = x.shape
     k = idx.shape[1]
     act = layers.act_fn(cfg.activation)
+    e_loc = params["wi"].shape[0]
     flat = idx.reshape(-1)                                  # [T*k]
+    if e_loc != cfg.moe.num_experts:
+        # ``_ep_local``'s hit mask: another rank's experts sort last
+        local = flat - eid0
+        hit = (local >= 0) & (local < e_loc)
+        flat = torch.where(hit, local, e_loc)
+        tape = _TAPE
+        if tape is not None:
+            tape.hits.append(hit.reshape(t, k))
     order = torch.argsort(flat, stable=True)
+    # the dispatch's one host sync: the GEMM shapes come from the routing
+    sizes = torch.bincount(flat, minlength=e_loc).tolist()
+    n_hit = sum(sizes[:e_loc])
+    rows = order if n_hit == t * k else order[:n_hit]
     # replicate each token k times and permute: a gather by a permutation,
     # whose backward adds one value into each row (the same bits each run)
-    xs = x.repeat_interleave(k, dim=0)[order]               # [T*k, D]
-    # the dispatch's one host sync: the GEMM shapes come from the routing
-    sizes = torch.bincount(flat, minlength=cfg.moe.num_experts).tolist()
+    xs = x.repeat_interleave(k, dim=0)[rows]                # [hits, D]
     # unbind / split: one backward each (stack / cat), not one per expert
     wi = params["wi"].unbind(0)
     wg = params["wg"].unbind(0) if "wg" in params else None
     wo = params["wo"].unbind(0)
     ys = []
-    for e, xe in enumerate(xs.split(sizes)):
-        if not sizes[e]:
+    for e, xe in enumerate(xs.split(sizes[:e_loc])):
+        # with no hit at all, expert 0 over the empty slice: the weights
+        # stay in the graph, so their gradients' collectives run on every
+        # rank
+        if not sizes[e] and (e or n_hit):
             continue
         h = xe @ wi[e].to(x.dtype)
         h = act(xe @ wg[e].to(x.dtype)) * h if wg is not None else act(h)
         ys.append(h @ wo[e].to(x.dtype))
-    y = torch.cat(ys) * weights.reshape(-1)[order][:, None]
+    y = torch.cat(ys) * weights.reshape(-1)[rows][:, None]
+    if n_hit != t * k:
+        y = torch.cat([y, y.new_zeros(t * k - n_hit, d)])
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(order.numel(), device=order.device)
     y = y[inverse].reshape(t, k, d)
@@ -325,43 +353,37 @@ def _apply_ep(params, x, cfg, weights, idx, capacity: float = 2.0):
 
 def _moe_program(params, xt, cfg, weights, idx, impl, capacity):
     """The routed experts under the SPMD program: this rank's tokens
-    (`data`), its experts (`model`: E/m of them, the rule table's expert
-    parallelism) with their fsdp dim gathered; the tokens and the combine
-    weights enter the model-parallel region by ``copy_to``, the partial
-    sums leave by ``reduce_from``. ep runs the JAX ``local`` (capacity
-    from the global E); dense runs every local expert on every token."""
+    (`data`) and its share of the experts (`model`), their fsdp dim
+    gathered; the tokens and the combine weights enter the model-parallel
+    region by ``copy_to``, the partial sums leave by ``reduce_from``
+    (``apply_moe``). Two layouts, as the rule table gives them:
+
+      * experts on `model` (E/m a rank, where m divides E): ep runs the
+        JAX ``local`` (capacity from the global E); ragged this rank's
+        experts' slots, a GEMM per non-empty local expert, no capacity;
+        dense every local expert on every token;
+      * each expert's F on `model` (wi / wg [E, D, F/m], wo [E, F/m, D],
+        where m does not divide E): every expert a column- and
+        row-parallel MLP; dense and ragged over the local F columns (the
+        tokens and router are replicated over `model`, so every model
+        rank sorts the same slots and reads the same group sizes); ep
+        runs as ragged, as the JAX ``_apply_ep`` does where E % m != 0."""
     tp = C.model_parallel(params["wi"])
-    if tp and C.spec_of(params["wi"])[0] != "model":
-        raise NotImplementedError(
-            "experts that do not divide the model axis (each expert's F on "
-            "`model`): ROADMAP.md Queue 1 item 7")
-    if not tp:
-        local = {k: C.gather_param(params[k]) for k in ("wi", "wg", "wo")
-                 if k in params}
-        if impl == "dense":
-            return _apply_dense(local, xt, cfg, weights, idx)
-        if impl == "ragged":
-            return _apply_ragged(local, xt, cfg, weights, idx)
-        return _ep_local(xt, cfg, weights, idx, capacity, local["wi"],
-                         local.get("wg"), local["wo"])
-    x_in = C.copy_to(xt, "model")
-    w_in = C.copy_to(weights, "model")
-    wi = C.gather_param(params["wi"])
-    wg = C.gather_param(params["wg"]) if "wg" in params else None
-    wo = C.gather_param(params["wo"])
-    e_loc = wi.shape[0]
-    eid0 = C.index("model") * e_loc
-    if impl == "ep":
-        y = _ep_local(x_in, cfg, w_in, idx, capacity, wi, wg, wo, eid0)
-    elif impl == "dense":
-        local = {"wi": wi, "wo": wo, **({"wg": wg} if wg is not None
-                                         else {})}
-        y = _apply_dense(local, x_in, cfg, w_in, idx, eid0=eid0)
-    else:
-        raise NotImplementedError(
-            "the ragged dispatch over experts on the model axis: ROADMAP.md "
-            "Queue 1 item 7 (ep and dense run there)")
-    return y
+    local = {k: C.gather_param(params[k]) for k in ("wi", "wg", "wo")
+             if k in params}
+    eid0 = 0
+    if tp:
+        xt, weights = C.copy_to(xt, "model"), C.copy_to(weights, "model")
+        if C.spec_of(params["wi"])[0] == "model":       # experts on `model`
+            eid0 = C.index("model") * local["wi"].shape[0]
+        elif impl == "ep":                              # F on `model`
+            impl = "ragged"
+    if impl == "dense":
+        return _apply_dense(local, xt, cfg, weights, idx, eid0=eid0)
+    if impl == "ragged":
+        return _apply_ragged(local, xt, cfg, weights, idx, eid0=eid0)
+    return _ep_local(xt, cfg, weights, idx, capacity, local["wi"],
+                     local.get("wg"), local["wo"], eid0)
 
 
 def ep_drop_mask(idx, num_experts: int, capacity: float = 2.0,

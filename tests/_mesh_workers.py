@@ -538,17 +538,19 @@ def _cell_batch(cfg_kw):
     return out
 
 
-def _train_cell_run(cfg, mesh, n_clients, seq):
+def _train_cell_run(cfg, mesh, n_clients, seq, **over):
     """The train cell's RunConfig for `seq` text tokens (a VLM cell's
     shape counts the 256 patches of ``train_batch_specs`` as well: the
-    specs read only its batch's ranks, the batch may hold fewer)."""
+    specs read only its batch's ranks, the batch may hold fewer); `over`
+    overrides more of ``default_run``'s fields."""
     if cfg.family == "vlm":
         seq += steps.VLM_PATCH_TOKENS
     return steps.default_run(cfg, ShapeConfig("train", seq, 2 * n_clients,
                                               "train"), mesh,
                              n_clients=n_clients, trainable_blocks=1,
                              attn_impl="kernel", ssm_impl="kernel",
-                             ce_impl="kernel", compute_dtype="float32")
+                             ce_impl="kernel", compute_dtype="float32",
+                             **over)
 
 
 def train_cell(cfg_kw, n_clients, batch_np, seed):
@@ -649,3 +651,140 @@ def encdec_cases(meshes, trees, blocks, steps_args, props, serves, prefills,
                                  for a in prefills]
         return out
     return _with_meshes(meshes, one)
+
+
+# ---------------------------------------------------------------------------
+# the MoE layouts of the production meshes (tests/test_torch_mesh_moe.py)
+
+
+def moe_layer(cfg_kw, moe_np, x_np, cot_np, impl, capacity=2.0):
+    """``apply_moe(impl=impl)`` under the active program on the rule
+    table's layout (the experts on `model` where the axis divides them,
+    else each expert's F; D on `data`), the batch x [B, S, D] on `data`:
+    y and x's gradient (gathered over `data`), aux, and every weight's
+    gradient of sum(y * cot) + aux (summed over `data` by
+    ``reduce_grads``, gathered), the weights' specs, and for each ragged
+    call over a share of the experts the number of model ranks that ran
+    each (token, k) slot."""
+    cfg = _config(cfg_kw)
+    prog = C.active()
+    params = bridge.from_repro(moe_np)
+    local = sharding.shard_tree(params, sharding.param_specs(
+        {"moe": params}, prog.mesh)["moe"])
+    leaves = tree.leaves(local)
+    for p in leaves:
+        p.requires_grad_(True)
+    x = _rows(x_np).requires_grad_()
+    with moe.routing_tape() as tape:
+        y, aux = moe.apply_moe(local, x, cfg, impl=impl, capacity=capacity)
+        ((y * _rows(cot_np)).sum() + aux).backward()
+    grads = [p.grad for p in leaves]
+    C.reduce_grads(leaves, grads)
+    return {"y": _np(C.all_gather(y.detach(), 0, "data")),
+            "aux": float(aux), "dx": _np(C.all_gather(x.grad, 0, "data")),
+            "grads": _gathered(grads, local),
+            "specs": {k: C.spec_of(v) for k, v in local.items()
+                      if torch.is_tensor(v)},
+            "ran": [_np(C.all_gather(C.all_reduce(h.int(), "model"), 0,
+                                     "data")) for h in tape.hits]}
+
+
+def moe_train_cell(cfg_kw, impl, batch_np, seed):
+    """``steps.build_train``'s step (``default_run``'s RunConfig with the
+    kernels and `impl` as its moe dispatch, 4 clients) on this rank's
+    shards of its in_specs, the state drawn whole from `seed`: the loss,
+    every client's loss and every gradient at the start (``make_lm_loss``
+    of the same RunConfig, summed over `data` by ``reduce_grads``,
+    gathered), then two steps (each one's loss, grad norm and collectives
+    by op and axis) and the params after them, gathered."""
+    cfg = _config(cfg_kw)
+    prog = C.active()
+    run = _train_cell_run(cfg, prog.mesh, 4, batch_np["tokens"].shape[-1],
+                          moe_impl=impl)
+    step_fn, _, _, in_specs = steps.build_train(cfg, run, prog.mesh)
+    params, frozen, _ = split.init_mpsl_lm(
+        torch.Generator().manual_seed(seed), cfg, run)
+    state, batch = steps.shard_inputs(
+        (mpsl.init_state(params, frozen, seed),
+         {k: torch.from_numpy(v) for k, v in batch_np.items()}), in_specs)
+    loss, met, grads = mpsl.value_and_grad(mpsl.make_lm_loss(cfg, run),
+                                           state["params"], state["frozen"],
+                                           batch, 0)
+    C.reduce_grads(tree.leaves(state["params"]), grads)
+    out = {"loss": float(loss), "per_client": _np(met["per_client"]),
+           "grads": _gathered(grads, state["params"]), "steps": []}
+    for _ in range(2):
+        C.reset_counts()
+        state, met = step_fn(state, batch)
+        counts = C.read_counts()
+        counts.pop("program", None)
+        out["steps"].append({"loss": float(met["loss"]),
+                             "grad_norm": float(met["grad_norm"]),
+                             "counts": counts})
+    out["params"] = _gathered(state["params"])
+    return out
+
+
+def moe_cases(meshes, layer_args, train_args, serve_args):
+    """On each mesh: ``moe_layer`` of each of `layer_args`,
+    ``moe_train_cell`` of each of `train_args` and ``ssm_served`` (the
+    serve CLI's functions, ragged) of each of `serve_args`."""
+    def one():
+        return {"layer": [moe_layer(*a) for a in layer_args],
+                "train": [moe_train_cell(*a) for a in train_args],
+                "serve": [ssm_served(*a) for a in serve_args]}
+    return _with_meshes(meshes, one)
+
+
+# ---------------------------------------------------------------------------
+# the per-client backward baseline (tests/test_torch_mesh_psl.py)
+
+
+def _counted(fn, *args):
+    """fn(*args) and the collectives it issued, {"op/axis": calls}."""
+    C.reset_counts()
+    out = fn(*args)
+    return out, {k: v["calls"] for k, v in C.read_counts().items()
+                 if k != "program"}
+
+
+def psl_step(cfg_kw, params_np, frozen_np, batch_np, draws_np, lr):
+    """Under the active program, from the same state: the aggregated
+    loss's gradients (one ``value_and_grad``, then ``reduce_grads``), then
+    one ``make_train_step(backward_mode="per_client")`` step (the loss fed
+    `draws_np`, the JAX uniforms of both links, or links off where None):
+    its loss, every client's loss, its gradients (summed over `data`,
+    gathered; read by its grad hook) and the params after it, with the
+    collectives of each part."""
+    cfg = _config(cfg_kw)
+    prog = C.active()
+    run = _port_run(cfg, batch_np["mask"].shape[0], draws_np is not None)
+    state = mpsl.place_state(mpsl.init_state(
+        bridge.from_repro(params_np), bridge.from_repro(frozen_np), seed=9))
+    batch = _batch(batch_np, prog)
+    rng = 0 if draws_np is None else {k: torch.from_numpy(v)
+                                      for k, v in draws_np.items()}
+    loss_fn = mpsl.make_lm_loss(cfg, run)
+    leaves = tree.leaves(state["params"])
+    (_, _, agg), agg_counts = _counted(mpsl.value_and_grad, loss_fn,
+                                       state["params"], state["frozen"],
+                                       batch, rng)
+    _, reduce_counts = _counted(C.reduce_grads, leaves, agg)
+    seen = []
+    step = mpsl.make_train_step(
+        lambda p, f, bb, _rng: loss_fn(p, f, bb, rng), run,
+        schedules.constant(lr), backward_mode="per_client",
+        grad_hook=lambda _, g: seen.extend(x.clone() for x in g))
+    (state, met), step_counts = _counted(step, state, batch)
+    return {"agg_grads": _gathered(agg, state["params"]),
+            "grads": _gathered(seen, state["params"]),
+            "loss": float(met["loss"]), "per_client": _np(met["per_client"]),
+            "participating": float(met["participating"]),
+            "params": _gathered(state["params"]),
+            "counts": {"value_and_grad": agg_counts,
+                       "reduce_grads": reduce_counts, "step": step_counts}}
+
+
+def psl_cases(meshes, cases):
+    """{mesh name: [psl_step(*a) for a in `cases`]}."""
+    return _with_meshes(meshes, lambda: [psl_step(*a) for a in cases])
