@@ -127,7 +127,7 @@
                  8192-wide f32 link (the widest row held in registers).
    cell_train_4k  the JAX package's train_4k cell through launch.steps
                  (default_run, build_train) on the host mesh, bf16 compute:
-                 full-width minitron-4b, 16 of 32 layers, at seq 4096, 4
+                 full-width minitron-4b, 8 of 32 layers, at seq 4096, 4
                  clients x 2, the last 4 blocks trainable, int8 links, mu =
                  2 microbatches
                  (choose_microbatches), 2 steps: the tensor-core flash
@@ -160,7 +160,7 @@
    mesh_train    the SPMD program (``parallel.collectives``) as 4 rank
                  processes sharing the card over gloo
                  (``launch.spmd.spawn``), mesh (data 2, model 2): train's
-                 spec at 4 of 32 layers (the last 2 trainable), 2 steps
+                 spec at 2 of 32 layers (the last trainable), 2 steps
                  (the run's time) with
                  client 1 masked out, each rank 2 clients, 12
                  of 24 heads on 4 of 8 KV heads, d_ff 4608 and 128000
@@ -192,8 +192,8 @@
                  path's choices: every slot run by exactly one rank
                  (nothing dropped), last logits and cache K/V against it.
    mesh_ssm      falcon-mamba-7b at full width (d_model 4096, d_inner
-                 8192: 4096 channels a rank), 4 of 64 layers, on (2, 2):
-                 train's spec (2 steps, the last 2 blocks trainable,
+                 8192: 4096 channels a rank), 2 of 64 layers, on (2, 2):
+                 train's spec (2 steps, the last block trainable,
                  client 1 masked, int8 links), then serve's (prompt 512, 16
                  steps), in one world: the scan kernels at 4096 local
                  channels, in_proj cut x's and z's channels alike, the
@@ -229,7 +229,15 @@
                  8 KV heads a rank, the vocab-parallel CE at 76032
                  columns, fsdp over `data`; vlm_train's spec (2 steps,
                  client 1 masked), then 4 x (256 patches + 256 tokens),
-                 16 steps.
+                 16 steps. Its train leg runs a second time with
+                 ``seq_shard_acts`` (what ``steps.default_run`` asks for
+                 qwen2-vl-72b's train_4k: the residual stream cut on the
+                 sequence over `model` between the blocks), from the
+                 first state on the same batches: losses and first-step
+                 gradients bitwise the leg's without it, the bytes
+                 autograd saves over a forward fallen by exactly half of
+                 each block's input, and exactly 3 L + 2 all-gathers over
+                 `model` more a step (``seq_leg_expected``).
    mesh_moe      qwen2-moe-a2.7b at its published widths, 2 of 24 layers
                  (the last trainable), on the production (1, 8) model
                  axis: 8 ranks sharing the card; its 60 experts divide no
@@ -242,8 +250,19 @@
                  then serve's (prompt 512, 16 steps), in one world, the
                  ragged dispatch replaying the one-rank path's expert
                  choices.
-   The paths of one mesh share one world (``MESH_GROUPS``), a rank a
-   device of the mesh. Each mesh
+   mesh_pod      the pod axis: minitron-4b at full width, 2 of 32 layers
+                 (the last trainable), on (pod 2, data 2, model 2): 8
+                 ranks sharing the card; the clients and the batch on
+                 (pod, data) flattened (a client a rank), fsdp over
+                 `data` within a pod, the weights replicated across pods
+                 (each fsdp gradient all-reduced over `pod` once a step);
+                 mesh_train's batch (2 steps, client 1 masked), then
+                 serve's (prompt 512, 16 steps), in one world.
+   The paths of one world size share one world (``MESH_GROUPS``: the
+   4-rank meshes, the 8-rank ones), a rank a device of the mesh, each
+   path under a program on its own mesh. ``diagnose_beta_ssm`` (not a main path: run alone,
+   as README.md says) holds mesh_hybrid's beta gradients at 4 layers to a
+   float64 one-rank run. Each mesh
    path requires every rank's launches and collectives (by op
    and axis) exactly as derived from the code (``mesh_*_collectives``),
    and the ranks' peaks to sum under 80 GB; the collectives' times on
@@ -443,7 +462,10 @@ PATHS = {
                          "and 15 kept) in PR 27: the plain path's "
                          "Python-stepped scan took 27 s of the run at 32, "
                          "and the script must end within 1200 s on a slower "
-                         "machine; every kernel shape is the full width's"),
+                         "machine; every kernel shape is the full width's "
+                         "(at 8 layers the first trainable beta_attn "
+                         "gradient, a sum that cancels, came 1.04e-3 off "
+                         "the plain path's: ROADMAP.md Queue 3)"),
     "serve_bf16": dict(SERVE, compute_dtype="bfloat16"),
     "train_bf16": dict(TRAIN, compute_dtype="bfloat16"),
     "moe_serve": dict(SERVE, arch="qwen2-moe-a2.7b"),
@@ -489,13 +511,14 @@ PATHS = {
     "cell_train_4k": dict(
         arch="minitron-4b", shape=("train_4k", 4096, 8, "train"),
         n_clients=4, batch_per_client=2, trainable_blocks=4, steps=2,
-        lr=3e-4, seed=0, layers=16,
+        lr=3e-4, seed=0, layers=8,
         reduced="global batch 256 -> 8 (4 clients x 2, default_run's "
         "n_clients override: one card's mesh gives 1 client); "
         "trainable_blocks 16 -> 4 (two AdamW states of 16 blocks do not "
-        "fit beside the plain path); 2 steps; depth 32 -> 16 layers in "
-        "PR 27 (the plain path's step took 17.8 s at 32): the script must "
-        "end within 1200 s on a slower machine"),
+        "fit beside the plain path); 2 steps; depth 32 -> 8 layers (the "
+        "plain path's step took 17.8 s at 32, 11.5 s at 16): the script, "
+        "with its mesh paths, must end within 1200 s on a slower "
+        "machine"),
     "cell_prefill_32k": dict(
         arch="minitron-4b", shape=("prefill_32k", 32768, 1, "prefill"),
         seed=0, layers=8,
@@ -523,14 +546,14 @@ PATHS = {
     # the SPMD program (parallel.collectives): 4 ranks sharing the card
     # over gloo, each holding its shards of the rule table's layout,
     # against the one-rank path; the new paths at full width
-    "mesh_train": dict(TRAIN, mesh=(2, 2), masked_client=1, layers=4,
-                       trainable_blocks=2, steps=2, per_client=True,
-                       reduced="depth 32 -> 16 layers and 3 -> 2 steps in "
-                       "PR 25, -> 8 layers in PR 26, -> 4 (the last 2 "
-                       "trainable) in PR 27: the run's 1200 s, beside the "
-                       "per-client leg's 4 passes (47 s at 8 layers on the "
-                       "H100); every shape a rank gives the kernels is the "
-                       "full width's"),
+    "mesh_train": dict(TRAIN, mesh=(2, 2), masked_client=1, layers=2,
+                       trainable_blocks=1, steps=2, per_client=True,
+                       reduced="depth 32 -> 2 layers (the last trainable) "
+                       "and 3 -> 2 steps: the run's 1200 s, beside the "
+                       "per-client leg's 4 passes (47 s at 8 layers, 21-43 "
+                       "s at 4 on the H100) and the other mesh paths; every "
+                       "shape a rank gives the kernels is the full "
+                       "width's"),
     "mesh_serve": dict(SERVE, mesh=(2, 2), layers=8,
                        reduced="depth 32 -> 16 layers in PR 26, -> 8 in PR "
                        "27: the run's 1200 s; every shape a rank gives the "
@@ -544,12 +567,12 @@ PATHS = {
     # masked out (2 steps), then serve's (prompt 512, hymba 1536: its
     # sequence-sharded rings wrap), in one world; and long_500k's decode
     # on (1, 4)
-    "mesh_ssm": dict(TRAIN, arch="falcon-mamba-7b", layers=4, mesh=(2, 2),
-                     trainable_blocks=2, masked_client=1, steps=2, batch=4,
+    "mesh_ssm": dict(TRAIN, arch="falcon-mamba-7b", layers=2, mesh=(2, 2),
+                     trainable_blocks=1, masked_client=1, steps=2, batch=4,
                      prompt_len=512, decode_steps=16,
-                     reduced="depth 64 -> 8 layers (PR 25), -> 4 (PR 27): "
-                     "the run's 1200 s (each layer's collectives cross "
-                     "gloo's host buffers), the last 2 blocks trainable; "
+                     reduced="depth 64 -> 2 layers, the last trainable: "
+                     "the run's 1200 s beside the other mesh paths (each "
+                     "layer's collectives cross gloo's host buffers); "
                      "every shape a rank gives the kernels is the full "
                      "width's"),
     "mesh_hybrid": dict(TRAIN, arch="hymba-1.5b", layers=8, mesh=(2, 2),
@@ -590,6 +613,23 @@ PATHS["mesh_vlm"] = dict(
     "beside ~3.4 GB of allocator fragments: the lm_head's 76032-column "
     "shard with its AdamW moments and gradient, its gathered copy and "
     "the CE's scratch); 16 greedy steps")
+# qwen2-vl-72b's train_4k asks for seq_model (steps.default_run: training
+# at d_model >= 8192): mesh_vlm's train leg runs a second time with
+# seq_shard_acts, the stream cut on the sequence over `model` between the
+# blocks, held bitwise to the leg without it
+PATHS["mesh_vlm"]["seq_leg"] = True
+# the pod axis: minitron-4b at full width on (pod 2, data 2, model 2), 8
+# ranks sharing the card: the clients and the batch on (pod, data)
+# flattened (a client a rank), fsdp over `data` within a pod, the weights
+# replicated across pods; mesh_train's spec with client 1 masked (2
+# steps), then serve's (prompt 512, 16 steps), in one world
+PATHS["mesh_pod"] = dict(
+    PATHS["mesh_train"], mesh=(2, 2, 2), layers=2, trainable_blocks=1,
+    per_client=False, batch=4, prompt_len=512, decode_steps=16,
+    reduced="depth 32 -> 2 layers, the last trainable: 8 ranks share the "
+    "card's 80 GB and each pod holds a whole (2, 2) copy of the weights, "
+    "the lm_head's AdamW state included; the run's 1200 s; every shape a "
+    "rank gives the kernels is the full width's")
 # mesh_ep's prefill again under the ragged dispatch (the kernel impl):
 # each rank its 32 of 128 experts' slots, one GEMM a non-empty local
 # expert and projection, nothing dropped
@@ -963,10 +1003,12 @@ def _attn_cases():
     # sequences, 12 of 24 heads on 4 of 8 KV heads, f32) and mesh_ep's
     # (16 of 64 heads on 1 of 4 KV heads: G 16, 4096 tokens, bf16)
     # mesh_moe's rank: every client (the data axis is 1), 2 of 16 heads on
-    # 2 of 16 KV heads (G 1), f32
+    # 2 of 16 KV heads (G 1), f32; mesh_pod's rank: its client's 2
+    # sequences (4 clients over (pod, data)), mesh_train's heads, f32
     for name, bb, ss, hh, kk in (("mesh_train", 4, 512, 12, 4),
                                  ("mesh_ep_prefill", 1, 4096, 16, 1),
-                                 ("mesh_moe_train", 8, 512, 2, 2)):
+                                 ("mesh_moe_train", 8, 512, 2, 2),
+                                 ("mesh_pod_train", 2, 512, 12, 4)):
         cp = torch.arange(ss, dtype=torch.int32)[None].expand(bb, ss)
         cases.append((name, dict(b=bb, sq=ss, sk=ss, h=hh, kh=kk, hd=hd), dict(
             q_pos=cp, k_pos=cp, k_valid=torch.ones(bb, ss, dtype=torch.bool),
@@ -1056,7 +1098,7 @@ FULL_ATTN = (*VIT_ATTN, *ENCDEC_ATTN)
 F32_ONLY = (*(n for n in FULL_ATTN if n != "vit_early"), "vlm_train",
             "mesh_train", "mesh_hybrid_train", "mesh_hybrid_prefill",
             "mesh_hybrid_decode", "mesh_vlm_train", "mesh_encdec_decode",
-            "mesh_encdec_empty_decode", "mesh_moe_train")
+            "mesh_encdec_empty_decode", "mesh_moe_train", "mesh_pod_train")
 
 
 def _attn_dtypes(name):
@@ -1122,7 +1164,8 @@ def _bound(q, k, q_pos, k_pos, k_valid, causal, window, dtype):
 # mask: SDPA takes them with is_causal; the vit cases attend every key
 PLAIN_CAUSAL = ("prefill", "train", "moe_prefill", "moe_train",
                 "cell_prefill", "cell_train", "cell_moe_prefill",
-                "mesh_train", "mesh_ep_prefill", "mesh_moe_train")
+                "mesh_train", "mesh_ep_prefill", "mesh_moe_train",
+                "mesh_pod_train")
 # a plain version's [heads x queries x keys] f32 scores stay under this
 # many bytes a query chunk (a 32k prefill's would be 103-275 GB at once)
 PLAIN_CHUNK_BYTES = 2 ** 31
@@ -1493,7 +1536,11 @@ def kernels_softmax_xent():
              # second eighth of qwen2-moe's vocab (18992 columns from
              # 18992): 7 labels in 8 outside the shard
              ("mesh_moe", 4088, 2048, 18992, f32, f32, True, 151936,
-              18992)]
+              18992),
+             # mesh_pod's rank: its client's 2 x 511 tokens on mesh_train's
+             # vocab shard
+             ("mesh_pod", 1022, 3072, 128000, f32, f32, True, 256000,
+              128000)]
     fwd_res, bwd_res = [], []
     for name, t, d, v, h_dtype, w_dtype, main_path, *shard in cases:
         v_all, v0 = shard or (v, 0)
@@ -1651,6 +1698,9 @@ QUANT8_CASES = [
     # mesh_vlm's data rank: 2 clients x 2 x (256 patches + 256 tokens) at
     # d 8192 (row0 2048 on the second)
     ("mesh_vlm", 2048, 8192, torch.float32, "vector", 0),
+    # mesh_pod's client rank: its client's 2 x 512 rows (row0 1024 on the
+    # second rank of (pod, data))
+    ("mesh_pod", 1024, 3072, torch.float32, "vector", 0),
     ("ssm_train", 4096, 4096, torch.float32, "vector", 0),
     ("train_bf16", 4096, 3072, torch.bfloat16, "vector", 0),
     *[("wide", 4096, d, dt, "vector", 0) for d in (6144, 12288)
@@ -3727,41 +3777,49 @@ def _rank_init(make):
 
 def _run_tasks(tasks):
     """A group's rank side (``phase_mesh_group``): each (rank function
-    name, arguments) of `tasks` in turn, the card's cache emptied between;
-    each one's record and its seconds on this rank."""
+    name, arguments, mesh) of `tasks` in turn, under a program on its mesh
+    (the world's own, or one started on the same ranks: every rank makes
+    each in the same order), the card's cache emptied between; each one's
+    record and its seconds on this rank."""
+    world = collectives.active()
+    progs = {world.mesh: world}
     out = []
-    for name, args in tasks:
+    for name, args, mesh in tasks:
+        if mesh not in progs:
+            progs[mesh] = mesh_lib.init_device_mesh(mesh, world.device)
         gc.collect()
         torch.cuda.empty_cache()
         dist.barrier()
         t = time.perf_counter()
-        out.append((globals()[name](*args), time.perf_counter() - t))
+        with collectives.program(progs[mesh]):
+            out.append((globals()[name](*args), time.perf_counter() - t))
     return out
 
 
 def phase_mesh_group(paths):
-    """The mesh paths `paths` (on one mesh) in one world on the card, a
-    rank a device of the mesh (4, or mesh_moe's 8, sharing the card over
+    """The mesh paths `paths` (on meshes of one size) in one world on the
+    card, a rank a device of the mesh (4, or 8, sharing the card over
     gloo): each path's phase (a generator) computes its one-rank reference
     on the card and yields its rank function, mesh and arguments; one
-    world (``launch.spmd.spawn``: a rank's start costs ~13 s) runs them in
-    order; each phase is then sent its ranks' records and the task's
-    seconds on rank 0 (its `world_s`) and holds them. Returns each path's
-    launches."""
-    gens, tasks, meshes, counts = [], [], set(), {}
+    world (``launch.spmd.spawn``: a rank's start costs ~13 s, and its
+    first training step 10-20 s more than its second) runs them in order,
+    each under a program on its own mesh; each phase is then sent its
+    ranks' records and the task's seconds on rank 0 (its `world_s`) and
+    holds them. Returns each path's launches."""
+    gens, tasks, counts = [], [], {}
     try:
         for path in paths:
             g = MESH_PHASES[path](path, PATHS[path])
             fn, mesh, args = next(g)
             gens.append(g)
-            tasks.append((fn.__name__, args))
-            meshes.add(mesh)
+            tasks.append((fn.__name__, args, mesh))
             gc.collect()
             torch.cuda.empty_cache()
-        if len(meshes) != 1:
-            raise ValueError(f"{paths}: one world runs one mesh, not "
-                             f"{meshes}")
-        res = spmd.spawn(_run_tasks, mesh, "cuda", MESH_TIMEOUT,
+        sizes = {t[2].size for t in tasks}
+        if len(sizes) != 1:
+            raise ValueError(f"{paths}: one world runs meshes of one size, "
+                             f"not {sizes}")
+        res = spmd.spawn(_run_tasks, tasks[0][2], "cuda", MESH_TIMEOUT,
                          args=(tasks,))
         for i, (path, g) in enumerate(zip(paths, gens)):
             try:
@@ -3898,7 +3956,10 @@ def mesh_train_collectives(cfg, spec) -> dict:
     L = cfg.num_layers
     T = split.resolve_trainable_blocks(cfg, MPSLConfig(
         trainable_blocks=spec["trainable_blocks"]))
-    d, m = spec["mesh"]
+    *pods, d, m = spec["mesh"]
+    if pods:
+        return _over_pods(cfg, mesh_train_collectives(
+            cfg, dict(spec, mesh=(d, m))), pods[0], d)
     out = _lm_ends(cfg, d, m)
     fam = cfg.family
     if fam == "ssm":
@@ -3912,6 +3973,29 @@ def mesh_train_collectives(cfg, spec) -> dict:
     out["all_reduce/data"] += leaves * T + final
     out["all_reduce/model"] += ar_m
     out["all_gather/model"] += ag_m
+    return out
+
+
+def _over_pods(cfg, out, pods, d) -> dict:
+    """A step's collectives on a (pod, data, model) mesh from `out`, those
+    of one pod's (data d, model m) mesh: the client axis is the flattened
+    (pod, data) axis, so the metrics' sums and gather, the client
+    weights' sum, the router's sums and the gradients of the shared
+    leaves off `data` (every all-reduce over `data`, and the per-client
+    losses' all-gather) cross it instead; each fsdp gradient, already
+    reduce-scattered over `data` within the pod (every reduce-scatter but
+    the lookup's rows), is all-reduced over `pod` once."""
+    if pods == 1:
+        return out
+    if d == 1:
+        raise ValueError("a pod mesh path runs a data axis above 1")
+    out = dict(out)
+    flat = collectives.POD_DATA
+    out[f"all_reduce/{flat}"] = out.pop("all_reduce/data")
+    out["all_gather/data"] -= 1
+    out[f"all_gather/{flat}"] = 1
+    rows = cfg.vocab_size % d == 0
+    out["all_reduce/pod"] = out["reduce_scatter/data"] - rows
     return out
 
 
@@ -4012,7 +4096,7 @@ def mesh_serve_collectives(cfg, steps_, mesh=(2, 2), cache_len=None) -> dict:
     heads divide no model axis) all-gathers each attention layer's o and
     lse (L a step). Nothing moves over `data`."""
     fwd = 1 + steps_
-    m = mesh[1]
+    m = mesh[-1]
     L = cfg.num_layers
     if cfg.family == "audio":
         return _encdec_serve_collectives(cfg, steps_, mesh, cache_len)
@@ -4076,7 +4160,8 @@ def _train_setup(cfg, spec, device):
                     compress_uplink=True, compress_downlink=True)
     run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mpsl=mp,
                     compute_dtype=spec["compute_dtype"],
-                    learning_rate=spec["lr"], seed=spec["seed"])
+                    learning_rate=spec["lr"], seed=spec["seed"],
+                    seq_shard_acts=spec.get("seq_shard_acts", False))
     loader = train.make_lm_loader(cfg, spec["n_clients"],
                                   spec["batch_per_client"], spec["seq"],
                                   spec["seed"])
@@ -4181,7 +4266,68 @@ def _hold_mesh_train(path, spec, cfg, depth, ranks, one, world_s):
     if spec.get("per_client"):
         pc = _hold_per_client(path, spec, cfg, ranks)
         counts = {k: counts[k] + pc[k] for k in counts}
+    if spec.get("seq_leg"):
+        sl = _hold_seq_leg(path, spec, cfg, ranks)
+        counts = {k: counts[k] + sl[k] for k in counts}
     return counts
+
+
+def seq_leg_expected(cfg, spec) -> dict:
+    """What the seq_model leg changes, from the code: each of the L
+    blocks keeps its input's S/m slice (the remat stash falls by (m - 1) /
+    m of a block input [B, S, D] f32, B a data rank's rows), and the
+    stream's cut adds 3 L + 2 all-gathers over `model` a step, each a
+    whole block input's bytes (a block's input gathered in the forward
+    and the recompute, its output's gradient in the backward; the cut's
+    gradient before the first block; the stream before the final norm).
+    Nothing else changes."""
+    d, m = spec["mesh"][-2:]
+    rows = spec["n_clients"] * spec["batch_per_client"] // d
+    block = rows * spec["seq"] * cfg.d_model * 4
+    L = cfg.num_layers
+    return {"saved_bytes_drop": L * block * (m - 1) // m,
+            "all_gather/model": {"calls": 3 * L + 2,
+                                 "bytes": (3 * L + 2) * block}}
+
+
+def _hold_seq_leg(path, spec, cfg, ranks):
+    """The seq_model leg's record (emitted): its losses and first-step
+    gradients bitwise the leg's without it, its saved bytes fallen by
+    exactly ``seq_leg_expected``'s drop, its collectives a step those of
+    the leg without it plus exactly the cut's all-gathers, its launches
+    the leg's."""
+    legs = [r["seq_leg"] for r in ranks]
+    want = seq_leg_expected(cfg, spec)
+    add = want["all_gather/model"]
+    rec = {"phase": path, "part": "seq_leg", "arch": cfg.name,
+           "mesh": spec["mesh"], "expected": want,
+           "expected_launches_per_step": train_launches_per_step(cfg),
+           "ranks": legs}
+    emit(rec)
+    for r, x in zip(ranks, legs):
+        drop = x["saved_bytes"]["whole"] - x["saved_bytes"]["seq"]
+        ok = (x["seq_shard_acts"] and x["losses_bitwise"]
+              and x["grads_bitwise"] and drop == want["saved_bytes_drop"]
+              and x["launches_per_step"] == r["launches_per_step"])
+        for seq_c, whole_c, seq_b, whole_b in zip(
+                x["collectives_per_step"], x["whole_collectives_per_step"],
+                x["collective_bytes_per_step"],
+                x["whole_collective_bytes_per_step"]):
+            key = "all_gather/model"
+            ok &= (seq_c[key] - whole_c.get(key, 0) == add["calls"]
+                   and seq_b[key] - whole_b.get(key, 0) == add["bytes"])
+            ok &= ({k: v for k, v in seq_c.items() if k != key}
+                   == {k: v for k, v in whole_c.items() if k != key})
+        if not ok:
+            raise AssertionError(
+                f"{path} seq_leg rank {x['rank']}: losses bitwise "
+                f"{x['losses_bitwise']}, gradients bitwise "
+                f"{x['grads_bitwise']} ({x['grads_differing']} differ), "
+                f"saved bytes fell {drop} (derived "
+                f"{want['saved_bytes_drop']}), collectives "
+                f"{x['collectives_per_step']} against "
+                f"{x['whole_collectives_per_step']}")
+    return _mesh_counts(legs, "step")
 
 
 def _hold_per_client(path, spec, cfg, ranks):
@@ -4272,34 +4418,21 @@ def _mesh_train_rank(spec, ref_file, ref_losses):
     state = mpsl.init_state(lp, lf, spec["seed"])
     batches = [sharding.take_batch(sharding.place_batch(
         batch(i), device, mesh), device) for i in range(spec["steps"])]
-    # the first state, for the per-client leg after the steps
+    # the first state, for the per-client and seq_model legs after the
+    # steps
     start = [p.detach().to("cpu", copy=True)
              for p in tree.leaves(state["params"])] \
-        if spec.get("per_client") else None
+        if spec.get("per_client") or spec.get("seq_leg") else None
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     ref = torch.load(ref_file, mmap=True)
 
     # the steps, every counter set to 0 just before
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    collectives.reset_counts()
-    losses, times, launches, colls, nbytes = [], [], [], [], []
     with _tape(cfg, ref["idx"]) as tape:
-        for b in batches:
-            k0, c0 = read_counts(), _collectives_step()
-            b0 = _collective_bytes()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            state, met = step_fn(state, b)
-            losses.append(float(met["loss"]))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-            k1, c1 = read_counts(), _collectives_step()
-            b1 = _collective_bytes()
-            launches.append({k: k1[k] - k0[k] for k in k1})
-            colls.append({k: c1[k] - c0.get(k, 0) for k in c1})
-            nbytes.append({k: b1[k] - b0.get(k, 0) for k in b1})
+        state, steps_rec = _counted_steps(step_fn, state, batches,
+                                          spec.get("seq_leg", False))
+    losses, times = steps_rec["losses"], steps_rec["times"]
     peak = torch.cuda.max_memory_allocated()
 
     # the first step's gradients (summed over `data`, before clipping)
@@ -4316,27 +4449,124 @@ def _mesh_train_rank(spec, ref_file, ref_losses):
         leg = _per_client_leg(spec, run, loss_fn, sched, state,
                               batches[0], first, losses[0])
         peak = max(peak, leg["peak_mem_bytes"])
+    seq = None
+    if spec.get("seq_leg"):
+        seq = _seq_leg(spec, state, batches, start, first, steps_rec)
+        seq["whole_peak_mem_bytes"] = peak
+        peak = max(peak, seq["peak_mem_bytes"])
     del ref, first[:]
     rec = _rank_record(
         prog, peak, program=prog.record(),
         init_s=init_s, losses=losses,
         step_ms=[x * 1e3 for x in times],
         median_step_ms=statistics.median(times[1:]) * 1e3,
-        launches_per_step=launches, collectives_per_step=colls,
-        collective_bytes_per_step=nbytes, grad_rel_l2=errs,
+        launches_per_step=steps_rec["launches"],
+        collectives_per_step=steps_rec["collectives"],
+        collective_bytes_per_step=steps_rec["bytes"], grad_rel_l2=errs,
         masked_adapter_grad_zero=zero, routing=_flips(tape),
         shard_params=sum(p.numel() for p in leaves),
         shard_frozen=sum(p.numel() for p in tree.leaves(state["frozen"])))
     if leg is not None:
         rec["per_client"] = leg
+    if seq is not None:
+        rec["seq_leg"] = seq
     return rec
+
+
+def _counted_steps(step_fn, state, batches, count_saved=False):
+    """The steps of `batches`, every counter set to 0 just before: (the
+    state after them, {"losses", "times" (s), "launches", "collectives",
+    "bytes": one entry a step}); with `count_saved`, "saved_bytes": the
+    bytes autograd saves for the backward in the first step (its
+    forward's: a remat checkpoint's input counted once, its recompute
+    saving under the checkpoint's own hooks)."""
+    reset_counts()
+    collectives.reset_counts()
+    out = {k: [] for k in ("losses", "times", "launches", "collectives",
+                           "bytes")}
+    for i, b in enumerate(batches):
+        k0, c0 = read_counts(), _collectives_step()
+        b0 = _collective_bytes()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if count_saved and i == 0:
+            (state, met), out["saved_bytes"] = _saved_bytes(
+                lambda: step_fn(state, b))
+        else:
+            state, met = step_fn(state, b)
+        out["losses"].append(float(met["loss"]))
+        torch.cuda.synchronize()
+        out["times"].append(time.perf_counter() - t)
+        k1, c1 = read_counts(), _collectives_step()
+        b1 = _collective_bytes()
+        out["launches"].append({k: k1[k] - k0[k] for k in k1})
+        out["collectives"].append({k: c1[k] - c0.get(k, 0) for k in c1})
+        out["bytes"].append({k: b1[k] - b0.get(k, 0) for k in b1})
+    return state, out
+
+
+def _saved_bytes(fn):
+    """(fn(), the bytes of every tensor autograd saves for the backward
+    while it runs)."""
+    n = [0]
+
+    def pack(t):
+        n[0] += t.numel() * t.element_size()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, n[0]
+
+
+def _seq_leg(spec, state, batches, start, whole_first, whole):
+    """The train leg again with ``seq_shard_acts`` (the stream cut on the
+    sequence over `model` between the blocks, as ``steps.default_run``
+    asks for a train_4k cell at d_model >= 8192), from the first state
+    (its params restored, AdamW fresh) on the same batches: its losses and
+    first-step gradients against the leg without it (`whole`, its first
+    step's gradients `whole_first` on the host), bitwise; its launches and
+    collectives a step; the bytes autograd saves in each leg's first
+    step."""
+    prog = collectives.active()
+    device = prog.device
+    cfg, _ = _config(spec)
+    for p, x in zip(tree.leaves(state["params"]), start):
+        p.data.copy_(x)
+    # AdamW back to its start in place: a second set of moments (2.5 GB
+    # a qwen2-vl rank) would not fit beside four ranks' steps
+    for t in tree.leaves(state["opt"]):
+        t.zero_()
+    state["step"] = 0
+    run, _, step_fn, first, _ = _train_setup(
+        cfg, dict(spec, seq_shard_acts=True), device)
+    torch.cuda.reset_peak_memory_stats()
+    state, rec = _counted_steps(step_fn, state, batches, True)
+    peak = torch.cuda.max_memory_allocated()
+    same = [torch.equal(a, b) for a, b in zip(first, whole_first)]
+    first.clear()
+    return {"rank": prog.rank, "seq_shard_acts": run.seq_shard_acts,
+            "act_dims": run.impls["act_dims"], "losses": rec["losses"],
+            "losses_bitwise": rec["losses"] == whole["losses"],
+            "grads_bitwise": all(same) and len(same) == len(whole_first),
+            "grads_differing": sum(not x for x in same),
+            "step_ms": [x * 1e3 for x in rec["times"]],
+            "saved_bytes": {"whole": whole["saved_bytes"],
+                            "seq": rec["saved_bytes"]},
+            "launches_per_step": rec["launches"],
+            "collectives_per_step": rec["collectives"],
+            "collective_bytes_per_step": rec["bytes"],
+            "whole_collectives_per_step": whole["collectives"],
+            "whole_collective_bytes_per_step": whole["bytes"],
+            "peak_mem_bytes": peak}
 
 
 def _masked_adapter_zero(spec, prog, names, grads, device) -> bool:
     """Whether the masked client's adapter gradient is exactly 0 on the
-    data rank holding it (every rank learns the answer)."""
-    n_loc = spec["n_clients"] // prog.size("data")
-    c = spec["masked_client"] - prog.index("data") * n_loc
+    client rank holding it (every rank learns the answer)."""
+    axis = collectives.client_axis()
+    n_loc = spec["n_clients"] // prog.size(axis)
+    c = spec["masked_client"] - prog.index(axis) * n_loc
     zero = True
     for name, g in zip(names, grads):
         if "adapter" in name and 0 <= c < n_loc:
@@ -4393,7 +4623,9 @@ def _per_client_leg(spec, run, loss_fn, sched, state, batch, agg_grads,
 
 
 def _mesh(spec):
-    return mesh_lib.Mesh(("data", "model"), tuple(spec["mesh"]))
+    """(data, model), or with three sizes (pod, data, model)."""
+    names = ("pod", "data", "model")[-len(spec["mesh"]):]
+    return mesh_lib.Mesh(names, tuple(spec["mesh"]))
 
 
 def _decode_slots(spec) -> int:
@@ -4561,7 +4793,7 @@ def _mesh_serve_rank(spec, ref_file):
     init_s = time.perf_counter() - t0
     ref = torch.load(ref_file)
     b = tokens.shape[0]
-    r0 = prog.index("data") * b
+    r0 = prog.index(collectives.client_axis()) * b
     forced = ref["tokens"][r0:r0 + b, :steps_].to(device)
     prefill, decode = serve.build_serving_fns(
         cfg, torch.float32, device, decode_slots=_decode_slots(spec))
@@ -4920,21 +5152,208 @@ def _mesh_ep_rank(spec, ref_file):
         cache_rel_l2_worst=worst)
 
 
-# each mesh path's phase, and the groups whose paths share one world (one
-# mesh each), in the order they run: a world's start and the warm-up of
-# its first training step (on the H100 10-16 s over the second step for
-# a world's first path, ~2 s for a later one) come once a group
+# ---------------------------------------------------------------------------
+# mesh_hybrid's beta_ssm gradient at 4 layers (ROADMAP.md Queue 3): not a
+# main path; run alone, as README.md says
+
+BETA_DIAG = dict(PATHS["mesh_hybrid"], layers=4, trainable_blocks=2,
+                 reduced="depth 32 -> 4 layers, the last 2 trainable: the "
+                 "cut at which mesh_hybrid's first trainable beta_ssm "
+                 "gradient broke its limit")
+
+
+@contextlib.contextmanager
+def _float_is_double():
+    """``Tensor.float()`` gives float64 while open: the model code's f32
+    upcasts (norms, softmax, the plain scan's state, the CE) then hold
+    f64, and a float64 path computes in f64 throughout."""
+    old = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **k: self.double()
+    try:
+        yield
+    finally:
+        torch.Tensor.float = old
+
+
+@contextlib.contextmanager
+def _links(up=None, capture=None):
+    """The uplink's quantised value recorded into `capture` (a list), or
+    replaced by `up` (its straight-through gradient kept); with `up` the
+    downlink is the identity (its cotangent reaches only the adapters)."""
+    act, grads = compression.compress_activations, compression.compress_gradients
+
+    def compress(x, rng, row0=0):
+        if up is None:
+            y = act(x, rng, row0)
+            if capture is not None:
+                capture.append(y.detach())
+            return y
+        return x + (up.to(x.device, x.dtype) - x).detach()
+
+    compression.compress_activations = compress
+    if up is not None:
+        compression.compress_gradients = lambda x, rng, row0=0: x
+    try:
+        yield
+    finally:
+        compression.compress_activations = act
+        compression.compress_gradients = grads
+
+
+def _beta_grads(cfg, run, spec, device, impls, dtype=None, up=None,
+                capture=None, terms=()):
+    """The first step's gradients (``mpsl.value_and_grad``) of every
+    block's beta_attn and beta_ssm on one rank, on the path's seeded
+    params and first batch at its step-0 rng; `dtype` float64 casts every
+    param and computes in f64 (``_float_is_double``). Each leaf named in
+    `terms` is given as a [T, S, D] tensor of its value, whose gradient
+    is then the sum's terms 0.5 * s_out * dy one by one. Returns (loss,
+    {leaf: gradient}, {leaf: terms})."""
+    _, batch, _, _, _ = _train_setup(cfg, spec, device)
+    if dtype is not None:
+        run = dataclasses.replace(run, compute_dtype="float64")
+    loss_fn = mpsl.make_lm_loss(cfg, run, impls=impls)
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
+    params, frozen, _ = split.init_mpsl_lm(gen, cfg, run, device)
+    if dtype is not None:
+        params = tree.map_(lambda t: t.to(dtype), params)
+        frozen = tree.map_(lambda t: t.to(dtype), frozen)
+    b = train.to_device(batch(0), device)
+    rows = spec["n_clients"] * spec["batch_per_client"]
+    shape = (rows, spec["seq"], cfg.d_model)
+    for name in terms:
+        node = params
+        *path, leaf = name.split("/")
+        for k in path:
+            node = node[int(k)] if isinstance(node, list) else node[k]
+        node[leaf] = node[leaf].detach().expand(shape).clone()
+    state = mpsl.init_state(params, frozen, spec["seed"])
+    ctx = _float_is_double() if dtype is not None else contextlib.nullcontext()
+    with ctx, _links(up, capture):
+        loss, _, grads = mpsl.value_and_grad(
+            loss_fn, state["params"], state["frozen"], b,
+            mpsl.fold_in(spec["seed"], 0))
+    out, full = {}, {}
+    for n, g in zip(tree.paths(state["params"]), grads):
+        if n.endswith(("beta_ssm", "beta_attn")):
+            full[n] = g.detach().double()
+            out[n] = float(g.sum(dtype=torch.float64))
+    return float(loss), out, {n: full[n] for n in terms}
+
+
+def _beta_rank(spec):
+    """A (2, 2) rank's first-step beta gradients (summed over `data` by
+    ``reduce_grads``; replicated leaves, the same on every rank)."""
+    prog = collectives.active()
+    device = prog.device
+    cfg, _ = _config(spec)
+    run, batch, _, _, _ = _train_setup(cfg, spec, device)
+    loss_fn = mpsl.make_lm_loss(cfg, run, impls=mpsl.KERNEL_IMPLS)
+
+    def make():
+        gen = torch.Generator(device=device).manual_seed(spec["seed"])
+        params, frozen, _ = split.init_mpsl_lm(gen, cfg, run, device)
+        return (sharding.shard_tree(params,
+                                    sharding.param_specs(params, prog.mesh)),
+                sharding.shard_tree(frozen,
+                                    sharding.param_specs(frozen, prog.mesh)))
+
+    lp, lf = _rank_init(make)
+    state = mpsl.init_state(lp, lf, spec["seed"])
+    b = sharding.take_batch(sharding.place_batch(batch(0), device,
+                                                 prog.mesh), device)
+    loss, _, grads = mpsl.value_and_grad(loss_fn, state["params"],
+                                         state["frozen"], b,
+                                         mpsl.fold_in(spec["seed"], 0))
+    collectives.reduce_grads(tree.leaves(state["params"]), grads)
+    return {"loss": float(loss),
+            "grads": {n: float(g.sum(dtype=torch.float64))
+                      for n, g in zip(tree.paths(state["params"]), grads)
+                      if n.endswith(("beta_ssm", "beta_attn"))}}
+
+
+def diagnose_beta_ssm(spec=None):
+    """ROADMAP.md Queue 3's mesh_hybrid item: hymba-1.5b at 4 layers (the
+    last 2 trainable), the first step's beta gradients of the one-rank
+    plain path in float64 (naive attention, the plain scan, the plain CE;
+    its uplink fed the f32 kernel path's quantised value, so that all
+    paths' bodies see the same input) as ground truth, beside the f32
+    one-rank kernel and plain paths and the (2, 2) mesh path. For each
+    trainable block's beta_ssm, the sum's terms 0.5 * s_out * dy: their
+    condition sum|t| / |sum t| in f64, and the f32 kernel path's terms'
+    own error sum|t32 - t64| over |sum t64|, the gap that an exact sum of
+    the f32 terms would leave. Emits one record."""
+    spec = spec or BETA_DIAG
+    cfg, depth = _config(spec)
+    device = serve.resolve_device("cuda")
+    run, _, _, _, _ = _train_setup(cfg, spec, device)
+    segs = split.make_split_plan(cfg, run.mpsl).segments_train
+    terms = [f"server/segments/{i}/{j}/mix/beta_ssm"
+             for i, s in enumerate(segs) for j in range(s.count)]
+    t0 = time.perf_counter()
+    up = []
+    l32, g32, _ = _beta_grads(cfg, run, spec, device, mpsl.KERNEL_IMPLS,
+                              capture=up)
+    _, _, t32 = _beta_grads(cfg, run, spec, device, mpsl.KERNEL_IMPLS,
+                            terms=terms)
+    lp, gp, _ = _beta_grads(cfg, run, spec, device, PLAIN_IMPLS)
+    l64, g64, t64 = _beta_grads(cfg, run, spec, device, PLAIN_IMPLS,
+                                dtype=torch.float64, up=up[0], terms=terms)
+    del up
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spmd.spawn(_beta_rank, _mesh(spec), "cuda", MESH_TIMEOUT,
+                       args=(spec,))
+    mesh_s = time.perf_counter() - t0
+    gm = ranks[0]["grads"]
+    leaves = {}
+    for n in g64:
+        rel = lambda g: abs(g - g64[n]) / abs(g64[n])  # noqa: E731
+        leaves[n] = {"f64_plain": g64[n], "f32_kernel": g32[n],
+                     "f32_plain": gp[n], "f32_mesh": gm[n],
+                     "rel_err_f32_kernel": rel(g32[n]),
+                     "rel_err_f32_plain": rel(gp[n]),
+                     "rel_err_f32_mesh": rel(gm[n]),
+                     "mesh_vs_kernel": abs(gm[n] - g32[n]) / abs(g32[n]),
+                     "mesh_ranks_agree": len({r["grads"][n]
+                                              for r in ranks}) == 1}
+        if n in t64:
+            a, b = t64[n], t32[n].double()
+            total = float(a.sum())
+            leaves[n].update(
+                terms=a.numel(), terms_abs_sum=float(a.abs().sum()),
+                condition=float(a.abs().sum()) / abs(total),
+                terms_sum_f64=total,
+                f32_terms_err_over_grad=float((b - a).abs().sum())
+                / abs(total),
+                f32_terms_exact_sum_rel_err=abs(float(b.sum()) - total)
+                / abs(total))
+    emit({"phase": "beta_ssm_diagnosis", **depth, "arch": cfg.name,
+          "mesh": spec["mesh"], "masked_client": spec["masked_client"],
+          "losses": {"f64_plain": l64, "f32_kernel": l32, "f32_plain": lp,
+                     "f32_mesh": ranks[0]["loss"]},
+          "one_rank_s": one_s, "mesh_s": mesh_s, "leaves": leaves})
+    return leaves
+
+
+# each mesh path's phase, and the groups whose paths share one world (its
+# meshes of one size), in the order they run: a world's start and the
+# warm-up of its first training step (on the H100 10-35 s over the second
+# step for a world's first path, ~2 s for a later one) come once a group
 MESH_PHASES = {"mesh_train": phase_mesh_train, "mesh_serve": phase_mesh_serve,
                "mesh_ep": phase_mesh_ep, "mesh_ep_ragged": phase_mesh_ep,
                "mesh_ssm": phase_mesh_family,
                "mesh_hybrid": phase_mesh_family,
                "mesh_long_500k": phase_mesh_long,
                "mesh_encdec": phase_mesh_family,
-               "mesh_vlm": phase_mesh_family, "mesh_moe": phase_mesh_family}
+               "mesh_vlm": phase_mesh_family, "mesh_moe": phase_mesh_family,
+               "mesh_pod": phase_mesh_family}
 MESH_GROUPS = (("mesh_train", "mesh_serve", "mesh_ssm", "mesh_hybrid",
-                "mesh_vlm"),
-               ("mesh_ep", "mesh_ep_ragged", "mesh_long_500k", "mesh_encdec"),
-               ("mesh_moe",))
+                "mesh_vlm", "mesh_ep", "mesh_ep_ragged", "mesh_long_500k",
+                "mesh_encdec"),
+               ("mesh_moe", "mesh_pod"))
 MESH_PATHS = {p for group in MESH_GROUPS for p in group}
 
 

@@ -32,19 +32,20 @@ takes one such dict a link name (``{"joint": {...}}`` under early
 fusion, else ``{"vision": {...}, "text": {...}, ...}``).
 
 Under the SPMD program (``parallel.collectives``) the clients lie on the
-`data` axis: each data rank runs its N/d clients (their tokens, labels,
-mask entries and adapters, ``place_state`` / ``place_batch``) through the
-server's shards. The client weights read the global mask (its sum
-all-reduced over `data`); each rank's links quantise its clients' rows
-with the draws the whole stacked tensor's call gives them (the global
-client offset, ``row0``); L_S is the sum over data ranks of their
-weighted client losses, plus the router's aux loss taken over every
-client's tokens (``models/moe.py``), as the reference couples them. A
-rank backpropagates its own part; the step sums the gradients of the
-server leaves that do not lie on `data` over it
-(``collectives.reduce_grads``: an fsdp leaf's was reduce-scattered by
-its gather, an adapter holds only this rank's clients), and the global
-norm counts each shard once.
+client axis (``collectives.client_axis``: `data`, or (pod, data) on a
+multi-pod mesh): each of its ranks runs its N/d clients (their tokens,
+labels, mask entries and adapters, ``place_state`` / ``place_batch``)
+through the server's shards. The client weights read the global mask
+(its sum all-reduced over the client axis); each rank's links quantise
+its clients' rows with the draws the whole stacked tensor's call gives
+them (the global client offset, ``row0``); L_S is the sum over the
+client ranks of their weighted client losses, plus the router's aux loss
+taken over every client's tokens (``models/moe.py``), as the reference
+couples them. A rank backpropagates its own part; the step sums the
+server leaves' gradients over the client axis
+(``collectives.reduce_grads``: an fsdp leaf's was reduce-scattered over
+`data` by its gather and crosses `pod` alone, an adapter holds only this
+rank's clients), and the global norm counts each shard once.
 """
 from __future__ import annotations
 
@@ -79,27 +80,28 @@ def run_impls(run, impls=None) -> dict:
 
 def _client_weights(mask, n):
     """w_n = |B_n| / |B| over participating clients (uniform B_n here);
-    under the SPMD program `mask` is this data rank's clients' entries
+    under the SPMD program `mask` is this client rank's clients' entries
     and the participating count is the global one."""
     m = mask.float()
-    return m / torch.clamp(C.all_reduce(m.sum(), "data"), min=1.0)
+    return m / torch.clamp(C.all_reduce(m.sum(), C.client_axis()), min=1.0)
 
 
 def _client_offset(n_local: int) -> int:
     """The global index of this rank's first client (0 off the program)."""
-    return C.index("data") * n_local
+    return C.index(C.client_axis()) * n_local
 
 
 def _global_metrics(l_local, aux, per_client, mask, device):
-    """The step's metrics from this data rank's part: L_S (the ranks'
+    """The step's metrics from this client rank's part: L_S (the ranks'
     weighted sums added, then aux), every client's loss, the
     participating count."""
+    axis = C.client_axis()
     aux = aux.detach() if torch.is_tensor(aux) \
         else torch.zeros((), device=device)
-    return {"loss": C.all_reduce(l_local.detach(), "data") + aux,
-            "per_client": C.all_gather(per_client.detach(), 0, "data"),
+    return {"loss": C.all_reduce(l_local.detach(), axis) + aux,
+            "per_client": C.all_gather(per_client.detach(), 0, axis),
             "aux": aux,
-            "participating": C.all_reduce(mask.sum(), "data")}
+            "participating": C.all_reduce(mask.sum(), axis)}
 
 
 def _account_links(h, mpsl, suffix: str = ""):
@@ -151,16 +153,21 @@ def _run_body(frozen, server, cfg, h, positions, impls, remat,
               enc_out=None):
     """Frozen prefix + trainable suffix, then final norm. Returns (h, the
     router's aux loss summed over both). Cross blocks attend over
-    `enc_out`."""
+    `enc_out`. Under seq_model (``impls["act_dims"]``) the stream is cut
+    on the sequence over `model` before the first block and gathered
+    whole before the final norm (``M.cut_stream``)."""
     fsegs, tsegs = split.split_segments(M.body_segments(cfg),
                                         len_from_params(frozen))
     aux = 0.0
+    h, cut = M.cut_stream(h, impls)
     for sp, seg in ([*zip(frozen["segments"], fsegs)]
                     + [*zip(server["segments"], tsegs)]):
         h, _, a = M.apply_segment(sp, h, cfg, seg, positions=positions,
-                                  enc_out=enc_out, impls=impls, remat=remat)
+                                  enc_out=enc_out, impls=impls, remat=remat,
+                                  seq_cut=cut)
         aux = aux + a
-    return layers.apply_norm(h, server["final_norm"], cfg.norm), aux
+    return layers.apply_norm(M.whole_stream(h, cut), server["final_norm"],
+                             cfg.norm), aux
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +213,7 @@ def make_lm_loss(cfg, run, impls=None):
                 f"package's cross blocks attend over the decoder's own "
                 f"tokens, both ways (ROADMAP.md Queue 3)")
         tokens = batch["tokens"]
-        n, bn, s_text = tokens.shape            # this data rank's clients
+        n, bn, s_text = tokens.shape            # this client rank's clients
         dev = tokens.device
         c0 = _client_offset(n)
         adapter = trainable["client"]["adapter"]
@@ -266,7 +273,7 @@ def make_lm_loss(cfg, run, impls=None):
         w = _client_weights(batch["mask"], n)
         l_local = (w * per_client).sum()
         l_s = l_local + aux
-        if C.size("data") > 1:
+        if C.size(C.client_axis()) > 1:
             # this rank's part of L_S (its clients, and aux once: its
             # gradient reaches this rank's tokens only); the metrics hold
             # the whole
@@ -409,7 +416,8 @@ def value_and_grad(loss_fn, params, frozen, batch, rng):
     global L_S (``metrics["loss"]``) and the gradients this rank's part."""
     leaves = tree.leaves(params)
     loss, metrics = loss_fn(params, frozen, batch, rng)
-    value = metrics["loss"] if C.size("data") > 1 else loss.detach()
+    value = metrics["loss"] if C.size(C.client_axis()) > 1 \
+        else loss.detach()
     return value, metrics, grad(loss, leaves)
 
 
@@ -454,16 +462,17 @@ def _per_client_grads(loss_fn, params, frozen, batch, rng):
 
     Under the SPMD program every rank runs the passes of all N global
     clients, so that their collectives match across ranks: in pass i the
-    data rank holding client i keeps that client's mask entry and zeros
+    client rank holding client i keeps that client's mask entry and zeros
     the rest (the JAX ``one(i)``: ``one_hot(i) * mask``), every other
     rank's entries are 0. w_i is the global weight, from the mask
-    gathered over `data` (one all-gather); each pass's loss is the global
-    one (``value_and_grad``), and the summed gradients are this rank's
-    part, which the step sums over `data` (``reduce_grads``)."""
+    gathered over the client axis (one all-gather); each pass's loss is
+    the global one (``value_and_grad``), and the summed gradients are this
+    rank's part, which the step sums over the client axis
+    (``reduce_grads``)."""
     mask = batch["mask"]
-    n = mask.shape[0]                      # this data rank's clients
+    n = mask.shape[0]                      # this client rank's clients
     c0 = _client_offset(n)
-    mask_all = C.all_gather(mask, 0, "data")
+    mask_all = C.all_gather(mask, 0, C.client_axis())
     w = mask_all.float() / torch.clamp(mask_all.float().sum(), min=1.0)
     grads, ls = None, []
     for i in range(mask_all.shape[0]):

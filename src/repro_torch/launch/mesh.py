@@ -16,7 +16,11 @@ The production meshes are the JAX dry run's; they serve the parity of
 its records (their per-device counts). A mesh whose size is the world's
 is run by ``init_device_mesh`` (the SPMD program of
 ``parallel.collectives``): rank r sits at ``coords(r)``, row-major over
-the axes, as ``jax.sharding.Mesh`` lays out its device array.
+the axes, as ``jax.sharding.Mesh`` lays out its device array. On a
+(pod, data, model) mesh the program adds the flattened (pod, data) axis
+the clients and the batch lie on (``collectives.client_axis``);
+``launch.spmd.spawn`` starts a world on any such mesh, ``torchrun`` on
+the host mesh.
 """
 from __future__ import annotations
 

@@ -45,7 +45,9 @@ step's collectives join them (NCCL where each rank has a card of its
 own, gloo otherwise). Rank 0 alone writes the run log, the checkpoints
 (gathered from every rank) and the summary; the losses are the global
 L_S. A world already started by ``launch.spmd.spawn`` is used as it is,
-on its mesh.
+on its mesh, a multi-pod (pod, data, model) mesh included: the clients
+then lie on the client axis, (pod, data) flattened
+(``collectives.client_axis``), and ``--n-clients`` must divide over it.
 """
 from __future__ import annotations
 
@@ -126,9 +128,11 @@ def build(args, device, guard_nonfinite: bool = False):
                     compute_dtype="float32", learning_rate=args.lr,
                     seed=args.seed)
     prog = collectives.active()
-    if prog is not None and args.n_clients % prog.size("data"):
+    ranks = collectives.size(collectives.client_axis())
+    if prog is not None and args.n_clients % ranks:
         raise ValueError(f"{args.n_clients} clients do not split over "
-                         f"{prog.size('data')} data ranks")
+                         f"{ranks} ranks of the client axis "
+                         f"({collectives.client_axis()})")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params, frozen, _ = split.init_mpsl_lm(gen, cfg, run, device)
     # every rank draws the whole state; the program keeps its shards

@@ -61,9 +61,12 @@ the row-parallel products give them, under heads this rank's heads are
 all-gathered over `model`, and a decode step's cross-attention reads
 its query heads' KV heads (``_for_heads``).
 
-Each weight's fsdp dim is gathered at use. Cross-attention under mixed,
-and sequence sharding (``seq_model``) are not in the program yet
-(ROADMAP.md Queue 1 item 7).
+Each weight's fsdp dim is gathered at use. Under ``seq_model`` the
+block boundary cuts the stream (``models.model.cut_stream``): attention
+runs on the whole sequence, gathered at the block's entry. Cross-attention
+under mixed, and the query sequence sharded for the core attention
+(``RunConfig.attn_seq_shard``), are not in the program yet (ROADMAP.md
+Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -244,7 +247,7 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
         "index": 0,
     }
     if C.active() is not None:
-        rows = "data" if C.size("data") > 1 else None
+        rows = C.client_entry()
         seq = "model" if seq_on else None
         C.set_spec(cache["k"], (rows, seq, "model" if heads_on else None,
                                 None))
@@ -561,7 +564,7 @@ def compute_cross_kv(params, enc_out, cfg):
                                       device=enc_out.device)
     out = {"k": k, "v": v, "pos": pos}
     if C.active() is not None:
-        rows = "data" if C.size("data") > 1 else None
+        rows = C.client_entry()
         for name, t in out.items():
             C.set_spec(t, (rows,) + (None,) * (t.dim() - 1))
     return out

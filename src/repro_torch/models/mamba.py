@@ -183,7 +183,7 @@ def init_mamba_cache(cfg, batch: int, dtype=torch.bfloat16, device=None):
                             dtype=dtype, device=device),
     }
     if C.active() is not None:
-        rows = "data" if C.size("data") > 1 else None
+        rows = C.client_entry()
         ch = "model" if di != cfg.d_inner else None
         C.set_spec(cache["h"], (rows, ch, None))
         C.set_spec(cache["conv"], (rows, None, ch))

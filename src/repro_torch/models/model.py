@@ -194,7 +194,7 @@ def init_segment_cache(cfg, seg: Segment, batch: int, cache_len: int,
 
 def apply_segment(layer_params, x, cfg, seg: Segment, *, positions,
                   cache=None, enc_out=None, cross_kv=None, impls=None,
-                  remat=False):
+                  remat=False, seq_cut=False):
     """Run a segment's layers in order. Returns (x, cache, aux summed over
     the layers); the per-layer caches are updated in place. cross_kv: the
     segment's per-layer list from ``compute_cross_kv_stacked``.
@@ -203,26 +203,67 @@ def apply_segment(layer_params, x, cfg, seg: Segment, *, positions,
     encoder output it reads) for the backward and recomputes the rest
     there, as ``jax.checkpoint`` with ``nothing_saveable`` does around the
     JAX package's scan step; the non-reentrant checkpoint carries
-    enc_out's gradient back to the encoder."""
+    enc_out's gradient back to the encoder.
+
+    seq_cut: x [B, S/m, D] is this model rank's slice of the sequence
+    (``cut_stream``); each block all-gathers it whole (``gather_to``),
+    runs unchanged on the replicated whole, and keeps its output's slice
+    (``slice_to``). So a checkpoint keeps the S/m slice, and the values
+    and gradients are those of the whole stream, bit for bit."""
     aux = 0.0
     for i, lp in enumerate(layer_params):
         ckv = None if cross_kv is None else cross_kv[i]
+        lc = None if cache is None else cache[i]
+
+        def block(h, enc, lp=lp, ckv=ckv, lc=lc):
+            if seq_cut:
+                h = C.gather_to(h, 1, "model")
+            y, _, a = apply_block(lp, h, cfg, seg.kind, positions=positions,
+                                  cache=lc, enc_out=enc, cross_kv=ckv,
+                                  impls=impls)
+            if seq_cut:
+                y = C.slice_to(y, 1, "model")
+            return y, a
+
         if remat and cache is None:
-            def block(h, enc, lp=lp, ckv=ckv):
-                y, _, a = apply_block(lp, h, cfg, seg.kind,
-                                      positions=positions, enc_out=enc,
-                                      cross_kv=ckv, impls=impls)
-                return y, a
             # blocks draw no random numbers: no RNG state to carry over
             x, a = torch.utils.checkpoint.checkpoint(
                 block, x, enc_out, use_reentrant=False,
                 preserve_rng_state=False)
         else:
-            x, _, a = apply_block(lp, x, cfg, seg.kind, positions=positions,
-                                  cache=None if cache is None else cache[i],
-                                  enc_out=enc_out, cross_kv=ckv, impls=impls)
+            x, a = block(x, enc_out)
         aux = aux + a
     return x, cache, aux
+
+
+SEQ_MODEL = ("batch", "seq_model", None)
+
+
+def cut_stream(h, impls):
+    """(h, cut): the stream entering the first block, cut to this model
+    rank's slice of the sequence (``slice_to``: its gradient comes back
+    whole) where ``impls["act_dims"]`` asks for ``SEQ_MODEL``
+    (``RunConfig.seq_shard_acts``, the JAX package's constraint on each
+    block's output) under a program whose model axis is above 1 and
+    divides the sequence. Elsewhere the stream stays whole, the rule
+    table's fallback (a decode step's S = 1 among them)."""
+    dims = tuple((impls or {}).get("act_dims") or ("batch", None, None))
+    m = C.size("model")
+    if dims == ("batch", None, None) or m == 1:
+        return h, False
+    if dims != SEQ_MODEL:
+        raise NotImplementedError(
+            f"activations laid out {dims} between blocks: the program "
+            f"holds ('batch', None, None) and {SEQ_MODEL} (ROADMAP.md Queue "
+            f"1 item 7)")
+    cut = h.shape[1] % m == 0
+    return (C.slice_to(h, 1, "model") if cut else h), cut
+
+
+def whole_stream(h, cut: bool):
+    """The stream leaving the last block, gathered whole where it was cut
+    (``gather_to``: each rank's slice of the gradient backward)."""
+    return C.gather_to(h, 1, "model") if cut else h
 
 
 # ---------------------------------------------------------------------------
@@ -299,18 +340,23 @@ def run_encoder(params, frame_embeds, cfg, impls=None, remat=False):
     h = frame_embeds + pos.to(frame_embeds.dtype)[None]
     positions = layers.positions_from_shape(h.shape[0], h.shape[1],
                                             device=h.device)
+    h, cut = cut_stream(h, impls)
     for seg_params, seg in zip(enc["segments"], encoder_segments(cfg)):
         h, _, _ = apply_segment(seg_params, h, cfg, seg, positions=positions,
-                                impls=impls, remat=remat)
-    return layers.apply_norm(h, enc["norm"], cfg.norm)
+                                impls=impls, remat=remat, seq_cut=cut)
+    return layers.apply_norm(whole_stream(h, cut), enc["norm"], cfg.norm)
 
 
 def forward_body(params, h, cfg, *, positions, cache=None, enc_out=None,
                  cross_kv=None, impls=None, remat=False):
     """Embeddings -> final hidden states. Returns (h, caches, aux); the
     caches are updated in place. Cross blocks attend over `cross_kv` (from
-    ``compute_cross_kv_stacked``) where given, else over `enc_out`."""
+    ``compute_cross_kv_stacked``) where given, else over `enc_out`. Where
+    ``impls["act_dims"]`` asks for seq_model the stream is cut on the
+    sequence over `model` between the blocks (``cut_stream``) and
+    gathered whole before the final norm."""
     aux = 0.0
+    h, cut = cut_stream(h, impls)
     for i, (seg_params, seg) in enumerate(zip(params["segments"],
                                               body_segments(cfg))):
         h, _, a = apply_segment(seg_params, h, cfg, seg, positions=positions,
@@ -318,9 +364,10 @@ def forward_body(params, h, cfg, *, positions, cache=None, enc_out=None,
                                 enc_out=enc_out,
                                 cross_kv=None if cross_kv is None
                                 else cross_kv[i],
-                                impls=impls, remat=remat)
+                                impls=impls, remat=remat, seq_cut=cut)
         aux = aux + a
-    h = layers.apply_norm(h, params["final_norm"], cfg.norm)
+    h = layers.apply_norm(whole_stream(h, cut), params["final_norm"],
+                          cfg.norm)
     return h, cache, aux
 
 

@@ -153,10 +153,11 @@ def routing_tape(replay=None):
 def _routing(params, x, cfg):
     """x [T, D] -> (weights [T, k] in x's dtype, idx [T, k], aux f32).
 
-    Under the SPMD program with a data axis the load-balance loss takes
-    its two means over every data rank's tokens (sums all-reduced over
-    `data`, the probabilities' by ``reduce_from``: each rank's tokens then
-    get their own gradient of it), as the JAX package's over the global
+    Under the SPMD program with a client axis (``collectives.
+    client_axis``: `data`, or (pod, data)) the load-balance loss takes
+    its two means over every client rank's tokens (sums all-reduced over
+    it, the probabilities' by ``reduce_from``: each rank's tokens then get
+    their own gradient of it), as the JAX package's over the global
     batch."""
     m = cfg.moe
     logits = x.float() @ C.gather_param(params["router"]).float()
@@ -168,10 +169,11 @@ def _routing(params, x, cfg):
     weights = weights / weights.sum(dim=-1, keepdim=True)
     # Switch-style load-balance loss; the density carries no gradient
     hits = F.one_hot(idx, m.num_experts).sum(dim=1).float()
-    if C.size("data") > 1:
-        t = x.shape[0] * C.size("data")
-        density = C.all_reduce(hits.sum(dim=0), "data") / t
-        mean_p = C.reduce_from(probs.sum(dim=0), "data") / t
+    axis = C.client_axis()
+    if C.size(axis) > 1:
+        t = x.shape[0] * C.size(axis)
+        density = C.all_reduce(hits.sum(dim=0), axis) / t
+        mean_p = C.reduce_from(probs.sum(dim=0), axis) / t
     else:
         density, mean_p = hits.mean(dim=0), probs.mean(dim=0)
     aux = m.num_experts * (density * mean_p).sum() * m.router_aux_coef

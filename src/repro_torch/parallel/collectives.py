@@ -39,12 +39,24 @@ Autograd pairs (each identity, in both directions, on an axis of size 1):
                             (no sum): a region's output parts joined into
                             the replicated whole, whose gradient every rank
                             holds whole already (Megatron's gather/split)
+  slice_to(x, dim, axis)    this rank's slice forward, all-gather
+                            backward: the inverse pair, a replicated whole
+                            cut into the ranks' parts (the residual stream
+                            cut on the sequence between blocks: seq_model)
 
 A weight dim on (data, model), the rule table's ``dboth`` fallback, is
 gathered over `data` only (``gather_param``); its model part stays, and
 the user runs row-parallel over it (``model_cols`` picks the matching
 input columns) or, on an output dim, joins the ranks' parts by
 ``gather_to``.
+
+The client axis. The clients and the batch lie on `data`, or on a mesh
+with a `pod` axis (the JAX package's 2 x 16 x 16) on (pod, data),
+flattened pod-major: ``client_axis()`` names it (``POD_DATA``: a process
+group of its own, rank index pod * |data| + data, as ``Mesh.coords`` and
+the rule table lay a ("pod", "data") entry). fsdp stays on `data`, within
+a pod; a weight is replicated across pods, and the gradient of such a
+leaf crosses `pod` once a step (``reduce_grads``).
 
 ``COUNTS`` records every collective that moves data, by (op, axis): calls
 and bytes (an all-reduce counts its tensor, an all-gather its output, a
@@ -77,11 +89,15 @@ class Program:
     def size(self, axis: str) -> int:
         if axis == WORLD:
             return self.world
+        if axis == POD_DATA:
+            return self.size("pod") * self.size("data")
         return int(self.mesh.shape.get(axis, 1))
 
     def index(self, axis: str) -> int:
         if axis == WORLD:
             return self.rank
+        if axis == POD_DATA:
+            return self.index("pod") * self.size("data") + self.index("data")
         return int(self.coords.get(axis, 0))
 
     def record(self) -> dict:
@@ -92,6 +108,9 @@ class Program:
 _ACTIVE: Optional[Program] = None
 # the axis name of every rank at once (the default process group)
 WORLD = "world"
+# the flattened (pod, data) axis: the clients and the batch on a mesh with
+# a pod axis
+POD_DATA = "pod+data"
 
 
 def active() -> Optional[Program]:
@@ -117,6 +136,22 @@ def size(axis: str) -> int:
 def index(axis: str) -> int:
     """This rank's coordinate on `axis` (0 with no program)."""
     return 0 if _ACTIVE is None else _ACTIVE.index(axis)
+
+
+def client_axis() -> str:
+    """The axis the clients and the batch lie on: `data`, or the
+    flattened (pod, data) axis where the active mesh has a pod axis above
+    1."""
+    return POD_DATA if size("pod") > 1 else "data"
+
+
+def client_entry():
+    """The spec entry of a dim laid on the client axis (a cache's or a
+    batch's rows): None where it has one rank, else "data" or ("pod",
+    "data")."""
+    if size(client_axis()) == 1:
+        return None
+    return ("pod", "data") if size("pod") > 1 else "data"
 
 
 def local(n: int, axis: str) -> int:
@@ -167,11 +202,38 @@ def start(mesh, device) -> Program:
                            f"{dmesh.get_coordinate()}, the mesh at {coords}")
     groups = {a: dmesh.get_group(a) for a in mesh.axis_names}
     groups[WORLD] = dist.group.WORLD
+    if mesh.shape.get("pod", 1) > 1:
+        groups[POD_DATA] = _pod_data_group(mesh, rank)
     return Program(mesh=mesh, rank=rank, world=world, coords=coords,
                    groups=groups, backend=backend,
                    device=torch.device(device),
                    cards=tuple(card_of(r, device) for r in range(world)),
                    dmesh=dmesh)
+
+
+def _pod_data_group(mesh, rank):
+    """This rank's process group of the flattened (pod, data) axis: one
+    group a coordinate of the other axes, its ranks in pod-major order.
+    Every rank creates every group, in the same order (``dist.new_group``
+    asks it), and keeps its own. A group's ranks are numbered by their
+    global rank, which must follow the flattened order (pod and data
+    before model in the mesh's row-major layout)."""
+    members = collections.defaultdict(list)
+    for r in range(mesh.size):
+        c = mesh.coords(r)
+        key = tuple(v for a, v in c.items() if a not in ("pod", "data"))
+        members[key].append((c["pod"] * mesh.shape.get("data", 1)
+                             + c.get("data", 0), r))
+    mine = None
+    for key in sorted(members):
+        ranks = [r for _, r in sorted(members[key])]
+        if ranks != sorted(ranks):
+            raise ValueError(f"a {mesh.name} mesh {mesh.axis_names} does not "
+                             f"order (pod, data) before its other axes")
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine = group
+    return mine
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +430,17 @@ class _GatherTo(torch.autograd.Function):
         return part.contiguous(), None, None
 
 
+class _SliceTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return x.chunk(size(axis), dim)[index(axis)].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.axis), None, None
+
+
 def copy_to(x, axis: str = "model"):
     """Identity forward, all-reduce backward over `axis`."""
     return x if size(axis) == 1 else _CopyTo.apply(x, axis)
@@ -388,6 +461,20 @@ def gather_to(x, dim: int, axis: str = "model"):
     """All-gather forward along `dim` over `axis`, this rank's slice of
     the gradient backward (every rank holds the same whole gradient)."""
     return x if size(axis) == 1 else _GatherTo.apply(x, dim, axis)
+
+
+def slice_to(x, dim: int, axis: str = "model"):
+    """This rank's slice of x along `dim` (its size(axis) equal parts, by
+    the rank's coordinate) forward, the ranks' gradient parts all-gathered
+    backward: x is the same on every rank of `axis`, and so is its
+    gradient, whole. Slicing with ``narrow`` instead would hand x's users
+    the gradient of this rank's part only."""
+    if size(axis) == 1:
+        return x
+    if x.shape[dim] % size(axis):
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {size(axis)} ranks of {axis!r}")
+    return _SliceTo.apply(x, dim, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -431,17 +518,22 @@ def gather_param(w):
     reduce-scattered back); a dim on `model` stays local, and so does the
     model part of a dim on (data, model) (the rule table's `dboth`
     fallback: its data part gathered, the ranks' parts in data order, this
-    model rank's among each). A dim on `pod` is not in the program yet
-    (ROADMAP.md Queue 1 item 7)."""
+    model rank's among each). A dim on ("pod", "data"), the client axis
+    of a multi-pod mesh (the adapters), is gathered over that axis as a
+    dim on `data` is on a mesh with no pod. No rule lays a weight on `pod`
+    alone or on (pod, data, model)."""
     spec = spec_of(w)
     if spec is None or _ACTIVE is None:
         return w
     for dim, entry in enumerate(spec):
         axes = _entry_axes(entry)
+        if axes == ("pod", "data"):
+            w = gather_from(w, dim, client_axis())
+            continue
         if axes not in ((), ("data",), ("model",), ("data", "model")):
             raise NotImplementedError(
-                f"a weight laid out {spec}: the pod axis is not in the "
-                f"SPMD program yet (ROADMAP.md Queue 1 item 7)")
+                f"a weight laid out {spec}: no rule of the table lays one "
+                f"so (ROADMAP.md Queue 1 item 7)")
         if axes[:1] == ("data",):
             w = gather_from(w, dim, "data")
     return w
@@ -497,14 +589,21 @@ def replica_weight(t) -> float:
 
 @torch.no_grad()
 def reduce_grads(params, grads) -> None:
-    """Sum, in place, over `data` the gradients of the leaves whose spec
-    lays no dim on `data`: each data rank holds other clients' tokens, so
-    its gradient of a replicated leaf is a partial sum. A leaf on `data`
-    needs nothing: an fsdp dim was reduce-scattered by ``gather_from``,
-    and a client-axis leaf (the adapters) holds only this rank's
-    clients."""
-    if size("data") == 1:
+    """Sum, in place, the gradients of the server's leaves over the client
+    axis: each rank of it holds other clients' tokens, so its gradient of
+    a shared leaf is a partial sum. A leaf whose spec lays no dim on
+    `data` is summed over the client axis (`data`, or (pod, data)); an
+    fsdp leaf, whose gradient ``gather_from`` already reduce-scattered
+    over `data` within its pod, over `pod` alone (replicated across pods,
+    its gradient crosses `pod` once a step); a client-axis leaf (the
+    adapters) needs nothing: it holds only this rank's clients."""
+    axis = client_axis()
+    if size(axis) == 1:
         return
+    pods = size("pod") > 1
     for p, g in zip(params, grads):
-        if "data" not in spec_axes(spec_of(p)):
-            g.copy_(all_reduce(g, "data"))
+        on = spec_axes(spec_of(p))
+        if "data" not in on:
+            g.copy_(all_reduce(g, axis))
+        elif pods and "pod" not in on:
+            g.copy_(all_reduce(g, "pod"))

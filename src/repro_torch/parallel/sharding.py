@@ -33,7 +33,8 @@ Under the SPMD program (``parallel.collectives``: one process a rank,
 marks each with its spec, which ``collectives.gather_param`` reads),
 ``gather_tree`` joins them back, ``place_batch(mesh=...)`` places this
 rank's clients of a host batch. The model code calls the collectives
-itself, so ``shard_act`` stays the identity (see there).
+itself, so ``shard_act`` stays the identity (see there): the layouts
+its constraints ask for, ``seq_model`` included, are the program's own.
 
 ``place_batch`` runs on the prefetch producer thread
 (``data.PrefetchLoader(place_fn=place_batch)``); ``take_batch`` runs on
@@ -133,15 +134,20 @@ def shard_act(x, dims):
     """The JAX package's ``with_sharding_constraint`` against the active
     mesh: the identity. No partitioner runs in the port; the explicit
     program already holds the layouts those constraints ask for: the
-    clients' stacked activations on `data` (``repro/core/mpsl.py:132,
-    143, 160``: each data rank runs its own clients) and the batch of the
-    body, the decoder's hidden states and the logits
-    (``repro/models/model.py:156, 287, 328``: batch on `data`, hidden
-    states replicated over `model` between the blocks, logits
-    vocab-sharded over `model`). Not held: ``seq_model``, the
-    sequence-sharded activations of ``repro/models/attention.py:273-276``
-    (training at d_model >= 8192, ``RunConfig.seq_shard_acts``), which
-    the program leaves unsharded (ROADMAP.md Queue 1 item 7)."""
+    clients' stacked activations on the client axis (``repro/core/
+    mpsl.py:132, 143, 160``: each rank of `data`, or of (pod, data), runs
+    its own clients) and the batch of the body, the decoder's hidden
+    states and the logits (``repro/models/model.py:156, 287, 328``: batch
+    on the client axis, logits vocab-sharded over `model`). Between the
+    blocks the hidden states are replicated over `model`, or, where
+    ``act_dims`` is ``("batch", "seq_model", None)`` (training at d_model
+    >= 8192, ``RunConfig.seq_shard_acts``), cut on the sequence over
+    `model` by ``models.model.cut_stream`` and gathered whole inside each
+    block (the sequence left whole where it does not divide the axis, as
+    the rule table leaves it). Not held: the query sequence that
+    ``repro/models/attention.py:271-276`` shards for the core attention
+    under ``RunConfig.attn_seq_shard`` (a constraint: the numbers are the
+    same; ROADMAP.md Queue 1 item 7h)."""
     return x
 
 

@@ -11,7 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import dataclasses
+
 from repro_torch import bridge, tree
+from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.checkpoint.io import snapshot
 from repro_torch.configs import (MPSLConfig, RunConfig, ShapeConfig,
                                  get_config, reduced)
 from repro_torch.core import compression, losses, mpsl, split
@@ -197,11 +201,14 @@ def _batch(batch_np, prog):
     return sharding.shard_tree(b, sharding.batch_specs(b, prog.mesh))
 
 
-def mpsl_step(cfg_kw, params_np, frozen_np, batch_np, draws_np, lr):
+def mpsl_step(cfg_kw, params_np, frozen_np, batch_np, draws_np, lr,
+              ckpt_dir=None):
     """Under the active program: the MPSL loss and every gradient (this
-    rank's part, summed over `data` by ``reduce_grads``, gathered), then
-    one ``make_train_step`` (the loss fed `draws_np`, the JAX uniforms of
-    both links) and the gathered state after it."""
+    rank's part, summed over the client axis by ``reduce_grads``,
+    gathered), then one ``make_train_step`` (the loss fed `draws_np`, the
+    JAX uniforms of both links) and the gathered state after it; with
+    `ckpt_dir`, that state saved there as step 1's checkpoint (every rank
+    gathers, rank 0 writes) and its whole leaves by path."""
     cfg = _config(cfg_kw)
     prog = C.active()
     run = _port_run(cfg, batch_np["mask"].shape[0], True)
@@ -218,7 +225,8 @@ def mpsl_step(cfg_kw, params_np, frozen_np, batch_np, draws_np, lr):
     counts = C.read_counts()
     out = {"loss": float(loss), "per_client": _np(met["per_client"]),
            "participating": float(met["participating"]),
-           "grads": _gathered(grads, state["params"]), "counts": counts}
+           "grads": _gathered(grads, state["params"]), "counts": counts,
+           "specs": [C.spec_of(p) for p in tree.leaves(state["params"])]}
     step = mpsl.make_train_step(
         lambda p, f, bb, _rng: loss_fn(p, f, bb, draws), run,
         schedules.constant(lr))
@@ -229,7 +237,29 @@ def mpsl_step(cfg_kw, params_np, frozen_np, batch_np, draws_np, lr):
                mu=_gathered(state["opt"]["mu"]),
                nu=_gathered(state["opt"]["nu"]),
                count=int(state["opt"]["count"]))
+    if ckpt_dir is not None:
+        host = snapshot(state)
+        if prog.rank == 0:
+            save_checkpoint(ckpt_dir, 1, host)
+        torch.distributed.barrier()
+        out["saved"] = _whole(host)
     return out
+
+
+def _whole(state):
+    """{path: numpy leaf} of a whole state's tensor leaves."""
+    return {p: _np(x) for p, x in zip(tree.paths(state), tree.leaves(state))
+            if torch.is_tensor(x)}
+
+
+def restored(cfg_kw, params_np, frozen_np, directory):
+    """A train state of `params_np` / `frozen_np` laid out on the active
+    program (or whole, with none), restored in place from `directory`'s
+    step 1 checkpoint and gathered: its whole leaves by path."""
+    state = mpsl.place_state(mpsl.init_state(
+        bridge.from_repro(params_np), bridge.from_repro(frozen_np), seed=9))
+    state, _ = restore_checkpoint(directory, state, 1)
+    return _whole(sharding.gather_tree(state))
 
 
 def adapter_grads(cfg_kw, params_np, frozen_np, batches_np):
@@ -268,8 +298,8 @@ def step_cases(meshes, step_args, prop_args, serve_args):
 def served(cfg_kw, params_np, tokens_np, steps_):
     """Prefill + greedy decode steps of ``launch.serve`` on this rank's
     shards (the TP-only serving layout: weights on `model`, replicated
-    over `data`; the batch on `data`): every step's logits and tokens,
-    gathered."""
+    over `data` and `pod`; the batch on the client axis, `data` or (pod,
+    data)): every step's logits and tokens, gathered."""
     cfg = _config(cfg_kw)
     prog = C.active()
     params = bridge.from_repro(params_np)
@@ -284,8 +314,9 @@ def served(cfg_kw, params_np, tokens_np, steps_):
     out = serve.generate(prefill, decode, params, tokens, steps_)
     counts = C.read_counts()
     logits = C.all_gather(out["logits"], 2, "model")
-    return {"logits": _np(C.all_gather(logits, 0, "data")),
-            "tokens": _np(C.all_gather(out["tokens"], 0, "data")),
+    rows = C.client_axis()
+    return {"logits": _np(C.all_gather(logits, 0, rows)),
+            "tokens": _np(C.all_gather(out["tokens"], 0, rows)),
             "counts": counts}
 
 
@@ -343,7 +374,6 @@ def restore(argv, directory, step):
     """The train CLI's state (``train.build``) restored from `directory`'s
     checkpoint `step` onto this rank's shards (in one process with no
     program: the whole state), gathered whole."""
-    from repro_torch.checkpoint import restore_checkpoint
     args = train.parser().parse_args(argv)
     _, _, state, _, _ = train.build(args, torch.device("cpu"))
     restored, _ = restore_checkpoint(directory, state, step)
@@ -788,3 +818,150 @@ def psl_step(cfg_kw, params_np, frozen_np, batch_np, draws_np, lr):
 def psl_cases(meshes, cases):
     """{mesh name: [psl_step(*a) for a in `cases`]}."""
     return _with_meshes(meshes, lambda: [psl_step(*a) for a in cases])
+
+
+# ---------------------------------------------------------------------------
+# sequence-sharded activations (tests/test_torch_mesh_seq.py)
+
+
+def _saved_bytes(fn):
+    """fn() and the bytes of every tensor that autograd saved for the
+    backward while it ran (a checkpoint's input counted once, nothing
+    saved inside it)."""
+    n = [0]
+
+    def pack(t):
+        n[0] += t.numel() * t.element_size()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, n[0]
+
+
+def seq_step(cfg_kw, params_np, frozen_np, batch_np, draws_np):
+    """Under the active program, the MPSL loss and every gradient (summed
+    over the client axis by ``reduce_grads``, gathered), links on the
+    given draws, without and with ``RunConfig.seq_shard_acts`` (act_dims
+    ("batch", "seq_model", None)): for each ("whole", "seq"), the loss,
+    the gradients, the bytes autograd saved over the forward and the
+    collectives of the forward and backward, {"op/axis": {"calls",
+    "bytes"}}."""
+    cfg = _config(cfg_kw)
+    prog = C.active()
+    draws = {k: torch.from_numpy(v) for k, v in draws_np.items()}
+    out = {}
+    for seq in (False, True):
+        run = dataclasses.replace(
+            _port_run(cfg, batch_np["mask"].shape[0], True),
+            seq_shard_acts=seq)
+        state = mpsl.place_state(mpsl.init_state(
+            bridge.from_repro(params_np), bridge.from_repro(frozen_np),
+            seed=9))
+        batch = _batch(batch_np, prog)
+        loss_fn = mpsl.make_lm_loss(cfg, run)
+        leaves = tree.leaves(state["params"])
+        C.reset_counts()
+        (loss, met), saved = _saved_bytes(
+            lambda: loss_fn(state["params"], state["frozen"], batch, draws))
+        grads = mpsl.grad(loss, leaves)
+        counts = {k: v for k, v in C.read_counts().items()
+                  if k != "program"}
+        C.reduce_grads(leaves, grads)
+        out["seq" if seq else "whole"] = {
+            "loss": float(met["loss"]), "per_client": _np(met["per_client"]),
+            "grads": _gathered(grads, state["params"]),
+            "saved_bytes": saved, "counts": counts}
+    return out
+
+
+def seq_prefill(cfg_kw, params_np, tokens_np):
+    """``steps.build_prefill``'s function on this rank's shards, without
+    and with ``seq_shard_acts`` (the stream cut between the blocks, the
+    cache written by each block from the whole sequence): for each, the
+    last logits and every cache leaf, gathered, and the collectives of
+    the call."""
+    cfg = _config(cfg_kw)
+    prog = C.active()
+    b, s = tokens_np.shape
+    out = {}
+    for seq in (False, True):
+        run = steps.default_run(cfg, ShapeConfig("prefill", s, b, "prefill"),
+                                prog.mesh, attn_impl="kernel",
+                                compute_dtype="float32", seq_shard_acts=seq)
+        fn, _, in_specs = steps.build_prefill(cfg, run, prog.mesh)
+        params, batch = steps.shard_inputs(
+            (bridge.from_repro(params_np),
+             {"tokens": torch.from_numpy(tokens_np)}), in_specs)
+        (logits, cache), counts = _counted(fn, params, batch)
+        whole = sharding.gather_tree(cache)
+        out["seq" if seq else "whole"] = {
+            "counts": counts,
+            "logits": _np(sharding.gather_leaf(logits, ("data", None,
+                                                        "model"))),
+            "cache": [_np(x) for x in tree.leaves(whole)
+                      if torch.is_tensor(x)]}
+    return out
+
+
+def seq_cases(meshes, cases, prefills=()):
+    """{mesh name: ([seq_step(*a) for a in `cases`], [seq_prefill(*a) for
+    a in `prefills`])}."""
+    return _with_meshes(meshes, lambda: ([seq_step(*a) for a in cases],
+                                         [seq_prefill(*a) for a in prefills]))
+
+
+# ---------------------------------------------------------------------------
+# the pod axis (tests/test_torch_mesh_pod.py)
+
+
+def pod_cases(meshes, step_args, prop_args, serve_args, ckpt_dir):
+    """On each mesh: the MPSL step (its collectives, and on the first mesh
+    its state saved in `ckpt_dir` unless None), the adapter gradients of
+    each of `prop_args` and serving."""
+    first = meshes[0].name
+
+    def one():
+        kw = {"ckpt_dir": ckpt_dir} if C.active().mesh.name == first \
+            else {}
+        return {"step": mpsl_step(*step_args, **kw),
+                "props": [adapter_grads(*a) for a in prop_args],
+                "serve": served(*serve_args)}
+    return _with_meshes(meshes, one)
+
+
+# ---------------------------------------------------------------------------
+# the program's sums in float64 (tests/test_torch_mesh_f64.py)
+
+
+def f64_grads(cfg_kw, params_np, frozen_np, batch_np):
+    """The MPSL loss's gradients (links off, the plain impls) in float64:
+    every param cast to f64, compute_dtype "float64", and ``Tensor.float``
+    giving f64 while the loss and its backward run, so that the model
+    code's f32 upcasts hold f64 too. Under a program, summed by
+    ``reduce_grads`` and gathered; {path: numpy gradient}."""
+    cfg = _config(cfg_kw)
+    prog = C.active()
+    run = dataclasses.replace(_port_run(cfg, batch_np["mask"].shape[0],
+                                        False), compute_dtype="float64")
+    f64 = lambda t: t.double()                      # noqa: E731
+    state = mpsl.place_state(mpsl.init_state(
+        tree.map_(f64, bridge.from_repro(params_np)),
+        tree.map_(f64, bridge.from_repro(frozen_np))))
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    if prog is not None:
+        batch = sharding.shard_tree(batch, sharding.batch_specs(batch,
+                                                                prog.mesh))
+    loss_fn = mpsl.make_lm_loss(cfg, run, impls={
+        "attn": "naive", "ssm": "plain", "ce": "plain", "ssm_chunk": 8})
+    as_float = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **k: self.double()
+    try:
+        _, _, grads = mpsl.value_and_grad(loss_fn, state["params"],
+                                          state["frozen"], batch, 0)
+    finally:
+        torch.Tensor.float = as_float
+    C.reduce_grads(tree.leaves(state["params"]), grads)
+    whole = _gathered(grads, state["params"]) if prog is not None \
+        else [_np(g) for g in grads]
+    return dict(zip(tree.paths(state["params"]), whole))
