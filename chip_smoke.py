@@ -258,6 +258,28 @@
                  (each fsdp gradient all-reduced over `pod` once a step);
                  mesh_train's batch (2 steps, client 1 masked), then
                  serve's (prompt 512, 16 steps), in one world.
+   mesh_vit      the paper mode on the program: vit-base at its published
+                 widths and depth (12 blocks, every one trainable), 4
+                 clients x 4 samples (client 1 masked), int8 links, f32,
+                 on (2, 2): 6 of 12 heads a rank (heads), fsdp over
+                 `data`, each client's tokenizers on its data rank; an
+                 early-fusion leg (2 steps), a late-fusion leg (vision +
+                 audio + text: passes of 197, 513 and 77 tokens, 1 step)
+                 and a retrieval leg (the InfoNCE over the global batch,
+                 1 step), each against the one-rank kernel path on the
+                 same params and batches (losses, the first step's
+                 gradients, the masked client's tokenizer gradient: 0 in
+                 classification, the one-rank path's in retrieval); after
+                 the early and retrieval legs the post-training model: the
+                 tokenizers FedAvg-ed over the global client axis (the
+                 one-rank mean of the same clients, the same bits on every
+                 rank), the body assembled from the rank's shards, the
+                 logits or embeddings of its samples gathered, recall at
+                 1 and 5 over the global batch.
+   mesh_vit_dboth  mesh_vit's early leg (1 step) and its evaluation on the
+                 production (1, 8) model axis: 12 heads divide no model
+                 axis of 8, so every attention weight's D lies on (data,
+                 model) and each of the 8 ranks computes every head.
    The paths of one world size share one world (``MESH_GROUPS``: the
    4-rank meshes, the 8-rank ones), a rank a device of the mesh, each
    path under a program on its own mesh. ``diagnose_beta_ssm`` (not a main path: run alone,
@@ -296,6 +318,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import hashlib
 import itertools
 import json
 import math
@@ -404,6 +427,11 @@ DECODE_CELL_TOL = 5e-2
 # elements gives ~2 sqrt(f). 1e-3, the CPU parity test's limit, admits f up
 # to 2.5e-7; a wrong attention moves most elements (a gap near 1).
 FEDAVG_UPDATE_TOL = 1e-3
+# The FedAvg-ed tokenizers under the SPMD program against the one-rank
+# mean of the same clients' tokenizers (gathered whole), in relative L2:
+# a mean of 4 f32 values, its sum all-reduced over the client axis in
+# another order than one rank's (each element within 2 ulp).
+FEDAVG_MEAN_TOL = 1e-6
 # The MoE paths' plain versions replay the kernel path's expert choices. A
 # token whose own top-k set differs there (a flip) is one whose k-th and
 # next router probabilities lie within the two paths' float noise of each
@@ -647,6 +675,29 @@ PATHS["mesh_moe"] = dict(
     "layers the whole script took 1060.9 s on the H100, and machines "
     "10-30 % slower in every phase occur; every shape a rank gives the "
     "kernels is the full width's")
+# the paper mode on the mesh: vit-base at its published widths and depth
+# (12 layers, every block trainable), 4 clients x 4 samples, client 1
+# masked out, int8 links, f32; on (2, 2) (6 of 12 heads a rank: heads,
+# fsdp over `data`) an early-fusion leg of 2 steps, a late-fusion leg
+# (vision + audio + text: passes of 197, 513 and 77 tokens) and a
+# retrieval leg (the global InfoNCE) of 1 step each, each leg's
+# post-training model evaluated after it (early, retrieval); on the
+# production (1, 8) model axis (12 heads divide no model axis of 8:
+# dboth, every head on every rank; 8 ranks) one early-fusion step and its
+# evaluation
+PATHS["mesh_vit"] = dict(
+    VIT, batch_per_client=4, mesh=(2, 2), masked_client=1,
+    legs={"early": 2, "late": 1, "retrieval": 1},
+    evals=("early", "retrieval"),
+    reduced="batch 4 clients x 16 -> x 4 samples (depth and widths the "
+    "published ones): 4 ranks share the card over gloo, each block's "
+    "activations and each weight's fsdp gather cross the host, and the "
+    "script must end within 1200 s")
+PATHS["mesh_vit_dboth"] = dict(
+    PATHS["mesh_vit"], mesh=(1, 8), legs={"early": 1}, evals=("early",),
+    reduced="batch 4 clients x 16 -> x 4 samples, 1 step (depth and widths "
+    "the published ones): 8 ranks share the card over gloo, and the script "
+    "must end within 1200 s")
 # every path's plain version: naive attention, the plain scan, chunked CE,
 # the dense expert dispatch
 PLAIN_IMPLS = {"attn": "naive", "ssm": "plain", "ce": "plain", "moe": "dense"}
@@ -1013,6 +1064,12 @@ def _attn_cases():
         cases.append((name, dict(b=bb, sq=ss, sk=ss, h=hh, kh=kk, hd=hd), dict(
             q_pos=cp, k_pos=cp, k_valid=torch.ones(bb, ss, dtype=torch.bool),
             causal=True, window=0), True))
+    for name, (bv, sv, hv) in MESH_VIT_ATTN.items():
+        vp = torch.arange(sv, dtype=torch.int32)[None].expand(bv, sv)
+        cases.append((name, dict(b=bv, sq=sv, sk=sv, h=hv, kh=hv, hd=64),
+                      dict(q_pos=vp, k_pos=vp,
+                           k_valid=torch.ones(bv, sv, dtype=torch.bool),
+                           causal=False, window=0), True))
     # the hybrid mesh paths: mesh_hybrid's rank (dboth: all 25 heads on 5
     # KV heads; 2 clients x 2 sequences in training, its 2 requests in the
     # prefill and in decode over its half of a local ring, f32) and
@@ -1083,6 +1140,15 @@ def _attn_cases():
 VIT_ATTN = {"vit_early": (64, 274), "vit_vision": (64, 197),
             "vit_text": (64, 77), "vit_audio": (64, 513),
             "vit_fedavg": (8, 274)}
+# the mesh vit paths' ranks (f32): (batch, sequence length, heads). On (2,
+# 2) a data rank's 2 clients x 4 samples and 6 of the 12 heads (heads),
+# over the early-fusion joint sequence and late fusion's passes
+# (retrieval's are its vision and text ones); on (1, 8) every client's 16
+# samples and all 12 heads on every rank (dboth)
+MESH_VIT_ATTN = {"mesh_vit_early": (8, 274, 6),
+                 "mesh_vit_vision": (8, 197, 6),
+                 "mesh_vit_text": (8, 77, 6), "mesh_vit_audio": (8, 513, 6),
+                 "mesh_vit_dboth": (16, 274, 12)}
 
 
 # the production cells' cases and mesh_ep's: bf16 only, as they compute
@@ -1093,7 +1159,7 @@ CELL_ATTN = ("cell_prefill", "cell_train", "cell_moe_prefill", "cell_decode",
 
 # the cases where every query sees every key (no mask for SDPA)
 ENCDEC_ATTN = ("encdec_enc", "encdec_cross", "encdec_cross_decode")
-FULL_ATTN = (*VIT_ATTN, *ENCDEC_ATTN)
+FULL_ATTN = (*VIT_ATTN, *MESH_VIT_ATTN, *ENCDEC_ATTN)
 # the cases no bf16 path runs
 F32_ONLY = (*(n for n in FULL_ATTN if n != "vit_early"), "vlm_train",
             "mesh_train", "mesh_hybrid_train", "mesh_hybrid_prefill",
@@ -1701,6 +1767,9 @@ QUANT8_CASES = [
     # mesh_pod's client rank: its client's 2 x 512 rows (row0 1024 on the
     # second rank of (pod, data))
     ("mesh_pod", 1024, 3072, torch.float32, "vector", 0),
+    # mesh_vit's data rank on (2, 2): its 2 clients x 4 samples x 274
+    # tokens (early fusion; row0 2192 on the second)
+    ("mesh_vit", 2192, 768, torch.float32, "vector", 0),
     ("ssm_train", 4096, 4096, torch.float32, "vector", 0),
     ("train_bf16", 4096, 3072, torch.bfloat16, "vector", 0),
     *[("wide", 4096, d, dt, "vector", 0) for d in (6144, 12288)
@@ -2446,7 +2515,7 @@ def _run_steps(step_fn, state, batches, per_step):
     return read_counts(), {
         "losses": losses, "grad_norms": norms,
         "step_ms": [x * 1e3 for x in times],
-        "median_step_ms": statistics.median(times[1:]) * 1e3,
+        "median_step_ms": statistics.median(times[1:] or times) * 1e3,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "launches_per_step": step_counts, "expected_per_step": per_step}
 
@@ -3008,6 +3077,40 @@ def _vit_to_device(batch, device):
             for k, v in batch.items()}
 
 
+def _post_training_model(params, frozen, plan):
+    """[F_C ; F_S] (paper Sec. 3.3): the body assembled from the frozen
+    and trained segments, the client tokenizers FedAvg-ed, the server's
+    head (or retrieval projections)."""
+    full = split.assemble_full_params(params, frozen, plan)
+    full["tokenizers"] = aggregation.fedavg_heads(
+        params["client"]["tokenizers"])
+    full.update({k: v for k, v in params["server"].items()
+                 if k not in ("segments", "final_norm")})
+    return full
+
+
+def _vit_outputs(cfg, spec, full, batch, dtype=torch.float32, impls=None):
+    """The post-training model on every client's samples of `batch` (this
+    client rank's under the program): (logits,), or the retrieval
+    embeddings (pa, pb)."""
+    mods = spec["modalities"]
+    x = {m: batch[m].flatten(0, 1) for m in mods}
+    if spec["task"] == "retrieval":
+        return baselines.retrieval_embeddings(full, x, cfg, mods,
+                                              dtype=dtype, impls=impls)
+    return (baselines.full_vit_logits(
+        full, x, cfg, modalities=mods, fusion_mode=spec["fusion"],
+        dtype=dtype, impls=impls),)
+
+
+def _vit_eval_launches(cfg, spec) -> dict:
+    """The post-training evaluation's launches: the flash forward once a
+    block and encoder pass (no backward, no link)."""
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash_attention_fwd"] = _layers(cfg)[0] * _vit_passes(spec)
+    return want
+
+
 def _vit_eval(path, spec, cfg, run, state, frozen, plan, batch):
     """The post-training model (paper Sec. 3.3): the client tokenizers
     FedAvg-ed, the body assembled from the frozen and trained segments, the
@@ -3015,31 +3118,16 @@ def _vit_eval(path, spec, cfg, run, state, frozen, plan, batch):
     centralized model, kernel path against plain path. Returns its
     launches."""
     mods, cdt = spec["modalities"], getattr(torch, run.compute_dtype)
-    server = state["params"]["server"]
+    retrieval = spec["task"] == "retrieval"
     with torch.no_grad():
-        full = split.assemble_full_params(state["params"], frozen, plan)
-        full["tokenizers"] = aggregation.fedavg_heads(
-            state["params"]["client"]["tokenizers"])
-        full.update({k: v for k, v in server.items()
-                     if k not in ("segments", "final_norm")})
-        x = {m: batch[m].flatten(0, 1) for m in mods}
-        retrieval = spec["task"] == "retrieval"
-
-        def run_eval(impls):
-            if retrieval:
-                return baselines.retrieval_embeddings(
-                    full, x, cfg, mods, dtype=cdt, impls=impls)
-            return (baselines.full_vit_logits(
-                full, x, cfg, modalities=mods, fusion_mode=spec["fusion"],
-                dtype=cdt, impls=impls),)
-
+        full = _post_training_model(state["params"], frozen, plan)
         reset_counts()
-        got = run_eval(None)                      # the kernels
+        got = _vit_outputs(cfg, spec, full, batch, cdt)      # the kernels
         torch.cuda.synchronize()
         counts = read_counts()
-        want = run_eval(PLAIN_IMPLS)
-    expected = dict.fromkeys(COUNTERS, 0)
-    expected["flash_attention_fwd"] = _layers(cfg)[0] * _vit_passes(spec)
+        want = _vit_outputs(cfg, spec, full, batch, cdt, PLAIN_IMPLS)
+    expected = _vit_eval_launches(cfg, spec)
+    x = {m: batch[m].flatten(0, 1) for m in mods}
     diff = max(_max_err(a, b) for a, b in zip(got, want))
     ref_max = max(b.float().abs().max().item() for b in want)
     f32 = cdt == torch.float32
@@ -3850,14 +3938,16 @@ def _sharded_rel_l2(local, ref_full, spec) -> float:
     return _shards_rel_l2(local, sharding.shard_leaf(ref_full, spec), local)
 
 
-def _shards_rel_l2(got, want, leaf) -> float:
+def _shards_rel_l2(got, want, leaf, den=None) -> float:
     """The relative L2 gap of a whole leaf from each rank's shards of it
-    (`got` against `want`, cut as `leaf`): squared sums weighted by 1 /
-    the shard's replica count, all-reduced over the world."""
+    (`got` against `want`, cut as `leaf`; against the norm of `den`, a
+    shard cut alike, where given): squared sums weighted by 1 / the
+    shard's replica count, all-reduced over the world."""
     want = want.to(got.device, torch.float32)
+    den = want if den is None else den.to(got.device, torch.float32)
     w = collectives.replica_weight(leaf)
     sums = torch.stack([(got.float() - want).square().sum() * w,
-                        want.square().sum() * w]).to(
+                        den.square().sum() * w]).to(
                             collectives.active().device)
     num, den = collectives.all_reduce(sums, collectives.WORLD).tolist()
     return math.sqrt(num) / math.sqrt(den) if den else math.sqrt(num)
@@ -5338,6 +5428,397 @@ def diagnose_beta_ssm(spec=None):
     return leaves
 
 
+# ---------------------------------------------------------------------------
+# the paper mode on the mesh (mesh_vit, mesh_vit_dboth)
+
+# a mesh vit path's legs: (modalities, task, fusion)
+VIT_LEGS = {"early": (("vision", "text"), "classification", "early"),
+            "late": (("vision", "audio", "text"), "classification", "late"),
+            "retrieval": (("vision", "text"), "retrieval", "early")}
+
+
+def _vit_leg(spec, leg) -> dict:
+    """A leg's spec: the path's, its modalities, task and fusion, and its
+    step count."""
+    mods, task, fusion = VIT_LEGS[leg]
+    return dict(spec, modalities=mods, task=task, fusion=fusion,
+                steps=spec["legs"][leg])
+
+
+def mesh_vit_collectives(cfg, lspec) -> dict:
+    """The collectives of one paper-mode train step on a (data d, model m)
+    mesh, from the code, with block remat and every block trainable (L
+    blocks, P encoder passes: ``_vit_passes``). The tokenizers lie on the
+    client axis and move nothing. Each pass runs every block: over `data`
+    (fsdp) its 4 attention and 2 MLP weights gathered in the forward and
+    the remat recompute (12 L P), their gradients reduce-scattered (6 L
+    P); over `model`, under heads, the attention output's all-reduce in
+    both passes and x's gradient entering the region (3), under dboth the
+    q|k|v partial sums in both, x's and the attention output's gradients
+    (4) and wo's output parts all-gathered in both (2 all-gathers); the
+    MLP's output and its input's gradient (2). Over `data` once a step:
+    the trainable leaves off `data` summed by ``reduce_grads`` (each
+    block's 2 norms' scale and bias and its 3 qkv biases, the final
+    norm's 2, the task head's 2 or retrieval's proj_a, proj_b and logit
+    scale), the mask's sum, L_S and the participating count all-reduced,
+    every client's loss all-gathered; retrieval's embeddings all-gathered
+    for the global InfoNCE and their gradients reduce-scattered (2 each).
+    The global norm's squared sums over the world (1)."""
+    *_, d, m = lspec["mesh"]
+    L, P = cfg.num_layers, _vit_passes(lspec)
+    retrieval = lspec["task"] == "retrieval"
+    dboth = _attn_layout(cfg, m) == "dboth"
+    norm = 2 if cfg.norm == "layernorm" else 1
+    head = 3 if retrieval else 2
+    out = {"all_gather/data": 12 * L * P + 1 + 2 * retrieval,
+           "reduce_scatter/data": 6 * L * P + 2 * retrieval,
+           "all_reduce/data": ((2 * norm + 3 * cfg.qkv_bias) * L + norm
+                               + head + 3),
+           "all_reduce/model": (6 if dboth else 5) * L * P,
+           "all_gather/model": 2 * L * P * dboth,
+           "all_reduce/world": 1}
+    return {k: v for k, v in out.items() if v and (
+        k.endswith("/world") or {"data": d, "model": m}[k.split("/")[1]] > 1)}
+
+
+def _vit_leg_setup(cfg, lspec, device):
+    """A leg's run, its batches (client `masked_client` masked out; numpy),
+    its kernel-path step (the first step's gradients kept on the host by
+    its grad hook), and a function giving its initial trees from the
+    seed."""
+    mods, retrieval = lspec["modalities"], lspec["task"] == "retrieval"
+    mp = MPSLConfig(n_clients=lspec["n_clients"],
+                    trainable_blocks=lspec["trainable_blocks"],
+                    fusion=lspec["fusion"], compress_uplink=True,
+                    compress_downlink=True)
+    run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mpsl=mp,
+                    compute_dtype=lspec["compute_dtype"],
+                    learning_rate=lspec["lr"], seed=lspec["seed"])
+    loader = _vit_loader(lspec)
+
+    def batch(i):
+        b = loader.batch(i)
+        b["mask"] = b["mask"].copy()
+        b["mask"][lspec["masked_client"]] = 0.0
+        return b
+
+    def init():
+        gen = torch.Generator(device=device).manual_seed(lspec["seed"])
+        return split.init_mpsl_vit(gen, cfg, run, mods, lspec["n_classes"],
+                                   retrieval, device)
+
+    loss_fn = mpsl.make_vit_loss(cfg, run, impls=mpsl.KERNEL_IMPLS,
+                                 modalities=mods, task=lspec["task"],
+                                 n_classes=lspec["n_classes"])
+    first = []
+
+    def keep_first(step, grads):
+        if step == 0:
+            first.extend(g.detach().to("cpu", copy=True) for g in grads)
+
+    sched = schedules.warmup_cosine(lspec["lr"], 10, lspec["steps"])
+    step_fn = mpsl.make_train_step(loss_fn, run, sched, grad_hook=keep_first)
+    return batch, init, step_fn, first
+
+
+def _is_text_table(name) -> bool:
+    return name.endswith("text/embed")
+
+
+def _mesh_vit_ref(cfg, spec, device, tmp):
+    """The one-rank kernel path of each leg on the card, on the same
+    params (from the seed), batches and int seeds as the mesh: (the file
+    in `tmp` holding each leg's first-step gradients by leaf path (the
+    frozen text table's apart: exactly 0, recorded) and its post-training
+    outputs, the record's one-rank figures by leg)."""
+    ref, one = {}, {}
+    for leg in spec["legs"]:
+        lspec = _vit_leg(spec, leg)
+        batch, init, step_fn, first = _vit_leg_setup(cfg, lspec, device)
+        params, frozen, plan = init()
+        state = mpsl.init_state(params, frozen, lspec["seed"])
+        batches = [_vit_to_device(batch(i), device)
+                   for i in range(lspec["steps"])]
+        _, rec = _run_steps(step_fn, state, batches,
+                            vit_launches_per_step(cfg, lspec))
+        _hold_steps(f"{leg} one-rank", rec)
+        names = tree.paths(state["params"])
+        entry = {"grads": {n: g for n, g in zip(names, first)
+                           if not _is_text_table(n)},
+                 "text_table_grad_zero": all(
+                     not g.any() for n, g in zip(names, first)
+                     if _is_text_table(n))}
+        if leg in spec["evals"]:
+            with torch.no_grad():
+                out = _vit_outputs(cfg, lspec, _post_training_model(
+                    state["params"], frozen, plan), batches[0])
+            entry["eval"] = [t.cpu() for t in out]
+            if lspec["task"] == "retrieval":
+                entry["recall"] = [float(losses.recall_at_k(*out, k))
+                                   for k in (1, 5)]
+            del out
+        ref[leg] = entry
+        one[leg] = {"losses": rec["losses"],
+                    "step_ms": rec["step_ms"],
+                    "peak_mem_bytes": rec["peak_mem_bytes"],
+                    "text_table_grad_zero": entry["text_table_grad_zero"]}
+        del state, params, frozen, batches, first[:]
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref_file = os.path.join(tmp, "vit.pt")
+    torch.save(ref, ref_file)
+    return ref_file, one
+
+
+def _masked_client(lspec, prog, names, grads, ref, device) -> dict:
+    """The masked client's tokenizer gradient on the client rank holding
+    it (every rank learns the answer): whether it is exactly 0, whether
+    it is non-zero (the frozen text table apart), and its largest gap to
+    the one-rank path's, in relative L2 over its slice of each leaf."""
+    axis = collectives.client_axis()
+    n_loc = lspec["n_clients"] // prog.size(axis)
+    c = lspec["masked_client"] - prog.index(axis) * n_loc
+    stats = [0.0, 0.0, 0.0]                 # nonzero, zero broken, gap
+    if 0 <= c < n_loc:
+        for name, g in zip(names, grads):
+            if "tokenizers" not in name:
+                continue
+            mine = g[c].float()
+            stats[1] = max(stats[1], float(mine.abs().max().item() > 0))
+            if _is_text_table(name):
+                continue
+            stats[0] = max(stats[0], float(mine.abs().max().item() > 0))
+            want = ref[name][lspec["masked_client"]].to(mine.device).float()
+            den = want.norm().item()
+            gap = (mine - want).norm().item()
+            stats[2] = max(stats[2], gap / den if den else gap)
+    flag = collectives.all_reduce(torch.tensor(stats, device=device),
+                                  collectives.WORLD, op="max").tolist()
+    return {"masked_grad_nonzero": flag[0] > 0,
+            "masked_grad_zero": flag[1] == 0,
+            "masked_grad_rel_l2": flag[2]}
+
+
+def _digest(tensors) -> str:
+    """A digest of every bit of `tensors` (copied to the host)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mesh_vit_eval(cfg, lspec, prog, state, plan, batch, ref):
+    """A rank's post-training checks (the post-training model on its
+    samples, every counter set to 0 just before): the FedAvg-ed
+    tokenizers against the one-rank mean of the same stacked tokenizers
+    (gathered whole) in relative L2 and a digest of their bits (compared
+    across ranks by the phase), its launches and collectives, the logits
+    or embeddings gathered over the client axis against the one-rank
+    path's, recall over the global batch."""
+    axis = collectives.client_axis()
+    reset_counts()
+    collectives.reset_counts()
+    with torch.no_grad():
+        full = _post_training_model(state["params"], state["frozen"], plan)
+        out = _vit_outputs(cfg, lspec, full, batch)
+    heads = full["tokenizers"]
+    torch.cuda.synchronize()
+    launches, colls = read_counts(), _collectives_step()
+    out = [collectives.all_gather(t, 0, axis) for t in out]
+    gaps = {}
+    for name, h, p in zip(tree.paths(heads), tree.leaves(heads),
+                          tree.leaves(state["params"]["client"][
+                              "tokenizers"])):
+        mean = sharding.gather_leaf(p).mean(dim=0)
+        gaps[name] = _rel_l2(h, mean)
+        del mean
+    rec = {"launches_per_call": [launches], "collectives_per_call": [colls],
+           "fedavg_rel_l2_vs_one_rank_mean": gaps,
+           "fedavg_digest": _digest(tree.leaves(heads)),
+           "outputs_shape": [list(t.shape) for t in out],
+           "max_abs_diff": max(_max_err(a.cpu(), b)
+                               for a, b in zip(out, ref["eval"])),
+           "close": all(torch.allclose(a.cpu(), b, atol=SERVE_TOL,
+                                       rtol=SERVE_TOL)
+                        for a, b in zip(out, ref["eval"])),
+           "finite": all(bool(torch.isfinite(t).all()) for t in out)}
+    if lspec["task"] == "retrieval":
+        rec["recall"] = [float(losses.recall_at_k(*out, k)) for k in (1, 5)]
+        rec["one_rank_recall"] = ref["recall"]
+    return rec
+
+
+def _mesh_vit_rank(spec, ref_file):
+    """A rank of a mesh vit path: each leg from its shards of the seed's
+    trees (each rank's whole trees made in turn), its steps with every
+    counter set to 0 just before, the first step's gradients against the
+    one-rank path's from each rank's shards (a key bias against its
+    layer's query bias's norm), the frozen text table's exactly 0, the
+    masked client's; then, where the leg evaluates, the post-training
+    model (``_mesh_vit_eval``)."""
+    prog = collectives.active()
+    device, mesh = prog.device, prog.mesh
+    cfg, _ = _config(spec)
+    ref = torch.load(ref_file, mmap=True)
+    out = {}
+    for leg in spec["legs"]:
+        lspec = _vit_leg(spec, leg)
+        batch, init, step_fn, first = _vit_leg_setup(cfg, lspec, device)
+
+        def make():
+            params, frozen, plan = init()
+            return (sharding.shard_tree(params,
+                                        sharding.param_specs(params, mesh)),
+                    sharding.shard_tree(frozen,
+                                        sharding.param_specs(frozen, mesh)),
+                    plan)
+
+        t0 = time.perf_counter()
+        lp, lf, plan = _rank_init(make)
+        state = mpsl.init_state(lp, lf, lspec["seed"])
+        batches = [sharding.take_batch(sharding.place_batch(
+            batch(i), device, mesh), device) for i in range(lspec["steps"])]
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        state, steps_rec = _counted_steps(step_fn, state, batches)
+        r = ref[leg]
+        names = tree.paths(state["params"])
+        leaves = tree.leaves(state["params"])
+        errs = {}
+        for n, p, g in zip(names, leaves, first):
+            if _is_text_table(n):
+                continue
+            spec_p = collectives.spec_of(p)
+            den = None
+            if n.endswith("attn/bk"):
+                den = sharding.shard_leaf(r["grads"][n[:-2] + "bq"], spec_p)
+            errs[n] = _shards_rel_l2(g, sharding.shard_leaf(
+                r["grads"][n], spec_p), p, den)
+        checks = dict(
+            grad_rel_l2=errs,
+            text_table_grad_zero=all(not g.any() for n, g in zip(
+                names, first) if _is_text_table(n)),
+            **_masked_client(lspec, prog, names, first, r["grads"], device))
+        del first[:]
+        if leg in spec["evals"]:
+            checks["eval"] = _mesh_vit_eval(cfg, lspec, prog, state, plan,
+                                            batches[0], r)
+        out[leg] = _rank_record(
+            prog, torch.cuda.max_memory_allocated(), program=prog.record(),
+            init_s=init_s, losses=steps_rec["losses"],
+            step_ms=[x * 1e3 for x in steps_rec["times"]],
+            launches_per_step=steps_rec["launches"],
+            collectives_per_step=steps_rec["collectives"],
+            collective_bytes_per_step=steps_rec["bytes"],
+            shard_params=sum(p.numel() for p in leaves), **checks)
+        del state, lp, lf, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _hold_mesh_vit(path, spec, cfg, ranks, one, world_s):
+    """Each leg's record (emitted): every rank's launches and collectives
+    a step exactly the code's, each step's loss within TRAIN_LOSS_TOL of
+    the one-rank path's, every first-step gradient within TRAIN_GRAD_TOL
+    in relative L2 (a key bias against its layer's query bias's norm),
+    the frozen text table's exactly 0, the masked client's tokenizer
+    gradient exactly 0 in classification, and in retrieval (its samples
+    stay negatives of the global InfoNCE) non-zero and within
+    TRAIN_GRAD_TOL of the one-rank path's; the ranks' peaks under 80 GB.
+    Where the leg evaluates: the evaluation's launches exactly the code's,
+    the FedAvg-ed tokenizers within FEDAVG_MEAN_TOL of the one-rank mean
+    of the same clients and the same bits on every rank, the logits or
+    embeddings within SERVE_TOL (atol and rtol) of the one-rank path's,
+    recall at 1 and 5 equal. Returns the launches of every leg."""
+    counts = dict.fromkeys(COUNTERS, 0)
+    for leg in spec["legs"]:
+        lspec = _vit_leg(spec, leg)
+        legs = [r[leg] for r in ranks]
+        expected = {"launches": vit_launches_per_step(cfg, lspec),
+                    "collectives": mesh_vit_collectives(cfg, lspec)}
+        rec = {"phase": path, "part": leg, "arch": cfg.name,
+               "layers": cfg.num_layers, "mesh": spec["mesh"],
+               "program": legs[0]["program"],
+               "layout": _attn_layout(cfg, spec["mesh"][-1]),
+               "modalities": lspec["modalities"], "task": lspec["task"],
+               "fusion": lspec["fusion"],
+               "encoder_passes": _vit_passes(lspec),
+               "n_clients": spec["n_clients"],
+               "batch_per_client": spec["batch_per_client"],
+               "masked_client": spec["masked_client"],
+               "steps": lspec["steps"], "reduced": spec["reduced"],
+               "one_rank": one[leg], "world_s": world_s,
+               "expected_per_step": expected, "loss_tol": TRAIN_LOSS_TOL,
+               "grad_tol": TRAIN_GRAD_TOL, "ranks": legs}
+        rec["ranks_peak_mem_bytes_sum"] = _hold_mesh(f"{path} {leg}", legs,
+                                                     expected, per="step")
+        emit(rec)
+        retrieval = lspec["task"] == "retrieval"
+        for x in legs:
+            worst = max(x["grad_rel_l2"], key=x["grad_rel_l2"].get)
+            errs = [abs(a - b) / abs(b) for a, b in zip(
+                x["losses"], one[leg]["losses"])]
+            masked = (x["masked_grad_nonzero"] and x["masked_grad_rel_l2"]
+                      <= TRAIN_GRAD_TOL) if retrieval \
+                else x["masked_grad_zero"]
+            if not (max(errs) <= TRAIN_LOSS_TOL
+                    and x["grad_rel_l2"][worst] <= TRAIN_GRAD_TOL
+                    and x["text_table_grad_zero"] and masked):
+                raise AssertionError(
+                    f"{path} {leg} rank {x['rank']}: losses {x['losses']} "
+                    f"vs {one[leg]['losses']}, gradient {worst} "
+                    f"{x['grad_rel_l2'][worst]}, text table zero "
+                    f"{x['text_table_grad_zero']}, masked client: "
+                    f"zero {x['masked_grad_zero']}, non-zero "
+                    f"{x['masked_grad_nonzero']}, gap "
+                    f"{x['masked_grad_rel_l2']}")
+        counts = {k: counts[k] + v for k, v in _mesh_counts(
+            legs, "step").items()}
+        if leg not in spec["evals"]:
+            continue
+        evs = [x["eval"] for x in legs]
+        want = _vit_eval_launches(cfg, lspec)
+        emit({"phase": path, "part": f"{leg}_eval", "mesh": spec["mesh"],
+              "expected_launches": want, "tol": SERVE_TOL,
+              "fedavg_tol": FEDAVG_MEAN_TOL, "ranks": evs})
+        digests = {e["fedavg_digest"] for e in evs}
+        for x, e in zip(legs, evs):
+            gap = max(e["fedavg_rel_l2_vs_one_rank_mean"].values())
+            if not (e["launches_per_call"][0] == want and e["close"]
+                    and e["finite"] and gap <= FEDAVG_MEAN_TOL
+                    and len(digests) == 1
+                    and e.get("recall") == e.get("one_rank_recall")):
+                raise AssertionError(
+                    f"{path} {leg} evaluation rank {x['rank']}: launches "
+                    f"{e['launches_per_call'][0]} (expected {want}), "
+                    f"outputs {e['max_abs_diff']} off the one-rank path's, "
+                    f"FedAvg {gap} off the one-rank mean, {len(digests)} "
+                    f"digests, recall {e.get('recall')} vs "
+                    f"{e.get('one_rank_recall')}")
+            for k, v in e["launches_per_call"][0].items():
+                counts[k] += v
+    return counts
+
+
+def phase_mesh_vit(path, spec):
+    """The paper mode (vit-base) as the SPMD program on its mesh, against
+    the one-rank kernel path run first on the card on the same params,
+    batches and int seeds: each leg's steps (``_hold_mesh_vit``), then
+    the post-training FedAvg, assembly and evaluation."""
+    cfg, _ = _config(spec)
+    device = serve.resolve_device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        ref_file, one = _mesh_vit_ref(cfg, spec, device, tmp)
+        ranks, world_s = yield (_mesh_vit_rank, _mesh(spec),
+                                (spec, ref_file))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return _hold_mesh_vit(path, spec, cfg, ranks, one, world_s)
+
+
 # each mesh path's phase, and the groups whose paths share one world (its
 # meshes of one size), in the order they run: a world's start and the
 # warm-up of its first training step (on the H100 10-35 s over the second
@@ -5349,11 +5830,12 @@ MESH_PHASES = {"mesh_train": phase_mesh_train, "mesh_serve": phase_mesh_serve,
                "mesh_long_500k": phase_mesh_long,
                "mesh_encdec": phase_mesh_family,
                "mesh_vlm": phase_mesh_family, "mesh_moe": phase_mesh_family,
-               "mesh_pod": phase_mesh_family}
+               "mesh_pod": phase_mesh_family, "mesh_vit": phase_mesh_vit,
+               "mesh_vit_dboth": phase_mesh_vit}
 MESH_GROUPS = (("mesh_train", "mesh_serve", "mesh_ssm", "mesh_hybrid",
                 "mesh_vlm", "mesh_ep", "mesh_ep_ragged", "mesh_long_500k",
-                "mesh_encdec"),
-               ("mesh_moe", "mesh_pod"))
+                "mesh_encdec", "mesh_vit"),
+               ("mesh_moe", "mesh_pod", "mesh_vit_dboth"))
 MESH_PATHS = {p for group in MESH_GROUPS for p in group}
 
 

@@ -16,6 +16,16 @@ materialized scores. A client bank (``make_fl_round``) is an
 ``init_full_vit`` tree whose every leaf is stacked [N, ...] (per layer,
 in the body's per-layer lists); ``bridge.from_repro(..., client_axis=
 True)`` carries the JAX package's vmapped bank over.
+
+Under the SPMD program the post-training model (``split.
+assemble_full_params``: the body as this rank's shards, the task head
+or projections replicated, the FedAvg-ed tokenizers whole on every rank)
+evaluates a batch whose samples lie on the client axis: ``_encode``,
+``full_vit_logits`` and ``retrieval_embeddings`` give this rank's
+samples' outputs, whole on every model rank (a caller taking
+``losses.recall_at_k`` over the global batch gathers both embeddings
+first). ``make_fl_round`` runs on one card: the JAX package gives its
+client stack no layout.
 """
 from __future__ import annotations
 

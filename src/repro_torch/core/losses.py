@@ -72,13 +72,30 @@ def contrastive_loss(emb_a, emb_b, temperature=0.07):
     """Symmetric InfoNCE over the GLOBAL batch (paper Sec. 4: batch size
     drives modality alignment / feature collapse). emb_* [B, D] ->
     per-sample loss [B] (f32). `temperature` may be a 0-d tensor (the
-    retrieval head's learned 1 / exp(logit_scale))."""
+    retrieval head's learned 1 / exp(logit_scale)).
+
+    Under the SPMD program emb_* are this client rank's samples [B/d, D]
+    (whole on every model rank): both are all-gathered over the client
+    axis (``collectives.gather_from``: each rank's loss reaches every
+    rank's embeddings, so the gradients are reduce-scattered back), and
+    the rank returns its samples' losses, its rows a_loc . b_all / t and
+    its columns b_loc . a_all / t, each labelled by the sample's global
+    index: every other client's samples stand among the negatives, as
+    they do in one process."""
     a = _unit(emb_a, torch.float32)
     b = _unit(emb_b, torch.float32)
-    logits = (a @ b.T) / temperature
-    labels = torch.arange(a.shape[0], device=a.device)
-    return 0.5 * (softmax_xent(logits, labels)
-                  + softmax_xent(logits.T, labels))
+    axis = C.client_axis()
+    n = a.shape[0]
+    labels = torch.arange(n, device=a.device)
+    if C.size(axis) == 1:
+        logits = (a @ b.T) / temperature
+        return 0.5 * (softmax_xent(logits, labels)
+                      + softmax_xent(logits.T, labels))
+    a_all = C.gather_from(a, 0, axis)
+    b_all = C.gather_from(b, 0, axis)
+    labels = labels + C.index(axis) * n
+    return 0.5 * (softmax_xent((a @ b_all.T) / temperature, labels)
+                  + softmax_xent((b @ a_all.T) / temperature, labels))
 
 
 def recall_at_k(emb_a, emb_b, k: int = 1):

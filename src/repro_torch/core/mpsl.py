@@ -134,14 +134,19 @@ def fold_in(seed: int, data: int) -> int:
     return (z ^ (z >> 31)) >> 1
 
 
+def _clients(u, c0: int, n: int):
+    """Clients c0 .. c0 + n of given uniforms [N, ...] (all of them where
+    n is None or N)."""
+    return u if n is None or n == u.shape[0] else u[c0:c0 + n]
+
+
 def _link_rng(rng, link: str, index: int, device, c0: int = 0,
               n: int = None):
     """A link's stochastic rounding: a generator seeded from the step's
     rng (the same on every rank), or the given uniforms [N, ...] of
     clients c0 .. c0 + n (this data rank's; all of them by default)."""
     if isinstance(rng, dict):
-        u = rng[link]
-        return u if n is None or n == u.shape[0] else u[c0:c0 + n]
+        return _clients(rng[link], c0, n)
     return torch.Generator(device=device).manual_seed(fold_in(rng, index))
 
 
@@ -292,13 +297,15 @@ def make_lm_loss(cfg, run, impls=None):
 # Paper-mode (ViT / Meta-Transformer) MPSL loss
 
 
-def _vit_link_rng(rng, link: str, direction: str, device):
+def _vit_link_rng(rng, link: str, direction: str, device, c0: int = 0,
+                  n: int = None):
     """A link's stochastic rounding. Every link draws from the same two
     streams, seeded from fold_in(rng, 2), as the JAX package's loss splits
     one (r_up, r_down) from fold_in(rng, 2) for all of them; a dict gives
-    each link its own uniforms."""
+    each link its own uniforms [N, ...], of which clients c0 .. c0 + n
+    are this client rank's (all of them by default)."""
     if isinstance(rng, dict):
-        return rng[link][direction]
+        return _clients(rng[link][direction], c0, n)
     seed = fold_in(fold_in(rng, 2), 1 if direction == "uplink" else 2)
     return torch.Generator(device=device).manual_seed(seed)
 
@@ -318,7 +325,15 @@ def make_vit_loss(cfg, run, modalities=("vision", "text"),
     pooled embedding feeds the task head. Retrieval (task="retrieval"):
     one pass a modality, the two pooled embeddings projected (proj_a on
     the first modality in sorted order) into a symmetric InfoNCE at
-    temperature 1 / exp(logit_scale). impls as for ``make_lm_loss``."""
+    temperature 1 / exp(logit_scale). impls as for ``make_lm_loss``.
+
+    Under the SPMD program each client rank runs its N/d clients (their
+    tokenizers, inputs, labels and mask entries: ``place_state``,
+    ``place_batch``) through the server's shards. Each link quantises
+    this rank's rows with the draws the whole stacked call gives them
+    (row0 = c0 Bn T, T the link's tokens); retrieval's InfoNCE runs over
+    the global batch (``losses.contrastive_loss``); the loss is this
+    rank's part of L_S, the metrics the whole, as in ``make_lm_loss``."""
     if task not in ("classification", "retrieval"):
         raise ValueError(f"unknown task {task!r}")
     mpsl = run.mpsl
@@ -333,8 +348,9 @@ def make_vit_loss(cfg, run, modalities=("vision", "text"),
 
     def loss_fn(trainable, frozen, batch, rng):
         mask = batch["mask"]
-        n = mask.shape[0]
+        n = mask.shape[0]                       # this client rank's clients
         dev = mask.device
+        c0 = _client_offset(n)
         server = trainable["server"]
 
         # ---- client tokenizers (each client its own params) ----
@@ -346,12 +362,14 @@ def make_vit_loss(cfg, run, modalities=("vision", "text"),
 
         def uplink(a, link):
             _account_links(a, mpsl, suffix="/" + link)
+            row0 = c0 * bn * a.shape[2]       # this rank's first token row
             if mpsl.compress_uplink:
                 a = compression.compress_activations(
-                    a, _vit_link_rng(rng, link, "uplink", dev))
+                    a, _vit_link_rng(rng, link, "uplink", dev, c0, n), row0)
             if mpsl.compress_downlink:
                 a = compression.compress_gradients(
-                    a, _vit_link_rng(rng, link, "downlink", dev))
+                    a, _vit_link_rng(rng, link, "downlink", dev, c0, n),
+                    row0)
             return a.reshape((n * bn,) + a.shape[2:])
 
         def encode_each():
@@ -385,7 +403,10 @@ def make_vit_loss(cfg, run, modalities=("vision", "text"),
         per_client = per_sample.reshape(n, bn).mean(dim=1)       # L_n
 
         w = _client_weights(mask, n)
-        l_s = (w * per_client).sum() + aux
+        l_local = (w * per_client).sum()
+        l_s = l_local + aux
+        if C.size(C.client_axis()) > 1:
+            return l_s, _global_metrics(l_local, aux, per_client, mask, dev)
         metrics = {"loss": l_s.detach(), "per_client": per_client.detach(),
                    "aux": (aux.detach() if torch.is_tensor(aux)
                            else torch.zeros((), device=dev)),

@@ -29,6 +29,7 @@ import torch
 from repro_torch import tree
 from repro_torch.models import layers, model as M, tokenizers as tok
 from repro_torch.obs import comm as obs_comm
+from repro_torch.parallel import collectives as C
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +89,15 @@ def _slice_stacked(seg_params_list, segs: List[M.Segment], boundary: int):
 
 
 def _cast(t, dtype):
-    return t.to(dtype) if t.is_floating_point() else t
+    """t in `dtype` (a float leaf; others as they are). A shard keeps the
+    spec it was cut by (``collectives.set_spec``): ``Tensor.to`` makes a
+    new tensor without it, which the program would take for a whole
+    weight."""
+    if not t.is_floating_point():
+        return t
+    out = t.to(dtype)
+    C.set_spec(out, C.spec_of(t))
+    return out
 
 
 def _cast_in_place(tree_, dtype):
@@ -219,7 +228,11 @@ def assemble_full_params(params, frozen, plan, client_head=None):
     norm, and the embedding, encoder and LM head where the trees have them
     (an LM then feeds ``launch.serve``). The client heads are not part of it:
     ``core.aggregation`` FedAvgs or selects them. `client_head` is kept
-    from the JAX package's signature, which does not read it either."""
+    from the JAX package's signature, which does not read it either.
+
+    Under the SPMD program the trees hold this rank's shards, and so does
+    the model: each frozen shard, cast back to f32, keeps its spec
+    (``_cast``)."""
     f32 = lambda t: _cast(t, torch.float32)
     segs = M.body_segments(plan.cfg)
     fseg = [tree.map_(f32, sp) for sp in frozen["segments"]]

@@ -124,12 +124,11 @@ def apply_block(params, x, cfg, kind: BlockKind, *, positions, cache=None,
     A cross block attends over `cross_kv` (this layer's precomputed K/V)
     where given, else over `enc_out` [B, Sk, D]."""
     impls = impls or {}
-    if C.active() is not None and (
-            kind.family not in ("dense", "moe", "ssm", "hybrid", "enc", "dec")
-            or cfg.family == "vit"):
+    if C.active() is not None and kind.family not in (
+            "dense", "moe", "ssm", "hybrid", "vit", "enc", "dec"):
         raise NotImplementedError(
-            f"{cfg.family} ({kind.family} blocks) under the SPMD program "
-            f"(the vit stack on a mesh): ROADMAP.md Queue 1 item 7")
+            f"{cfg.family} ({kind.family} blocks) under the SPMD program: "
+            f"ROADMAP.md Queue 1 item 7")
     h = layers.apply_norm(x, params["norm1"], cfg.norm)
     ssm_kw = dict(ssm_impl=impls.get("ssm", "kernel"),
                   ssm_chunk=impls.get("ssm_chunk", 256),
@@ -279,8 +278,9 @@ def init_lm(cfg, generator, device=None):
     if cfg.family == "vit":
         raise NotImplementedError(
             "the vit family is an encoder with no embedding table or LM "
-            "head: its params come from core.split.init_mpsl_vit and "
-            "core.baselines.init_full_vit (the paper-mode slice of the port)")
+            "head: its params come from the paper-mode slice's "
+            "constructors, core.split.init_mpsl_vit and "
+            "core.baselines.init_full_vit")
     segs = body_segments(cfg)
     params: Dict[str, Any] = {}
     embed: Dict[str, Any] = {

@@ -89,7 +89,12 @@ def apply_stacked(params, x, spec: ModalitySpec, dtype=torch.float32):
     The text table is the frozen pretrained CLIP vocabulary (paper:
     clients train ~1M params, not the 38M table): it is read detached, so
     it stays a leaf of the trainable tree with a zero gradient, as under
-    the JAX package's stop_gradient."""
+    the JAX package's stop_gradient.
+
+    Under the SPMD program params and x are this client rank's N/d
+    clients (every tokenizer leaf and input on the client axis: the rule
+    table's ``("client", None, ...)``); each client's math is its own, so
+    nothing crosses ranks."""
     n, b = x.shape[:2]
     if spec.name == "text":
         client = torch.arange(n, device=x.device)[:, None, None]

@@ -8,6 +8,8 @@ cuts its own shards) and returns numpy results, gathered back to whole
 arrays where the test compares them."""
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
@@ -18,7 +20,8 @@ from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.checkpoint.io import snapshot
 from repro_torch.configs import (MPSLConfig, RunConfig, ShapeConfig,
                                  get_config, reduced)
-from repro_torch.core import compression, losses, mpsl, split
+from repro_torch.core import (aggregation, baselines, compression, losses,
+                              mpsl, split)
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import serve, steps, train
 from repro_torch.models import model as M
@@ -965,3 +968,210 @@ def f64_grads(cfg_kw, params_np, frozen_np, batch_np):
     whole = _gathered(grads, state["params"]) if prog is not None \
         else [_np(g) for g in grads]
     return dict(zip(tree.paths(state["params"]), whole))
+
+
+# ---------------------------------------------------------------------------
+# the paper's ViT mode (tests/test_torch_mesh_vit.py)
+
+# (task, fusion, modalities): late fusion runs three encoder passes
+VIT_CASES = {"early": ("classification", "early", ("vision", "text")),
+             "late": ("classification", "late", ("vision", "audio", "text")),
+             "retrieval": ("retrieval", "early", ("vision", "text"))}
+# the text tokenizer's table [N, 49408, D] is returned cut to its first
+# rows (its gradient is held whole on each rank: exactly 0)
+TEXT_ROWS = 256
+
+
+def _vit_run(cfg, n_clients, fusion, compress):
+    mp = MPSLConfig(n_clients=n_clients, trainable_blocks=1, fusion=fusion,
+                    compress_uplink=compress, compress_downlink=compress)
+    return RunConfig(model=cfg, shape=None, mpsl=mp, compute_dtype="float32",
+                     attn_impl="kernel", ce_impl="kernel")
+
+
+def _vit_state(params_np, frozen_np):
+    return mpsl.place_state(mpsl.init_state(
+        bridge.from_repro(params_np), bridge.from_repro(frozen_np), seed=9))
+
+
+def _vit_gathered(local, params_local):
+    """Whole numpy leaves of `local` (leaves shaped as `params_local`'s,
+    by their specs); the text table cut to its first TEXT_ROWS rows."""
+    out = []
+    for path, g, p in zip(tree.paths(params_local), local,
+                          tree.leaves(params_local)):
+        x = sharding.gather_leaf(g, C.spec_of(p))
+        out.append(_np(x[:, :TEXT_ROWS] if path.endswith("text/embed")
+                       else x))
+    return out
+
+
+def _text_table_max(local, params_local) -> float:
+    """The largest |element| of this rank's text-table leaf of `local`."""
+    return max([float(g.abs().max()) for path, g in zip(
+        tree.paths(params_local), local) if path.endswith("text/embed")]
+        or [0.0])
+
+
+def _placed(batch_np, prog):
+    """``place_batch`` on the mesh: each leaf's local shape and whether it
+    holds exactly this client rank's clients of the host batch."""
+    placed = sharding.place_batch(batch_np, "cpu", prog.mesh)
+    axis = C.client_axis()
+    n = batch_np["mask"].shape[0] // C.size(axis)
+    c0 = C.index(axis) * n
+    return {k: (tuple(v.shape), bool(torch.equal(
+        v, torch.from_numpy(np.ascontiguousarray(batch_np[k][c0:c0 + n]))
+        .to(v.dtype)))) for k, v in placed.items()}
+
+
+def vit_step(cfg_kw, case, n_classes, params_np, frozen_np, batch_np,
+             draws_np=None, lr=None):
+    """Under the active program: the vit MPSL loss of `case` (both links
+    int8 on the given uniforms where `draws_np` is given, else off) and
+    every gradient (this rank's part, summed by ``reduce_grads``,
+    gathered), the leaves' specs, the placed batch; with `lr`, one
+    ``make_train_step`` and the state after it, gathered."""
+    cfg = _config(cfg_kw)
+    prog = C.active()
+    task, fusion, mods = VIT_CASES[case]
+    run = _vit_run(cfg, batch_np["mask"].shape[0], fusion,
+                   draws_np is not None)
+    state = _vit_state(params_np, frozen_np)
+    params = state["params"]
+    batch = _batch(batch_np, prog)
+    rng = 0 if draws_np is None else {
+        link: {d: torch.from_numpy(u) for d, u in v.items()}
+        for link, v in draws_np.items()}
+    loss_fn = mpsl.make_vit_loss(cfg, run, modalities=mods, task=task,
+                                 n_classes=n_classes)
+    C.reset_counts()
+    loss, met, grads = mpsl.value_and_grad(loss_fn, params, state["frozen"],
+                                           batch, rng)
+    C.reduce_grads(tree.leaves(params), grads)
+    out = {"loss": float(loss), "per_client": _np(met["per_client"]),
+           "participating": float(met["participating"]),
+           "grads": _vit_gathered(grads, params),
+           "text_grad_max": _text_table_max(grads, params),
+           "counts": C.read_counts(),
+           "specs": [C.spec_of(p) for p in tree.leaves(params)],
+           "frozen_specs": [C.spec_of(p)
+                            for p in tree.leaves(state["frozen"])],
+           "placed": _placed(batch_np, prog)}
+    if lr is not None:
+        step = mpsl.make_train_step(
+            lambda p, f, bb, _rng: loss_fn(p, f, bb, rng), run,
+            schedules.constant(lr))
+        state, met = step(state, batch)
+        params = state["params"]
+        out.update(step_loss=float(met["loss"]),
+                   grad_norm=float(met["grad_norm"]),
+                   params=_vit_gathered(tree.leaves(params), params),
+                   mu=_vit_gathered(tree.leaves(state["opt"]["mu"]), params),
+                   nu=_vit_gathered(tree.leaves(state["opt"]["nu"]), params),
+                   text_moments_max=max(
+                       _text_table_max(tree.leaves(state["opt"][k]), params)
+                       for k in ("mu", "nu")),
+                   count=int(state["opt"]["count"]))
+    return out
+
+
+def vit_tokenizer_grads(cfg_kw, n_classes, params_np, frozen_np, batches_np):
+    """The tokenizers' gradients (gathered, [N, ...]; the text table
+    apart) of each early-fusion batch, links off."""
+    cfg = _config(cfg_kw)
+    prog = C.active()
+    run = _vit_run(cfg, batches_np[0]["mask"].shape[0], "early", False)
+    state = _vit_state(params_np, frozen_np)
+    loss_fn = mpsl.make_vit_loss(cfg, run, n_classes=n_classes)
+    paths = tree.paths(state["params"])
+    out = []
+    for b in batches_np:
+        _, _, grads = mpsl.value_and_grad(loss_fn, state["params"],
+                                          state["frozen"], _batch(b, prog),
+                                          0)
+        out.append({p: g for p, g in zip(paths, _vit_gathered(
+            grads, state["params"])) if "tokenizers" in p
+            and not p.endswith("text/embed")})
+    return out
+
+
+def _digest(arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def vit_post(cfg_kw, case, n_classes, params_np, frozen_np, batch_np):
+    """The post-training model under the active program: the tokenizers
+    FedAvg-ed over the global client axis (whole on every rank: their
+    leaves, the text table cut, and a digest of every bit; and weighted
+    by the batch's mask entries), the body
+    assembled from this rank's shards (each frozen shard's spec kept
+    through its cast, where a plain ``Tensor.to`` drops it), evaluated on
+    the batch with its samples on the client axis: the logits, or the
+    retrieval embeddings and recall at 1 and 5 over the global batch,
+    gathered."""
+    cfg = _config(cfg_kw)
+    prog = C.active()
+    task, fusion, mods = VIT_CASES[case]
+    run = _vit_run(cfg, batch_np["mask"].shape[0], fusion, False)
+    state = _vit_state(params_np, frozen_np)
+    params, frozen = state["params"], state["frozen"]
+    plan = split.make_split_plan(cfg, run.mpsl)
+    axis = C.client_axis()
+    batch = _batch(batch_np, prog)
+    with torch.no_grad():
+        C.reset_counts()
+        heads = aggregation.fedavg_heads(params["client"]["tokenizers"])
+        fedavg_counts = C.read_counts()
+        weighted = aggregation.fedavg_heads(params["client"]["tokenizers"],
+                                            weights=batch["mask"])
+        full = split.assemble_full_params(params, frozen, plan)
+        shards = (tree.leaves(frozen["segments"])
+                  + tree.leaves(params["server"]["segments"]))
+        body = tree.leaves(full["segments"])
+        cast = frozen["segments"][0][0]["attn"]["wq"]
+        full["tokenizers"] = heads
+        full.update({k: v for k, v in params["server"].items()
+                     if k not in ("segments", "final_norm")})
+        x = {m: batch[m].flatten(0, 1) for m in mods}
+        def cut(t):
+            return [_np(h[:TEXT_ROWS]) if p.endswith("text/embed")
+                    else _np(h) for p, h in zip(tree.paths(t),
+                                                tree.leaves(t))]
+
+        out = {"heads": cut(heads), "weighted": cut(weighted),
+               "heads_digest": _digest(_np(h) for h in tree.leaves(heads)),
+               "fedavg_counts": fedavg_counts,
+               "body_specs_kept": len(body) == len(shards) and all(
+                   C.spec_of(a) == C.spec_of(b) and a.dtype == torch.float32
+                   for a, b in zip(body, shards)),
+               "frozen_spec": C.spec_of(cast),
+               "plain_cast_spec": C.spec_of(cast.to(torch.float32))}
+        if task == "retrieval":
+            pa, pb = baselines.retrieval_embeddings(full, x, cfg, mods)
+            pa, pb = (C.all_gather(t, 0, axis) for t in (pa, pb))
+            out.update(pa=_np(pa), pb=_np(pb),
+                       recall_at_1=float(losses.recall_at_k(pa, pb, 1)),
+                       recall_at_5=float(losses.recall_at_k(pa, pb, 5)))
+        else:
+            logits = baselines.full_vit_logits(full, x, cfg, modalities=mods,
+                                               fusion_mode=fusion)
+            out["logits"] = _np(C.all_gather(logits, 0, axis))
+    return out
+
+
+def vit_cases(worlds):
+    """Each (label, mesh, steps, props, posts) of `worlds` under a program
+    on its mesh, in order: {label: {"steps": [vit_step(*a)], "props":
+    [vit_tokenizer_grads(*a)], "posts": [vit_post(*a)]}}."""
+    out = {}
+    dev = C.active().device
+    for label, m, steps_, props, posts in worlds:
+        with C.program(mesh_lib.init_device_mesh(m, dev)):
+            out[label] = {"steps": [vit_step(*a) for a in steps_],
+                          "props": [vit_tokenizer_grads(*a) for a in props],
+                          "posts": [vit_post(*a) for a in posts]}
+    return out
