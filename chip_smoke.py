@@ -174,7 +174,13 @@
                  4 passes) from the first state and batch against the
                  aggregated first step (loss, every gradient, the masked
                  client's adapter gradient exactly 0; its host ms beside
-                 the aggregated step's, a count of passes);
+                 the aggregated step's, a count of passes); then its
+                 attn_seq_shard leg: one step from the first state with
+                 each rank's core attention over its 256 of the 512
+                 queries, all 24 heads, against the first step without
+                 the flag and the one-rank path (loss, every gradient,
+                 the masked adapter 0; launches unchanged; collectives
+                 the first step's plus exactly ``attn_seq_leg_expected``);
    mesh_serve    serve's spec at 8 of 32 layers on (2, 2), the TP-only
                  layout (batch 2 a data rank), teacher-forced with the
                  one-rank serve path's tokens: logits, greedy tokens
@@ -224,6 +230,9 @@
                  tokens) in 448 text slots (112 a rank), 16 steps; the
                  prefill's cross K/V every head on every rank, the same
                  bits on each, within SERVE_TOL of the one-rank prefill's;
+                 its attn_seq_shard leg as mesh_train's (each rank's
+                 core over 375 of the 1500 frames and 112 of the 448
+                 tokens, every head; the cross blocks unchanged);
    mesh_vlm      qwen2-vl-72b at its published widths, 2 of 80 layers
                  (`reduced` says why), on (2, 2): 32 of 64 heads and 4 of
                  8 KV heads a rank, the vocab-parallel CE at 76032
@@ -302,7 +311,13 @@
    at their cut sizes (in a CPU-only process started with the build,
    beside the card's phases): argument and temp bytes and flops, the
    predicted peak beside each cell's max_memory_allocated (the ratio is
-   recorded, not held).
+   recorded, not held). The same process traces rank 0's program
+   (``launch.dryrun.trace_program`` on a fake process group) of the
+   first train step of mesh_train, mesh_hybrid, mesh_encdec, mesh_moe,
+   mesh_pod and mesh_vit, the serving call of the four that serve and
+   the two attn_seq_shard legs (``dryrun_mesh``); each trace's
+   collectives, by op and axis, calls and bytes, must equal rank 0's on
+   the card exactly.
 
 One JSON line per phase; then the {"kernels": [...]} line and the card's
 ``nvidia-smi`` line; the last line is {"ok": true, "device": {...}}. Any
@@ -576,6 +591,7 @@ PATHS = {
     # against the one-rank path; the new paths at full width
     "mesh_train": dict(TRAIN, mesh=(2, 2), masked_client=1, layers=2,
                        trainable_blocks=1, steps=2, per_client=True,
+                       attn_seq_leg=True,
                        reduced="depth 32 -> 2 layers (the last trainable) "
                        "and 3 -> 2 steps: the run's 1200 s, beside the "
                        "per-client leg's 4 passes (47 s at 8 layers, 21-43 "
@@ -628,7 +644,7 @@ PATHS["mesh_long_500k"] = dict(
 PATHS["mesh_encdec"] = dict(
     PATHS["encdec_train"], layers=2, encoder_layers=2, mesh=(1, 4),
     masked_client=1, steps=2, batch=4, prompt_len=227, decode_steps=16,
-    decode_slots=221,
+    decode_slots=221, attn_seq_leg=True,
     reduced="depth 4 + 4 -> 2 + 2 layers and 16 of the text context's 221 "
     "decode steps: the run's 1200 s (a step's all-reduces, 5.66 GB a rank "
     "at full depth, cross gloo's host buffers); every shape a rank gives "
@@ -653,7 +669,7 @@ PATHS["mesh_vlm"]["seq_leg"] = True
 # steps), then serve's (prompt 512, 16 steps), in one world
 PATHS["mesh_pod"] = dict(
     PATHS["mesh_train"], mesh=(2, 2, 2), layers=2, trainable_blocks=1,
-    per_client=False, batch=4, prompt_len=512, decode_steps=16,
+    per_client=False, attn_seq_leg=False, batch=4, prompt_len=512, decode_steps=16,
     reduced="depth 32 -> 2 layers, the last trainable: 8 ranks share the "
     "card's 80 GB and each pod holds a whole (2, 2) copy of the weights, "
     "the lm_head's AdamW state included; the run's 1200 s; every shape a "
@@ -1064,6 +1080,31 @@ def _attn_cases():
         cases.append((name, dict(b=bb, sq=ss, sk=ss, h=hh, kh=kk, hd=hd), dict(
             q_pos=cp, k_pos=cp, k_valid=torch.ones(bb, ss, dtype=torch.bool),
             causal=True, window=0), True))
+    # the attn_seq_shard legs' ranks (f32): each model rank's contiguous
+    # slice of the queries, every head, against the whole K/V, its query
+    # positions offset by its slice (the kernels skip blocks by positions,
+    # not indices): mesh_train's (2, 2) rank 1 (positions 256-511, the
+    # most causal work) and rank 0 (0-255), 2 clients x 2 sequences, 24
+    # heads on 8 KV heads; mesh_encdec's (1, 4) rank 3, 4 clients x 8
+    # sequences, 6 heads: the decoder's 112 of 448 queries (336-447),
+    # causal, and the encoder's 375 of 1500 frames, non-causal
+    for name, bb, sq, sk, hh, kk, d, q0 in (
+            ("mesh_train_qslice", 4, 256, 512, 24, 8, hd, 256),
+            ("mesh_train_qslice0", 4, 256, 512, 24, 8, hd, 0),
+            ("mesh_encdec_qslice", 32, 112, 448, 6, 6, 64, 336)):
+        cases.append((name, dict(b=bb, sq=sq, sk=sk, h=hh, kh=kk, hd=d), dict(
+            q_pos=torch.arange(q0, q0 + sq, dtype=torch.int32)[None].expand(
+                bb, sq),
+            k_pos=torch.arange(sk, dtype=torch.int32)[None].expand(bb, sk),
+            k_valid=torch.ones(bb, sk, dtype=torch.bool), causal=True,
+            window=0), True))
+    cases.append(("mesh_encdec_enc_qslice", dict(b=32, sq=375, sk=1500,
+                                                 **wh), dict(
+        q_pos=torch.arange(1125, 1500, dtype=torch.int32)[None].expand(32,
+                                                                        375),
+        k_pos=fr[None].expand(32, 1500),
+        k_valid=torch.ones(32, 1500, dtype=torch.bool), causal=False,
+        window=0), True))
     for name, (bv, sv, hv) in MESH_VIT_ATTN.items():
         vp = torch.arange(sv, dtype=torch.int32)[None].expand(bv, sv)
         cases.append((name, dict(b=bv, sq=sv, sk=sv, h=hv, kh=hv, hd=64),
@@ -1158,13 +1199,15 @@ CELL_ATTN = ("cell_prefill", "cell_train", "cell_moe_prefill", "cell_decode",
 
 
 # the cases where every query sees every key (no mask for SDPA)
-ENCDEC_ATTN = ("encdec_enc", "encdec_cross", "encdec_cross_decode")
+ENCDEC_ATTN = ("encdec_enc", "encdec_cross", "encdec_cross_decode",
+               "mesh_encdec_enc_qslice")
 FULL_ATTN = (*VIT_ATTN, *MESH_VIT_ATTN, *ENCDEC_ATTN)
 # the cases no bf16 path runs
 F32_ONLY = (*(n for n in FULL_ATTN if n != "vit_early"), "vlm_train",
             "mesh_train", "mesh_hybrid_train", "mesh_hybrid_prefill",
             "mesh_hybrid_decode", "mesh_vlm_train", "mesh_encdec_decode",
-            "mesh_encdec_empty_decode", "mesh_moe_train", "mesh_pod_train")
+            "mesh_encdec_empty_decode", "mesh_moe_train", "mesh_pod_train",
+            "mesh_train_qslice", "mesh_train_qslice0", "mesh_encdec_qslice")
 
 
 def _attn_dtypes(name):
@@ -3959,6 +4002,20 @@ def _gathered_all(x, dim, axes):
     return x
 
 
+# rank 0's collectives, {"op/axis": {"calls", "bytes"}}, of the mesh paths'
+# parts on the card, by (path, part): "train" (its first step), "serve"
+# (its counted generate call), "attn_seq_leg"; the dry run's program
+# traces are held to them (``phase_dryrun``)
+COUNTED = {}
+
+
+def _first_step_counts(r) -> dict:
+    """A rank record's first step's collectives, {"op/axis": {"calls",
+    "bytes"}}."""
+    return {k: {"calls": c, "bytes": r["collective_bytes_per_step"][0][k]}
+            for k, c in r["collectives_per_step"][0].items() if c}
+
+
 def _rank_record(prog, peak, **kw):
     return {"rank": prog.rank, "coords": prog.coords,
             "card": prog.cards[prog.rank], "peak_mem_bytes": peak, **kw}
@@ -4244,14 +4301,15 @@ def mesh_ep_collectives(cfg) -> dict:
     return {"all_gather/model": 1, "all_reduce/model": 2 * cfg.num_layers}
 
 
-def _train_setup(cfg, spec, device):
+def _train_setup(cfg, spec, device, impls=mpsl.KERNEL_IMPLS):
     mp = MPSLConfig(n_clients=spec["n_clients"],
                     trainable_blocks=spec["trainable_blocks"],
                     compress_uplink=True, compress_downlink=True)
     run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mpsl=mp,
                     compute_dtype=spec["compute_dtype"],
                     learning_rate=spec["lr"], seed=spec["seed"],
-                    seq_shard_acts=spec.get("seq_shard_acts", False))
+                    seq_shard_acts=spec.get("seq_shard_acts", False),
+                    attn_seq_shard=spec.get("attn_seq_shard", False))
     loader = train.make_lm_loader(cfg, spec["n_clients"],
                                   spec["batch_per_client"], spec["seq"],
                                   spec["seed"])
@@ -4262,7 +4320,7 @@ def _train_setup(cfg, spec, device):
         b["mask"][spec["masked_client"]] = 0.0
         return b
 
-    loss_fn = mpsl.make_lm_loss(cfg, run, impls=mpsl.KERNEL_IMPLS)
+    loss_fn = mpsl.make_lm_loss(cfg, run, impls=impls)
     first = []
 
     def keep_first(step, grads):
@@ -4359,6 +4417,12 @@ def _hold_mesh_train(path, spec, cfg, depth, ranks, one, world_s):
     if spec.get("seq_leg"):
         sl = _hold_seq_leg(path, spec, cfg, ranks)
         counts = {k: counts[k] + sl[k] for k in counts}
+    COUNTED[(path, "train")] = _first_step_counts(ranks[0])
+    if spec.get("attn_seq_leg"):
+        al = _hold_attn_seq_leg(path, spec, cfg, ranks, one)
+        counts = {k: counts[k] + al[k] for k in counts}
+        COUNTED[(path, "attn_seq_leg")] = _first_step_counts(
+            ranks[0]["attn_seq_leg"])
     return counts
 
 
@@ -4417,6 +4481,98 @@ def _hold_seq_leg(path, spec, cfg, ranks):
                 f"{want['saved_bytes_drop']}), collectives "
                 f"{x['collectives_per_step']} against "
                 f"{x['whole_collectives_per_step']}")
+    return _mesh_counts(legs, "step")
+
+
+def attn_seq_leg_expected(cfg, spec) -> dict:
+    """What the attn_seq_shard leg adds to a step, from the code
+    (``attention._query_slice`` / ``_query_joined``'s autograd pairs), a
+    self-attention of S queries over a data rank's B rows, f32, whole
+    heads (q and the output B S H hd 4 bytes, K and V B S K hd), on a
+    model axis of m that divides S:
+
+      heads  forward: q, k, v and the output all-gathered over `model`
+             (4); backward: dq and the output's heads gathered (2), dk
+             and dv all-reduced (2)
+      mixed  forward: q and the output (2); backward: dq, the output's
+             heads (2); K/V all-reduced by the layout's copy_to already
+      dboth  forward: the output (1); backward: dq (1), dk and dv (2)
+
+    Each block's forward runs twice (the remat recompute): 2 x forward +
+    backward a layer, over the body's L layers at the path's seq and, with
+    an encoder, its layers at its frames. Cross-attention takes none;
+    nothing else changes."""
+    *_, d, m = spec["mesh"]
+    rows = spec["n_clients"] * spec["batch_per_client"] // d
+    layout = _attn_layout(cfg, m)
+    h, k, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    out = {"all_gather/model": {"calls": 0, "bytes": 0},
+           "all_reduce/model": {"calls": 0, "bytes": 0}}
+    stacks = [(spec["seq"], cfg.num_layers)]
+    if cfg.encoder_layers:
+        stacks.append((cfg.encoder_seq, cfg.encoder_layers))
+    for s, n in stacks:
+        if s % m:
+            continue
+        q = o = rows * s * h * hd * 4
+        kv = rows * s * k * hd * 4
+        fwd = {"heads": [q, kv, kv, o], "mixed": [q, o]}.get(layout, [o])
+        bwd = {"heads": [q, o], "mixed": [q, o]}.get(layout, [q])
+        red = [] if layout == "mixed" else [kv, kv]
+        gathers = 2 * fwd + bwd
+        out["all_gather/model"]["calls"] += n * len(gathers)
+        out["all_gather/model"]["bytes"] += n * sum(gathers)
+        out["all_reduce/model"]["calls"] += n * len(red)
+        out["all_reduce/model"]["bytes"] += n * sum(red)
+    return {k: v for k, v in out.items() if v["calls"]}
+
+
+def _hold_attn_seq_leg(path, spec, cfg, ranks, one):
+    """The attn_seq_shard leg's record (emitted): its loss within
+    TRAIN_LOSS_TOL of the same world's first step without the flag and of
+    the one-rank path's, its gradients within TRAIN_GRAD_TOL (relative L2)
+    of both, the masked client's adapter gradient exactly 0, its launches
+    the first step's (the same calls at the smaller query shape), its
+    collectives the first step's plus exactly ``attn_seq_leg_expected``;
+    its host ms beside the steps' without the flag (recorded)."""
+    legs = [r["attn_seq_leg"] for r in ranks]
+    want = attn_seq_leg_expected(cfg, spec)
+    emit({"phase": path, "part": "attn_seq_leg", "arch": cfg.name,
+          "mesh": spec["mesh"], "layout": _attn_layout(cfg, spec["mesh"][-1]),
+          "expected_added": want, "loss_tol": TRAIN_LOSS_TOL,
+          "grad_tol": TRAIN_GRAD_TOL, "one_rank_loss": one["losses"][0],
+          "ranks": legs})
+    for r, x in zip(ranks, legs):
+        seq_c, whole_c = x["collectives_per_step"][0], \
+            r["collectives_per_step"][0]
+        seq_b, whole_b = x["collective_bytes_per_step"][0], \
+            r["collective_bytes_per_step"][0]
+        added = {k: {"calls": seq_c.get(k, 0) - whole_c.get(k, 0),
+                     "bytes": seq_b.get(k, 0) - whole_b.get(k, 0)}
+                 for k in set(seq_c) | set(whole_c)}
+        added = {k: v for k, v in added.items() if v["calls"] or v["bytes"]}
+        errs = {"loss_vs_whole": abs(x["loss"] - r["losses"][0])
+                / abs(r["losses"][0]),
+                "loss_vs_one_rank": abs(x["loss"] - one["losses"][0])
+                / abs(one["losses"][0]),
+                "grad_vs_whole": max(x["grad_rel_l2_vs_whole"].values()),
+                "grad_vs_one_rank": max(
+                    x["grad_rel_l2_vs_one_rank"].values())}
+        ok = (x["attn_seq_shard"] and added == want
+              and x["masked_adapter_grad_zero"]
+              and x["launches_per_step"][0] == r["launches_per_step"][0]
+              and errs["loss_vs_whole"] <= TRAIN_LOSS_TOL
+              and errs["loss_vs_one_rank"] <= TRAIN_LOSS_TOL
+              and errs["grad_vs_whole"] <= TRAIN_GRAD_TOL
+              and errs["grad_vs_one_rank"] <= TRAIN_GRAD_TOL)
+        if not ok:
+            raise AssertionError(
+                f"{path} attn_seq_leg rank {x['rank']}: {errs}, masked "
+                f"client's adapter gradient zero "
+                f"{x['masked_adapter_grad_zero']}, launches "
+                f"{x['launches_per_step'][0]} against "
+                f"{r['launches_per_step'][0]}, collectives added {added} "
+                f"against {want}")
     return _mesh_counts(legs, "step")
 
 
@@ -4512,7 +4668,8 @@ def _mesh_train_rank(spec, ref_file, ref_losses):
     # steps
     start = [p.detach().to("cpu", copy=True)
              for p in tree.leaves(state["params"])] \
-        if spec.get("per_client") or spec.get("seq_leg") else None
+        if spec.get("per_client") or spec.get("seq_leg") \
+        or spec.get("attn_seq_leg") else None
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     ref = torch.load(ref_file, mmap=True)
@@ -4535,10 +4692,14 @@ def _mesh_train_rank(spec, ref_file, ref_losses):
     if spec.get("per_client"):
         for p, x in zip(leaves, start):
             p.data.copy_(x)
-        del start
         leg = _per_client_leg(spec, run, loss_fn, sched, state,
                               batches[0], first, losses[0])
         peak = max(peak, leg["peak_mem_bytes"])
+    attn = None
+    if spec.get("attn_seq_leg"):
+        attn = _attn_seq_leg(spec, state, batches[0], start, first,
+                             steps_rec, ref["grads"])
+        peak = max(peak, attn["peak_mem_bytes"])
     seq = None
     if spec.get("seq_leg"):
         seq = _seq_leg(spec, state, batches, start, first, steps_rec)
@@ -4560,6 +4721,8 @@ def _mesh_train_rank(spec, ref_file, ref_losses):
         rec["per_client"] = leg
     if seq is not None:
         rec["seq_leg"] = seq
+    if attn is not None:
+        rec["attn_seq_leg"] = attn
     return rec
 
 
@@ -4609,6 +4772,18 @@ def _saved_bytes(fn):
     return out, n[0]
 
 
+def _back_to_start(state, start) -> None:
+    """A train state back to the path's first state in place: its params
+    from the host copy `start`, AdamW's moments and count zeroed (a second
+    set of moments, 2.5 GB a qwen2-vl rank, would not fit beside four
+    ranks' steps), the step counter 0."""
+    for p, x in zip(tree.leaves(state["params"]), start):
+        p.data.copy_(x)
+    for t in tree.leaves(state["opt"]):
+        t.zero_()
+    state["step"] = 0
+
+
 def _seq_leg(spec, state, batches, start, whole_first, whole):
     """The train leg again with ``seq_shard_acts`` (the stream cut on the
     sequence over `model` between the blocks, as ``steps.default_run``
@@ -4621,13 +4796,7 @@ def _seq_leg(spec, state, batches, start, whole_first, whole):
     prog = collectives.active()
     device = prog.device
     cfg, _ = _config(spec)
-    for p, x in zip(tree.leaves(state["params"]), start):
-        p.data.copy_(x)
-    # AdamW back to its start in place: a second set of moments (2.5 GB
-    # a qwen2-vl rank) would not fit beside four ranks' steps
-    for t in tree.leaves(state["opt"]):
-        t.zero_()
-    state["step"] = 0
+    _back_to_start(state, start)
     run, _, step_fn, first, _ = _train_setup(
         cfg, dict(spec, seq_shard_acts=True), device)
     torch.cuda.reset_peak_memory_stats()
@@ -4648,6 +4817,46 @@ def _seq_leg(spec, state, batches, start, whole_first, whole):
             "collective_bytes_per_step": rec["bytes"],
             "whole_collectives_per_step": whole["collectives"],
             "whole_collective_bytes_per_step": whole["bytes"],
+            "peak_mem_bytes": peak}
+
+
+def _attn_seq_leg(spec, state, batch, start, whole_first, whole, ref_grads):
+    """One train step with ``attn_seq_shard`` (each model rank's core
+    self-attention over its S/m queries against the whole K/V) from the
+    first state (its params restored, AdamW fresh) on the first batch,
+    every counter set to 0 just before: its loss, its gradients (read by
+    the step's hook) against the first step's without the flag
+    (`whole_first`, on the host) and the one-rank path's (`ref_grads`),
+    each in relative L2 from every rank's shards; the masked client's
+    adapter gradient; its launches, collectives, host ms and peak beside
+    the steps' without the flag (`whole`)."""
+    prog = collectives.active()
+    device = prog.device
+    cfg, _ = _config(spec)
+    names, leaves = tree.paths(state["params"]), tree.leaves(state["params"])
+    _back_to_start(state, start)
+    run, _, step_fn, first, _ = _train_setup(
+        cfg, dict(spec, attn_seq_shard=True), device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, rec = _counted_steps(step_fn, state, [batch])
+    peak = torch.cuda.max_memory_allocated()
+    vs_whole = {n: _shards_rel_l2(g, w, p) for n, p, g, w in
+                zip(names, leaves, first, whole_first)}
+    vs_one = {n: _sharded_rel_l2(g, ref_grads[n], collectives.spec_of(p))
+              for n, p, g in zip(names, leaves, first)}
+    zero = _masked_adapter_zero(spec, prog, names, first, device)
+    first.clear()
+    return {"rank": prog.rank, "attn_seq_shard": run.attn_seq_shard,
+            "loss": rec["losses"][0], "step_ms": rec["times"][0] * 1e3,
+            "whole_step_ms": [x * 1e3 for x in whole["times"]],
+            "grad_rel_l2_vs_whole": vs_whole,
+            "grad_rel_l2_vs_one_rank": vs_one,
+            "masked_adapter_grad_zero": zero,
+            "launches_per_step": rec["launches"],
+            "collectives_per_step": rec["collectives"],
+            "collective_bytes_per_step": rec["bytes"],
             "peak_mem_bytes": peak}
 
 
@@ -4774,6 +4983,9 @@ def _hold_mesh_serve(path, spec, cfg, depth, ranks, rec_one, world_s):
            **rec_one, "world_s": world_s, "expected_per_call": expected,
            "tol": SERVE_TOL, "ranks": ranks}
     rec["ranks_peak_mem_bytes_sum"] = _hold_mesh(path, ranks, expected)
+    COUNTED[(path, "serve")] = {
+        k: {"calls": c, "bytes": ranks[0]["collective_bytes_per_call"][k]}
+        for k, c in ranks[0]["collectives_per_call"][0].items() if c}
     emit(rec)
     for r in ranks:
         if not (r["logits_close"] and r["tokens_ok"]):
@@ -5481,7 +5693,7 @@ def mesh_vit_collectives(cfg, lspec) -> dict:
         k.endswith("/world") or {"data": d, "model": m}[k.split("/")[1]] > 1)}
 
 
-def _vit_leg_setup(cfg, lspec, device):
+def _vit_leg_setup(cfg, lspec, device, impls=mpsl.KERNEL_IMPLS):
     """A leg's run, its batches (client `masked_client` masked out; numpy),
     its kernel-path step (the first step's gradients kept on the host by
     its grad hook), and a function giving its initial trees from the
@@ -5502,12 +5714,13 @@ def _vit_leg_setup(cfg, lspec, device):
         b["mask"][lspec["masked_client"]] = 0.0
         return b
 
-    def init():
-        gen = torch.Generator(device=device).manual_seed(lspec["seed"])
-        return split.init_mpsl_vit(gen, cfg, run, mods, lspec["n_classes"],
-                                   retrieval, device)
+    def init(on=device):
+        # on "meta" (the dry run's abstract trees) the draw is the CPU's
+        gen = torch.Generator(device="cpu" if on == "meta" else on)
+        return split.init_mpsl_vit(gen.manual_seed(lspec["seed"]), cfg, run,
+                                   mods, lspec["n_classes"], retrieval, on)
 
-    loss_fn = mpsl.make_vit_loss(cfg, run, impls=mpsl.KERNEL_IMPLS,
+    loss_fn = mpsl.make_vit_loss(cfg, run, impls=impls,
                                  modalities=mods, task=lspec["task"],
                                  n_classes=lspec["n_classes"])
     first = []
@@ -5733,6 +5946,7 @@ def _hold_mesh_vit(path, spec, cfg, ranks, one, world_s):
     embeddings within SERVE_TOL (atol and rtol) of the one-rank path's,
     recall at 1 and 5 equal. Returns the launches of every leg."""
     counts = dict.fromkeys(COUNTERS, 0)
+    COUNTED[(path, "train")] = _first_step_counts(ranks[0]["early"])
     for leg in spec["legs"]:
         lspec = _vit_leg(spec, leg)
         legs = [r[leg] for r in ranks]
@@ -5839,6 +6053,106 @@ MESH_GROUPS = (("mesh_train", "mesh_serve", "mesh_ssm", "mesh_hybrid",
 MESH_PATHS = {p for group in MESH_GROUPS for p in group}
 
 
+# the mesh paths whose parts the dry run traces as rank 0's program
+# (``dryrun.trace_program`` on a fake process group, in the CPU process
+# beside the card's phases), each held to what rank 0 counted on the card
+# (``COUNTED``); the traces run the kernels' plain versions, the scan's
+# associative form and the dense MoE dispatch (fake tensors hold no data
+# for a stepped scan's loop or a ragged dispatch's group sizes): no
+# collective depends on them
+DRY_MESH_PATHS = ("mesh_train", "mesh_hybrid", "mesh_encdec", "mesh_moe",
+                  "mesh_pod", "mesh_vit")
+DRY_IMPLS = {"attn": "kernel", "ce": "kernel", "ssm": "assoc",
+             "moe": "dense"}
+
+
+def _meta_batch(host):
+    """A host batch's abstract tensors, as ``sharding.place_batch``
+    places them (token ids and labels int64)."""
+    return {k: steps._meta(v.shape, torch.int64 if k in sharding.INDEX_KEYS
+                           else torch.as_tensor(v).dtype)
+            for k, v in host.items()}
+
+
+def _dry_train(spec):
+    """(fn, abstract whole arguments, in_specs) of a mesh path's first
+    train step as its ranks run it (``_train_setup``'s step, or a vit
+    path's early leg's, on the seed's state layout and the first
+    batch)."""
+    cfg, _ = _config(spec)
+    mesh = _mesh(spec)
+    if "legs" in spec:
+        batch, init, step_fn, _ = _vit_leg_setup(
+            cfg, _vit_leg(spec, "early"), "cpu", impls=DRY_IMPLS)
+        params, frozen, _ = init("meta")
+    else:
+        run, batch, step_fn, _, _ = _train_setup(cfg, spec, "cpu",
+                                                 impls=DRY_IMPLS)
+        params, frozen, _ = split.init_mpsl_lm(
+            torch.Generator().manual_seed(0), cfg, run, device="meta")
+    state = {"params": params, "frozen": frozen, "opt": adamw_init(params),
+             "step": 0, "rng": spec["seed"]}
+    a_batch = _meta_batch(batch(0))
+    return step_fn, (state, a_batch), (mpsl.state_shardings(state, mesh),
+                                       sharding.batch_specs(a_batch, mesh))
+
+
+def _dry_serve(spec):
+    """(fn, abstract whole arguments, in_specs) of a mesh path's counted
+    serving call as its ranks run it (``serve.generate``: the prefill and
+    the decode steps, teacher-forced), on the TP-only serving layout."""
+    cfg, _ = _config(spec)
+    mesh = _mesh(spec)
+    steps_ = spec["decode_steps"]
+    prefill, decode = serve.build_serving_fns(
+        cfg, torch.float32, "cpu", ssm_impl=DRY_IMPLS["ssm"],
+        moe_impl=DRY_IMPLS["moe"], decode_slots=_decode_slots(spec))
+
+    def fn(params, tokens, forced, stub):
+        return serve.generate(prefill, decode, params, tokens, steps_,
+                              forced_tokens=forced, **stub)
+
+    def rows(t):
+        return sharding.resolve_spec(mesh, t.shape,
+                                     ("batch",) + (None,) * (t.dim() - 1))
+
+    params = M.init_lm(cfg, torch.Generator().manual_seed(0), device="meta")
+    b = spec["batch"]
+    tokens = steps._meta((b, spec["prompt_len"]), torch.int64)
+    forced = steps._meta((b, steps_), torch.int64)
+    stub = {k: steps._meta(v.shape, v.dtype) for k, v in
+            serve.stub_inputs(cfg, b, spec["seed"], "cpu").items()}
+    return fn, (params, tokens, forced, stub), (
+        steps._drop_fsdp(sharding.param_specs(params, mesh)), rows(tokens),
+        rows(forced), {k: rows(v) for k, v in stub.items()})
+
+
+def dryrun_mesh() -> list:
+    """Rank 0's program of each part of ``DRY_MESH_PATHS`` traced by
+    ``dryrun.trace_program`` at the path's cut size and mesh (no card
+    touched): its first train step, its serving call where it serves, its
+    attn_seq_shard leg where it has one. Each record: the collectives
+    {"op/axis": {"calls", "bytes"}}, the flops, the live peak, the
+    seconds."""
+    out = []
+    for path in DRY_MESH_PATHS:
+        spec = PATHS[path]
+        parts = [("train", _dry_train, spec)]
+        if MESH_PHASES[path] is phase_mesh_family:
+            parts.append(("serve", _dry_serve, spec))
+        if spec.get("attn_seq_leg"):
+            parts.append(("attn_seq_leg", _dry_train,
+                          dict(spec, attn_seq_shard=True)))
+        for part, build_fn, pspec in parts:
+            fn, a_args, specs = build_fn(pspec)
+            flops, peak, counts, secs = dryrun.trace_program(
+                fn, a_args, _mesh(spec), specs)
+            out.append({"path": path, "part": part, "mesh": spec["mesh"],
+                        "collectives": counts, "flops": flops,
+                        "temp_bytes": peak, "s": secs})
+    return out
+
+
 def dryrun_cells() -> list:
     """``dryrun.run_cell`` on the host mesh for each cell path, at its cut
     size: argument and temp bytes, flops (no card touched)."""
@@ -5869,7 +6183,8 @@ def start_dryrun(out_path):
     the card's phases."""
     code = ("import json, sys; sys.path.insert(0, sys.argv[2]); "
             "import chip_smoke; "
-            "json.dump(chip_smoke.dryrun_cells(), open(sys.argv[1], 'w'))")
+            "json.dump({'cells': chip_smoke.dryrun_cells(), "
+            "'mesh': chip_smoke.dryrun_mesh()}, open(sys.argv[1], 'w'))")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.Popen([sys.executable, "-c", code, out_path, ROOT],
                             env=env, cwd=ROOT)
@@ -5877,8 +6192,10 @@ def start_dryrun(out_path):
 
 def phase_dryrun(proc, out_path, peaks, timeout=900):
     """The dry run's predicted bytes beside each cell's measured peak
-    (``torch.cuda.max_memory_allocated``); the ratio is recorded, not
-    held."""
+    (``torch.cuda.max_memory_allocated``; the ratio recorded, not held),
+    and its program traces of the mesh paths' parts (``dryrun_mesh``)
+    held exactly to what rank 0 counted on the card (``COUNTED``): every
+    op and axis, calls and bytes."""
     try:
         rc = proc.wait(timeout=timeout)
     finally:
@@ -5888,7 +6205,16 @@ def phase_dryrun(proc, out_path, peaks, timeout=900):
     if rc:
         raise AssertionError(f"the cells' dry run exited {rc}")
     with open(out_path) as f:
-        recs = json.load(f)
+        dry = json.load(f)
+    recs = dry["cells"]
+    for r in dry["mesh"]:
+        card = COUNTED.get((r["path"], r["part"]))
+        emit({"phase": "dryrun", "trace": "mesh", **r,
+              "card_rank0": card, "equal": card == r["collectives"]})
+        if card != r["collectives"]:
+            raise AssertionError(
+                f"dry run {r['path']} {r['part']}: traced "
+                f"{r['collectives']}, rank 0 on the card {card}")
     for r in recs:
         if r.get("status") != "ok":
             raise AssertionError(f"dry run {r['path']}: {r.get('status')}")

@@ -198,7 +198,8 @@ class RunConfig:
     # the JAX package's roofline probes unroll its layer scans; the port
     # runs layers in a Python loop, so this changes nothing here
     unroll_layers: bool = False
-    # sequence-parallel attention math across the TP axis: multi-GPU only
+    # the core self-attention over each model rank's S/m queries against
+    # the whole K/V (models.attention._query_slice); a no-op on one rank
     attn_seq_shard: bool = False
     # serving: weights FSDP-sharded over data (True) or replicated over it
     # (False); read by launch.steps' shardings

@@ -53,8 +53,11 @@ def _ds(logits, labels, lse, g):
     a label outside [0, V))."""
     p = torch.exp(logits - lse[:, None])
     labels = labels.long()
-    rows = torch.nonzero((labels >= 0) & (labels < logits.shape[1]))[:, 0]
-    p[rows, labels[rows]] -= 1.0
+    # every row subtracts at its label, 0 where the label lies outside
+    # (p - 0 is p): no data-dependent shape, so a fake tensor traces it
+    inside = (labels >= 0) & (labels < logits.shape[1])
+    rows = torch.arange(labels.shape[0], device=labels.device)
+    p[rows, torch.where(inside, labels, 0)] -= inside.float()
     return p * g.float()[:, None]
 
 

@@ -63,10 +63,16 @@ its query heads' KV heads (``_for_heads``).
 
 Each weight's fsdp dim is gathered at use. Under ``seq_model`` the
 block boundary cuts the stream (``models.model.cut_stream``): attention
-runs on the whole sequence, gathered at the block's entry. Cross-attention
-under mixed, and the query sequence sharded for the core attention
-(``RunConfig.attn_seq_shard``), are not in the program yet (ROADMAP.md
-Queue 1 item 7).
+runs on the whole sequence, gathered at the block's entry. Under
+``RunConfig.attn_seq_shard`` (``seq_shard``) a self-attention of Sq > 1
+queries that divide the model axis runs its core over this model rank's
+contiguous S/m queries, every head, against the whole K / V
+(``_query_slice``, ``_query_joined``: the autograd pairs only; where the
+JAX partitioner would move heads to the sequence by an all-to-all, the
+pairs all-gather, more bytes for the same data); decode, the merged
+split-KV decode and cross-attention are unchanged. Cross-attention under
+mixed is not in the program (ROADMAP.md Queue 1 item 7: no config
+reaches it).
 """
 from __future__ import annotations
 
@@ -395,6 +401,37 @@ def _merged_attention(q, k, v, q_pos, k_pos, causal, window, k_valid, impl):
     return _fa.merge_partials(o_parts, lse_parts, q.dtype)[0]
 
 
+def _query_slice(q, k, v, q_pos, layout):
+    """This model rank's contiguous S/m slice of the queries (and of their
+    positions), every head, against the whole K / V of every head (the JAX
+    ``attn_seq_shard`` layout: q on ("batch", "seq_model"), K / V whole).
+    heads and mixed first gather the query heads over `model`, heads the
+    KV heads too (``gather_to``: each rank's gradient is its heads'
+    slice); K / V enter by ``copy_to`` (each rank's dk / dv is a partial
+    sum over its queries), but under mixed, where they are whole and
+    entered already; q leaves by ``slice_to`` (its gradient's parts
+    all-gathered)."""
+    if layout in ("heads", "mixed"):
+        q = C.gather_to(q, 2, "model")
+    if layout == "heads":
+        k, v = C.gather_to(k, 2, "model"), C.gather_to(v, 2, "model")
+    if layout != "mixed":
+        k, v = C.copy_to(k, "model"), C.copy_to(v, "model")
+    part = q_pos.chunk(C.size("model"), 1)[C.index("model")]
+    return C.slice_to(q, 1, "model"), k, v, part
+
+
+def _query_joined(out, layout):
+    """The core's output of ``_query_slice``'s queries joined whole over
+    `model` (``gather_to``: each rank's gradient is its queries' slice),
+    then, under heads and mixed, this rank's heads again (``slice_to``)
+    for wo's row-parallel product."""
+    out = C.gather_to(out, 1, "model")
+    if layout in ("heads", "mixed"):
+        out = C.slice_to(out, 2, "model")
+    return out
+
+
 def _core(q, k, v, q_pos, k_pos, causal, window, k_valid, impl, block):
     if impl == "naive":
         bias = _mask_bias(q_pos, k_pos, causal, window, k_valid)
@@ -411,7 +448,7 @@ def _core(q, k, v, q_pos, k_pos, causal, window, k_valid, impl, block):
 
 def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
                     cache=None, impl="naive", block=1024, kv_x=None,
-                    precomputed_kv=None, x_entered=False):
+                    precomputed_kv=None, x_entered=False, seq_shard=False):
     """x [B, S, D] -> (out [B, S, D], cache).
 
     positions: [B, S] int32 absolute positions, or [B, 3, S] for M-RoPE.
@@ -424,6 +461,11 @@ def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
     impl: naive | blockwise | auto | kernel; block: blockwise's KV block.
     x_entered: x has entered the model-parallel region already (the
       hybrid block's ``copy_to``, shared by both branches).
+    seq_shard: ``RunConfig.attn_seq_shard``: under the SPMD program, a
+      self-attention of Sq > 1 queries (training, prefill) whose Sq
+      divides the model axis runs its core over this model rank's S/m
+      queries against the whole K / V (``_query_slice``); elsewhere, and
+      with no program, the flag changes nothing.
     Self-attention rotates q and k by the config's rope / mrope;
     attention over outside keys (``kv_x`` or ``precomputed_kv``) rotates
     neither."""
@@ -514,12 +556,21 @@ def apply_attention(params, x, cfg, *, positions, causal=True, window=0,
     else:
         k_all, v_all, k_pos, k_valid = k, v, flat_pos, None
 
+    m = C.size("model")
+    sliced = (seq_shard and not cross and m > 1 and out is None
+              and q.shape[1] > 1 and q.shape[1] % m == 0)
     if out is None:
-        if layout == "mixed":
+        q_pos = flat_pos
+        if sliced:
+            q, k_all, v_all, q_pos = _query_slice(q, k_all, v_all, flat_pos,
+                                                  layout)
+        elif layout == "mixed":
             k_all, v_all = (_for_heads(t, q.shape[2]) for t in (k_all, v_all))
-        out = _core(q, k_all, v_all, flat_pos, k_pos, causal, window,
+        out = _core(q, k_all, v_all, q_pos, k_pos, causal, window,
                     k_valid, resolve_impl(impl, q.shape[1], k_all.shape[1]),
                     block)
+        if sliced:
+            out = _query_joined(out, layout)
 
     b, s, h, _ = out.shape
     if layout == "dboth":

@@ -48,9 +48,9 @@ def init_hybrid_cache(cfg, batch: int, cache_len: int, is_global: bool,
 
 def apply_hybrid(params, x, cfg, *, positions, is_global, cache=None,
                  impl="kernel", block=1024, ssm_impl="kernel", ssm_chunk=256,
-                 ssm_bwd="fused"):
+                 ssm_bwd="fused", seq_shard=False):
     """x [B, S, D] -> (y, cache); a given cache {"kv", "ssm"} is updated
-    in place."""
+    in place. seq_shard: the attention branch's (``apply_attention``)."""
     window = 0 if is_global else cfg.sliding_window
     entered = (attention.model_layout(params["attn"]) != "replicated"
                and mamba.model_parallel(params["ssm"]))
@@ -59,7 +59,7 @@ def apply_hybrid(params, x, cfg, *, positions, is_global, cache=None,
     a_out, kv = attention.apply_attention(
         params["attn"], x, cfg, positions=positions, causal=True,
         window=window, cache=None if cache is None else cache["kv"],
-        impl=impl, block=block, x_entered=entered)
+        impl=impl, block=block, x_entered=entered, seq_shard=seq_shard)
     s_out, ssm = mamba.apply_mamba(
         params["ssm"], x, cfg, cache=None if cache is None else cache["ssm"],
         impl=ssm_impl, chunk=ssm_chunk, bwd_impl=ssm_bwd, x_entered=entered)

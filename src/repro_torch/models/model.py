@@ -143,13 +143,15 @@ def apply_block(params, x, cfg, kind: BlockKind, *, positions, cache=None,
             params["mix"], h, cfg, positions=positions,
             is_global=kind.is_global, cache=cache,
             impl=impls.get("attn", "kernel"),
-            block=impls.get("attn_block", 1024), **ssm_kw)
+            block=impls.get("attn_block", 1024),
+            seq_shard=impls.get("attn_seq_shard", False), **ssm_kw)
     else:
         window = 0 if kind.is_global else cfg.sliding_window
         out, cache = attention.apply_attention(
             params["attn"], h, cfg, positions=positions, causal=kind.causal,
             window=window, cache=cache, impl=impls.get("attn", "kernel"),
-            block=impls.get("attn_block", 1024))
+            block=impls.get("attn_block", 1024),
+            seq_shard=impls.get("attn_seq_shard", False))
     x = x + out
     if kind.cross:
         h = layers.apply_norm(x, params["norm_cross"], cfg.norm)

@@ -17,12 +17,14 @@ here is the identity and launches nothing, so the one-rank paths run
 exactly as they did.
 
 Transport. NCCL where each rank owns a card; gloo otherwise (the CPU, or
-several ranks sharing one card). Gloo's collectives take host tensors:
-a CUDA tensor is staged through a pinned host buffer, the collective runs
-on that, and the result is copied back. A sum over bf16 is taken in f32
-on gloo and rounded once (NCCL sums bf16 as it goes). Gloo's reduce-scatter
-is an all-reduce and this rank's slice, its all-gather an exact
-all-reduce of the ranks' bytes (``_all_gather``). The backend and the
+several ranks sharing one card); "fake" (torch's fake process group, no
+transport) where the dry run traces one rank's program. Gloo's
+collectives take host tensors: a CUDA tensor is staged through a pinned
+host buffer, the collective runs on that, and the result is copied
+back. A sum over bf16 is taken in f32 on gloo and rounded once (NCCL sums
+bf16 as it goes). Gloo's reduce-scatter is an all-reduce and this rank's
+slice, its all-gather an exact all-reduce of the ranks' bytes
+(``_all_gather``). The backend and the
 card of each rank are in the program and in every counter record.
 
 Autograd pairs (each identity, in both directions, on an axis of size 1):
@@ -87,11 +89,7 @@ class Program:
     dmesh: object = None             # the DeviceMesh the groups come from
 
     def size(self, axis: str) -> int:
-        if axis == WORLD:
-            return self.world
-        if axis == POD_DATA:
-            return self.size("pod") * self.size("data")
-        return int(self.mesh.shape.get(axis, 1))
+        return axis_size(self.mesh, axis)
 
     def index(self, axis: str) -> int:
         if axis == WORLD:
@@ -111,6 +109,16 @@ WORLD = "world"
 # the flattened (pod, data) axis: the clients and the batch on a mesh with
 # a pod axis
 POD_DATA = "pod+data"
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The ranks of `axis` on `mesh` (a mesh axis, the flattened (pod,
+    data) axis or the world; 1 for an axis the mesh lacks)."""
+    if axis == WORLD:
+        return mesh.size
+    if axis == POD_DATA:
+        return axis_size(mesh, "pod") * axis_size(mesh, "data")
+    return int(mesh.shape.get(axis, 1))
 
 
 def active() -> Optional[Program]:
@@ -277,7 +285,12 @@ def _count(op: str, axis: str, t) -> None:
 # memory is its output alone (and one copy more where it joins on a dim
 # other than 0). A CUDA tensor is otherwise laid out, cast and cut on the
 # card; only the collective's own buffer crosses to the host and back.
-# NCCL takes each tensor whole.
+# NCCL takes each tensor whole, and so does the "fake" backend
+# (``torch.testing._internal.distributed.fake_pg``: no transport, the dry
+# run's one-rank trace, ``launch.dryrun.trace_program``), so that a
+# traced rank issues what an NCCL rank issues; the counter records the
+# same calls and bytes on every backend.
+WHOLE_BACKENDS = ("nccl", "fake")
 GLOO_SPLIT_BYTES = 1 << 22
 GLOO_PIECES = 2
 
@@ -323,7 +336,7 @@ def all_reduce(x, axis: str, op: str = "sum"):
     _count("all_reduce", axis, x)
     rop = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
     group = _ACTIVE.groups[axis]
-    if _ACTIVE.backend == "nccl":
+    if _ACTIVE.backend in WHOLE_BACKENDS:
         y = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(y, op=rop, group=group)
         return y
@@ -340,7 +353,7 @@ def all_gather(x, dim: int, axis: str):
         return x
     group = _ACTIVE.groups[axis]
     x = x.contiguous()
-    if _ACTIVE.backend == "nccl":
+    if _ACTIVE.backend in WHOLE_BACKENDS:
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=group)
         out = torch.cat(parts, dim=dim)
@@ -371,7 +384,7 @@ def reduce_scatter(x, dim: int, axis: str):
                          f"over {n} ranks of {axis!r}")
     _count("reduce_scatter", axis, x)
     group = _ACTIVE.groups[axis]
-    if _ACTIVE.backend == "nccl":
+    if _ACTIVE.backend in WHOLE_BACKENDS:
         chunks = [c.contiguous() for c in x.chunk(n, dim)]
         out = torch.empty_like(chunks[0])
         dist.reduce_scatter(out, chunks, group=group)

@@ -58,6 +58,7 @@ from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch import obs
 
@@ -144,10 +145,11 @@ def shard_act(x, dims):
     >= 8192, ``RunConfig.seq_shard_acts``), cut on the sequence over
     `model` by ``models.model.cut_stream`` and gathered whole inside each
     block (the sequence left whole where it does not divide the axis, as
-    the rule table leaves it). Not held: the query sequence that
+    the rule table leaves it). The query sequence that
     ``repro/models/attention.py:271-276`` shards for the core attention
-    under ``RunConfig.attn_seq_shard`` (a constraint: the numbers are the
-    same; ROADMAP.md Queue 1 item 7h)."""
+    under ``RunConfig.attn_seq_shard`` is held by the program as well:
+    each model rank runs the core over its S/m queries
+    (``models.attention._query_slice``)."""
     return x
 
 
@@ -416,7 +418,10 @@ def shard_leaf(x, spec, prog=None):
             out = _cut(out, dim, i, n, _sections(entry))
     if torch.is_tensor(out):
         out = out.contiguous()
-        out = out.clone() if out.data_ptr() == x.data_ptr() else out
+        # a slice at x's start (or x uncut) is cloned; a fake tensor (the
+        # dry run's) has no data to share
+        if out is x or (not is_fake(out) and out.data_ptr() == x.data_ptr()):
+            out = out.clone()
         collectives.set_spec(out, spec)
         return out
     return np.ascontiguousarray(out)

@@ -842,22 +842,26 @@ def _saved_bytes(fn):
     return out, n[0]
 
 
-def seq_step(cfg_kw, params_np, frozen_np, batch_np, draws_np):
+def seq_step(cfg_kw, params_np, frozen_np, batch_np, draws_np,
+             flag="seq_shard_acts", base=()):
     """Under the active program, the MPSL loss and every gradient (summed
     over the client axis by ``reduce_grads``, gathered), links on the
-    given draws, without and with ``RunConfig.seq_shard_acts`` (act_dims
-    ("batch", "seq_model", None)): for each ("whole", "seq"), the loss,
-    the gradients, the bytes autograd saved over the forward and the
+    given draws (off where None), without and with the RunConfig field
+    `flag` (``seq_shard_acts``: act_dims ("batch", "seq_model", None);
+    ``attn_seq_shard``: the core attention over the rank's queries), the
+    fields `base` set in both: for each ("whole", "seq"), the loss, the
+    gradients, the bytes autograd saved over the forward and the
     collectives of the forward and backward, {"op/axis": {"calls",
     "bytes"}}."""
     cfg = _config(cfg_kw)
     prog = C.active()
-    draws = {k: torch.from_numpy(v) for k, v in draws_np.items()}
+    draws = 0 if draws_np is None else {k: torch.from_numpy(v)
+                                        for k, v in draws_np.items()}
     out = {}
     for seq in (False, True):
         run = dataclasses.replace(
-            _port_run(cfg, batch_np["mask"].shape[0], True),
-            seq_shard_acts=seq)
+            _port_run(cfg, batch_np["mask"].shape[0], draws_np is not None),
+            **dict(base), **{flag: seq})
         state = mpsl.place_state(mpsl.init_state(
             bridge.from_repro(params_np), bridge.from_repro(frozen_np),
             seed=9))
@@ -878,12 +882,13 @@ def seq_step(cfg_kw, params_np, frozen_np, batch_np, draws_np):
     return out
 
 
-def seq_prefill(cfg_kw, params_np, tokens_np):
+def seq_prefill(cfg_kw, params_np, tokens_np, flag="seq_shard_acts"):
     """``steps.build_prefill``'s function on this rank's shards, without
-    and with ``seq_shard_acts`` (the stream cut between the blocks, the
-    cache written by each block from the whole sequence): for each, the
-    last logits and every cache leaf, gathered, and the collectives of
-    the call."""
+    and with the RunConfig field `flag` (``seq_shard_acts``: the stream
+    cut between the blocks, the cache written by each block from the
+    whole sequence; ``attn_seq_shard``: the core over the rank's
+    queries): for each, the last logits and every cache leaf, gathered,
+    and the collectives of the call."""
     cfg = _config(cfg_kw)
     prog = C.active()
     b, s = tokens_np.shape
@@ -891,7 +896,7 @@ def seq_prefill(cfg_kw, params_np, tokens_np):
     for seq in (False, True):
         run = steps.default_run(cfg, ShapeConfig("prefill", s, b, "prefill"),
                                 prog.mesh, attn_impl="kernel",
-                                compute_dtype="float32", seq_shard_acts=seq)
+                                compute_dtype="float32", **{flag: seq})
         fn, _, in_specs = steps.build_prefill(cfg, run, prog.mesh)
         params, batch = steps.shard_inputs(
             (bridge.from_repro(params_np),
@@ -912,6 +917,71 @@ def seq_cases(meshes, cases, prefills=()):
     a in `prefills`])}."""
     return _with_meshes(meshes, lambda: ([seq_step(*a) for a in cases],
                                          [seq_prefill(*a) for a in prefills]))
+
+
+# ---------------------------------------------------------------------------
+# the dry run's program trace (tests/test_torch_dryrun_program.py)
+
+
+def dry_step(kind, cfg_kw, seq, batch, over, mesh):
+    """(fn, abstract whole arguments, in_specs) of a dry-run cell's step on
+    `mesh`: ``steps.default_run``'s run for `kind` at `seq` tokens and
+    global batch `batch`, `over` overriding its fields, the scan in its
+    associative form (as ``launch.dryrun.run_cell`` traces it)."""
+    cfg = _config(cfg_kw)
+    shape = ShapeConfig(kind, seq, batch, kind)
+    run = dataclasses.replace(
+        steps.default_run(cfg, shape, mesh, compute_dtype="float32", **over),
+        ssm_impl="assoc")
+    if kind == "train":
+        fn, a_state, a_batch, specs = steps.build_train(cfg, run, mesh)
+        return fn, (a_state, a_batch), specs
+    if kind == "prefill":
+        return steps.build_prefill(cfg, run, mesh)
+    return steps.build_decode(cfg, run, mesh)[:3]
+
+
+def _real(tree_, seed):
+    """A tree of meta leaves as real tensors, drawn from `seed`: ints in
+    [0, 8), floats 0.02 x N(0, 1), a train batch's mask ones."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def real(x):
+        if not torch.is_tensor(x):
+            return x
+        if x.dtype in (torch.int32, torch.int64):
+            return torch.randint(0, 8, x.shape, dtype=x.dtype, generator=gen)
+        return (0.02 * torch.randn(x.shape, generator=gen)).to(x.dtype)
+    out = tree.map_(real, tree_)
+    if isinstance(out, tuple) and isinstance(out[-1], dict) \
+            and "mask" in out[-1]:
+        out[-1]["mask"] = torch.ones_like(out[-1]["mask"])
+    return out
+
+
+def dry_cases(worlds):
+    """For each (mesh, cases) of `worlds`, under a program on the mesh,
+    each ``dry_step(*case)`` run once on this rank's shards of real
+    arguments: {mesh name: [its collectives, {"op/axis": {"calls",
+    "bytes"}}, and its ``FlopCounterMode`` flops]}."""
+    from torch.utils.flop_counter import FlopCounterMode
+    out = {}
+    dev = C.active().device
+    for m, cases in worlds:
+        with C.program(mesh_lib.init_device_mesh(m, dev)):
+            res = []
+            for case in cases:
+                fn, a_args, specs = dry_step(*case, m)
+                args = steps.shard_inputs(_real(a_args, 3), specs)
+                C.reset_counts()
+                with FlopCounterMode(display=False) as fc:
+                    fn(*args)
+                res.append({"flops": fc.get_total_flops(),
+                            "counts": {k: v for k, v in
+                                       C.read_counts().items()
+                                       if k != "program"}})
+            out[m.name] = res
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -536,7 +536,7 @@ def test_run_cell_counts_bytes_and_flops(kind):
     rec = dryrun.run_cell("minitron-4b", name, host_mesh=True, cfg=cfg,
                           shape=shape, overrides=over, verbose=False)
     assert JAX_RECORD_KEYS <= set(rec) and rec["status"] == "ok"
-    assert rec["collective_bytes_per_device"] is None
+    assert rec["collective_bytes_per_device"] == {}
     tm = dryrun.mesh_for(host_mesh=True)
     run = dataclasses.replace(steps.default_run(cfg, shape, tm, **over),
                               ssm_impl="assoc")
